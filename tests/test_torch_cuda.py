@@ -1,0 +1,126 @@
+"""The hand-written CUDA megakernel against its plain torch version on
+the card. Marked ``cuda``: without a CUDA device every test skips (the
+decision is made in a fixture, at run time). On the GPU machine, which
+has no jax, run them without tests/conftest.py:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+The module imports no jax, so it also hosts the chain scene the CPU
+tests build with both packages' builders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpurt.config import RenderConfig
+from tpurt_torch.core.camera import Camera
+from tpurt_torch.render import mega_cuda
+from tpurt_torch.render.megakernel import run_megakernel
+from tpurt_torch.render.renderer import flat_batch_args, render_frame
+from tpurt_torch.scene import procedural
+from tpurt_torch.scene.builder import Material, SceneBuilder
+from tpurt_torch.scene.presets import cornell_sphere_scene
+from tpurt_torch.scene.types import MaterialType
+
+pytestmark = pytest.mark.cuda
+
+CFG = RenderConfig(width=64, height=64, rays_per_pixel=2, max_bounces=3,
+                   pixels_per_lane=2, mega_tail_passes=2,
+                   object_path="sphere2.obj")
+
+
+def knot_obj_text() -> str:
+    pos, nrm = procedural.torus_knot(segments=24, sides=8, radius=30.0, tube=8.0)
+    lines = [f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}" for v in pos.reshape(-1, 3)]
+    lines += [f"vn {n[0]:.9g} {n[1]:.9g} {n[2]:.9g}" for n in nrm.reshape(-1, 3)]
+    lines += [f"f {3*i+1}//{3*i+1} {3*i+2}//{3*i+2} {3*i+3}//{3*i+3}"
+              for i in range(len(pos))]
+    lines += ["f 1 2 3", "f 1//1 2//2 99999//1"]  # skipped: no normals / OOB
+    return "\n".join(lines) + "\n"
+
+
+def chain_scene(builder_cls, material_cls, mt, proc):
+    """An identity icosphere big enough for the fused static chain entry,
+    two transformed instances of one OBJ (Glassy, OneSided) and a light,
+    built with either package's builder (the CPU tests build it with
+    tpurt's too)."""
+    b = builder_cls()
+    pos, nrm = proc.icosphere(1, radius=40.0)
+    ball = b.add_triangles(pos, nrm)
+    ball.material = material_cls(type=mt.SOLID, color=(0.8, 0.7, 0.6),
+                                 specular_probability=0.3, reflectiveness=0.5)
+    b.add_mesh(ball)
+    text = knot_obj_text()
+    knot = b.load_obj_text(text)
+    knot.material = material_cls(type=mt.GLASSY, ior=1.5, color=(0.9, 0.9, 1.0))
+    knot.pos, knot.yaw, knot.scale = (60.0, 10.0, -20.0), 0.7, 1.3
+    b.add_mesh(knot)
+    twin = b.load_obj_text(text)
+    twin.material = material_cls(type=mt.ONE_SIDED, color=(0.5, 0.9, 0.5))
+    twin.pos, twin.pitch, twin.roll = (-50.0, 30.0, 10.0), 0.3, -0.2
+    b.add_mesh(twin)
+    light = b.add_quad((-60, 180, -60), (60, 180, -60), (60, 180, 60),
+                       (-60, 180, 60), (0, -1, 0), (0, 0, 0))
+    light.material = material_cls(type=mt.SOLID, color=(1, 1, 1),
+                                  emission_color=(1, 1, 0.9),
+                                  emission_strength=10.0)
+    return b.freeze()
+
+
+
+@pytest.fixture(scope="module")
+def cuda_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene, cam, _ = cornell_sphere_scene(2, CFG, device="cuda")
+    return scene, cam
+
+
+@pytest.mark.parametrize("trips", [1, 4, 16])
+def test_kernel_lane_state_matches_plain(cuda_scene, trips):
+    scene, cam = cuda_scene
+    args = flat_batch_args(scene, cam, CFG, 0)
+    plain = run_megakernel(scene, body_backend="plain", max_iterations=trips,
+                           return_state=True, **args)
+    before = mega_cuda.LAUNCHES
+    kern = run_megakernel(scene, body_backend="cuda", max_iterations=trips,
+                          return_state=True, **args)
+    assert mega_cuda.LAUNCHES == before + 1
+    agree, _err = mega_cuda.compare_lanes(plain, kern)
+    assert agree >= 0.995, agree
+
+
+def test_kernel_frame_matches_plain(cuda_scene):
+    scene, cam = cuda_scene
+    sk, sp = {}, {}
+    kern = render_frame(scene, cam, CFG.replace(mega_body="pallas"), stats=sk)
+    plain = render_frame(scene, cam, CFG.replace(mega_body="xla"), stats=sp)
+    assert np.isfinite(kern).all()
+    assert (kern != plain).any(axis=-1).mean() <= 0.005
+    assert abs(sk["segments"] - sp["segments"]) <= 0.005 * sp["segments"]
+
+
+def test_kernel_rejects_a_malformed_buffer(cuda_scene):
+    scene, cam = cuda_scene
+    from tpurt_torch.render import megakernel as mk
+
+    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, CFG, 0))
+    buf = mega_cuda.pack(lane)
+    with pytest.raises(ValueError, match="words per lane"):
+        mega_cuda.launch(buf[1:].contiguous(), ctx, 1)
+
+
+def test_kernel_matches_plain_on_a_chain_scene(cuda_scene):
+    """Fused static BVH entry, two transformed instances (Glassy and
+    OneSided), chain skip and root expansion on three entries."""
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural).to("cuda")
+    cam = Camera.create((0, 80, 220), pitch=-0.15, yaw=3.14159,
+                        fov_degrees=70, aspect_ratio=1.0, device="cuda")
+    cfg = CFG.replace(rays_per_pixel=3, max_bounces=6, mega_tail_passes=3)
+    args = flat_batch_args(scene, cam, cfg, 0)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree >= 0.995, (trips, agree)

@@ -1,0 +1,115 @@
+"""tpurt_torch's scene freeze against tpurt's: the megakernel banks, the
+static stage, the packed materials, the chain, its parameter table and
+the root-expansion tables are bit-identical (compared as uint32), and a
+tpurt Scene carried across with ``scene.from_arrays`` renders the same
+tables."""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_cuda import chain_scene, knot_obj_text
+from tpurt.config import RenderConfig
+from tpurt.render.megakernel import _chain_params as t_chain_params
+from tpurt.render.shading import pack_materials as t_pack
+from tpurt.scene import procedural as t_proc
+from tpurt.scene.builder import Material as TMaterial
+from tpurt.scene.builder import SceneBuilder as TBuilder
+from tpurt.scene.presets import cornell_sphere_scene as t_cornell
+from tpurt.scene.types import MaterialType as TMT
+from tpurt_torch import scene as port_scene
+from tpurt_torch.render.megakernel import _chain_params
+from tpurt_torch.render.shading import pack_materials
+from tpurt_torch.scene import procedural
+from tpurt_torch.scene.builder import Material, SceneBuilder
+from tpurt_torch.scene.obj import parse_obj
+from tpurt_torch.scene.presets import cornell_sphere_scene
+from tpurt_torch.scene.types import ARRAY_FIELDS, STATIC_FIELDS, MaterialType
+
+
+def bits(a) -> np.ndarray:
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+def _scenes(which):
+    if which == "cornell":
+        cfg = RenderConfig(object_path="sphere1.obj")
+        return cornell_sphere_scene(1, cfg)[0], t_cornell(1, cfg)[0]
+    return (chain_scene(SceneBuilder, Material, MaterialType, procedural),
+            chain_scene(TBuilder, TMaterial, TMT, t_proc))
+
+
+@pytest.fixture(scope="module", params=["cornell", "chain"])
+def scenes(request):
+    return _scenes(request.param)
+
+
+def test_banks_and_static_stage_bit_equal(scenes):
+    mine, theirs = scenes
+    for f in ("mega_rows", "mega_static_rows", "tri_pos_a", "tri_nrm_c",
+              "mesh_qmin", "mesh_qscale"):
+        np.testing.assert_array_equal(bits(getattr(mine, f)),
+                                      bits(getattr(theirs, f)), err_msg=f)
+    for f in ("mega_chain", "mega_chain_members", "mega_stack_depth",
+              "mega_static_cull", "mega_static_onesided", "mega_static_owner",
+              "mesh_tri_ranges", "mesh_mat_types", "mesh_identity",
+              "mega_leaf_tris", "mega_arity", "mega_bounds_fmt", "mega_tlas"):
+        assert getattr(mine, f) == getattr(theirs, f), f
+    assert mine.mega_rows.shape[1] == 64  # the shipped a8/l3/W64 layout
+
+
+def test_materials_and_chain_tables_bit_equal(scenes):
+    mine, theirs = scenes
+    np.testing.assert_array_equal(bits(pack_materials(mine)),
+                                  bits(t_pack(theirs)))
+    p, tp = _chain_params(mine), t_chain_params(theirs)
+    np.testing.assert_array_equal(bits(p.table), bits(tp.table))
+    assert (p.root, p.root_leaf, p.mesh, p.expand) == (
+        tp.root, tp.root_leaf, tp.mesh, tp.expand)
+    if any(p.expand):
+        np.testing.assert_array_equal(bits(p.roots_f), bits(tp.roots_f))
+        np.testing.assert_array_equal(p.roots_i, np.asarray(tp.roots_i))
+
+
+def test_from_arrays_round_trip(scenes):
+    mine, theirs = scenes
+    carried = port_scene.from_arrays(
+        {f: np.asarray(getattr(theirs, f)) for f in ARRAY_FIELDS},
+        {f: getattr(theirs, f) for f in STATIC_FIELDS})
+    for f in ARRAY_FIELDS:
+        np.testing.assert_array_equal(
+            bits(getattr(carried, f)).view(np.uint8),
+            bits(getattr(mine, f)).view(np.uint8), err_msg=f)
+    for f in STATIC_FIELDS:
+        assert getattr(carried, f) == getattr(mine, f), f
+    np.testing.assert_array_equal(bits(_chain_params(carried).table),
+                                  bits(_chain_params(mine).table))
+
+
+def test_obj_parse_matches_tpurt():
+    from tpurt.scene.obj import parse_obj as t_parse
+
+    text = knot_obj_text()
+    warned = []
+    pos, nrm = parse_obj(text, warn=warned.append)
+    tpos, tnrm = t_parse(text, warn=lambda m: None)
+    np.testing.assert_array_equal(pos, tpos)
+    np.testing.assert_array_equal(nrm, tnrm)
+    assert pos.shape == (2 * 24 * 8, 3, 3) and len(warned) == 2
+
+
+def test_scene_to_device_and_unported_regimes():
+    scene, _ = _scenes("cornell")
+    moved = scene.to("cpu")
+    assert moved.device.type == "cpu" and moved.mega_chain == scene.mega_chain
+    with pytest.raises(NotImplementedError, match="TLAS"):
+        port_scene.from_arrays({}, {"mega_tlas": True})
+    b = SceneBuilder()
+    pos, nrm = procedural.icosphere(0, radius=5.0)
+    for i in range(9):  # more instanced meshes than MEGA_TLAS_THRESHOLD
+        h = b.add_triangles(pos, nrm)
+        h.pos = (10.0 * (i + 1), 0.0, 0.0)
+        b.add_mesh(h)
+    with pytest.raises(NotImplementedError, match="TLAS"):
+        b.freeze()

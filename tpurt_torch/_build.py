@@ -1,0 +1,87 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+Route: nvcc by hand into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -fmad=false -shared -Xcompiler -fPIC -o <lib>.so csrc/<name>.cu
+
+``-fmad=false`` keeps every a*b+c a rounded multiply and a rounded add,
+as the plain torch version computes them; no fast math, so divisions
+and square roots stay IEEE. The library lands in ``build/tpurt_torch/``
+at the repository root, named by a hash of its source and flags, so an
+edited source rebuilds and an unchanged one loads at once. A failed
+build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpurt_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+]
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def lib_path(name: str) -> str:
+    """The library path for ``csrc/<name>.cu`` at its current hash."""
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its hash is already built;
+    returns the library path. The compiler's output (ptxas register and
+    spill report included) is kept beside it as ``<lib>.log``."""
+    out = lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(out + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {name}:\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<name>.cu`` (once per process)."""
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(build(name))
+        return _LIBS[name]
+
+
+def build_log(name: str) -> str:
+    path = lib_path(name) + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()

@@ -1,0 +1,786 @@
+// The megakernel path tracer for Hopper: one CUDA thread per lane runs
+// the whole persistent lane loop of tpurt_torch/render/megakernel.py.
+//
+// Replaces tpurt/render/mega_pallas.py:make_pallas_body (the fused
+// Pallas body, one launch per loop trip over blocks of 4096 lanes) AND
+// the XLA row gather between those launches (megakernel.py _gather):
+// here each thread loads its own lane's bank row straight from global
+// memory, so one launch renders a whole flat batch. This is the
+// per-thread form of the reference kernel (Trace.cl:319-594) rather
+// than the TPU's block-of-lanes transcription: a GPU thread has real
+// branches and its own registers, so a lane runs only the branch it
+// takes (node OR leaf, the materials it hits) instead of computing every
+// branch and selecting, and a retired lane costs nothing.
+//
+// What bounds it on the card: divergent per-lane row loads (each trip
+// reads one 256-byte row at a data-dependent address; the bank, ~7 MB
+// for the 69k-triangle mesh, stays resident in the 50 MB L2) and
+// register pressure (the lane state is ~70 words plus a local-memory
+// traversal stack). Warps diverge where lanes take different branches;
+// reordering rays into coherent wavefronts is later work.
+//
+// Numerics: built with -fmad=false and without fast math, so every
+// a*b+c stays a rounded multiply and a rounded add, divisions and
+// square roots are IEEE, and normalisation is 1.0f/sqrtf(x) — exactly
+// the plain torch version's operations on the card. logf/cosf are the
+// CUDA math library's, as torch's own CUDA log/cos are. Integer words
+// of the bank are read as bits (__float_as_int), never converted.
+//
+// Lane state crosses the C boundary as one (n_fields, R) buffer of
+// 32-bit words; the field order is enum Field below, mirrored by
+// LANE_WORDS in render/mega_cuda.py (a CPU test holds the two equal).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxStack = 64;
+constexpr uint32_t kEmpty = 0xFFFFFFFFu;
+constexpr uint32_t kTag = 0x80000000u;
+constexpr int kSlotBits = 6;
+constexpr uint32_t kSlotMask = (1u << kSlotBits) - 1u;
+constexpr int kCpWidth = 21;
+constexpr int kMatWidth = 11;
+constexpr float kEps = 1e-6f;
+constexpr float kGrow = 1.001f;
+constexpr float kTau = 6.28318530717958647692f;
+
+// One enumerator per 32-bit word of a lane, in buffer order. After
+// N_FIXED come 3*P quota accumulators (P > 1 only) and the S stack
+// slots, top first.
+enum Field : int {
+  RO0_X, RO0_Y, RO0_Z, RD0_X, RD0_Y, RD0_Z,
+  PIX, PIXNO, SAMPLE,
+  ACC_X, ACC_Y, ACC_Z,
+  RNG, DONE, SEGMENTS,
+  ORIGIN_X, ORIGIN_Y, ORIGIN_Z, DIRECTION_X, DIRECTION_Y, DIRECTION_Z,
+  THROUGHPUT_X, THROUGHPUT_Y, THROUGHPUT_Z, LIGHT_X, LIGHT_Y, LIGHT_Z,
+  BOUNCES, INVIS, ENTRY, CUR, CUR_LEAF, CUR_SLOT,
+  LO_X, LO_Y, LO_Z, LD_X, LD_Y, LD_Z, LID_X, LID_Y, LID_Z,
+  LT, LNRM_X, LNRM_Y, LNRM_Z, LBACK, LMESH,
+  W_VALID, W_DST, W_POINT_X, W_POINT_Y, W_POINT_Z,
+  W_NORMAL_X, W_NORMAL_Y, W_NORMAL_Z, W_BACK, W_MESH,
+  C_SET, C_VALID, C_POINT_X, C_POINT_Y, C_POINT_Z,
+  C_NORMAL_X, C_NORMAL_Y, C_NORMAL_Z, C_BACK, C_MESH, C_DST,
+  N_FIXED
+};
+
+}  // namespace
+
+// Launch configuration; mirrored by mega_cuda._Cfg (ctypes).
+struct MkCfg {
+  int n_lanes, max_trips;
+  int e_count, s_depth, num_meshes, n_static;
+  int max_bounces, rays_per_pixel, seed_reference, invisible_budget;
+  int use_cache, p_count, pixel_stride, width, height;
+  int tail_passes, expand_passes, n_skip, leaf_tris, arity, row_width;
+  int frame_index, sample_offset;
+};
+
+namespace {
+
+struct Tables {
+  const float* rows;     // (N, row_width) bank
+  const float* chain;    // (E, 21) chain params
+  const float* mats;     // (K, 11) materials
+  const float* srows;    // (n_static, 19) static triangles
+  const float* roots_f;  // (E, 1 + 6*arity) decoded root child bounds
+  const int* roots_i;    // (E, arity) root child metas
+  const int* meta;       // root[E] leaf[E] mesh[E] expand[E]
+                         // s_cull[S] s_onesided[S] s_owner[S] mesh_cull[K]
+  const float* slot_rd;  // (3, P-1, R) quota slot directions
+};
+
+struct V {
+  float x, y, z;
+};
+__device__ __forceinline__ V v3(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V ld3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V operator+(V a, V b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V operator-(V a, V b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V operator-(V a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V operator*(V a, V b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V operator*(V a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V operator/(V a, float s) { return {a.x / s, a.y / s, a.z / s}; }
+__device__ __forceinline__ float dot(V a, V b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V cross(V a, V b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+__device__ __forceinline__ V normalize(V a) { return a * rsq(dot(a, a)); }
+__device__ __forceinline__ float length(V a) { return sqrtf(dot(a, a)); }
+__device__ __forceinline__ V sel(bool c, V a, V b) { return c ? a : b; }
+
+// torch.minimum / torch.maximum / clamp_min: a NaN operand wins.
+__device__ __forceinline__ float minp(float a, float b) {
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+}
+__device__ __forceinline__ float maxp(float a, float b) {
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+// ---------------------------------------------------------------- RNG
+// Exact u32 transcription of Trace.cl:158-217 (rng.py).
+
+__device__ __forceinline__ float unit_float(uint32_t s) {
+  return __uint2float_rn(s + 1u) * 2.3283064365386963e-10f;
+}
+__device__ __forceinline__ uint32_t lcg(uint32_t s) { return s * 747796405u + 2891336453u; }
+__device__ __forceinline__ uint32_t make_seed(uint32_t pix, int frame, uint32_t ray) {
+  uint32_t s = pix * 1664525u + (uint32_t)frame * 1013904223u;
+  s ^= ray + 0x9E3779B9u;
+  return s * 22695477u + 1u;
+}
+__device__ __forceinline__ uint32_t random_value(uint32_t s, float& out) {
+  s = lcg(s);
+  uint32_t shift = (s >> 28) + 4u;
+  uint32_t r = ((s >> shift) ^ s) * 277803737u;
+  r = (r >> 22) ^ r;
+  out = unit_float(r);
+  return s;
+}
+__device__ __forceinline__ uint32_t rand01(uint32_t s, float& out) {
+  s = lcg(s);
+  uint32_t z = s;
+  z = (z ^ (z >> 16)) * 0x7FEB352Du;
+  z = (z ^ (z >> 15)) * 0x846CA68Bu;
+  z = z ^ (z >> 16);
+  out = unit_float(z);
+  return s;
+}
+__device__ __forceinline__ uint32_t random_normal(uint32_t s, float& out) {
+  float u1, u2;
+  s = random_value(s, u1);
+  s = random_value(s, u2);
+  u1 = maxp(u1, kEps);
+  float r = sqrtf(-2.0f * logf(u1));
+  out = r * cosf(kTau * u2);
+  return s;
+}
+__device__ __forceinline__ uint32_t random_direction(uint32_t s, V& d) {
+  float x, y, z;
+  s = random_normal(s, x);
+  s = random_normal(s, y);
+  s = random_normal(s, z);
+  float inv = rsq(x * x + y * y + z * z);
+  d = v3(x * inv, y * inv, z * inv);
+  if (!(isfinite(d.x) && isfinite(d.y) && isfinite(d.z))) d = v3(0.0f, 1.0f, 0.0f);
+  return s;
+}
+
+// ------------------------------------------------------------ geometry
+
+// Exact Möller-Trumbore (megakernel._mt_core); false = no valid hit.
+__device__ __forceinline__ bool mt(V lo, V ld, V pa, V e1, V e2, V na, V nb, V nc,
+                                   bool cull, float& t, V& n, bool& back) {
+  V h = cross(ld, e2);
+  float det = dot(e1, h);
+  if (!(fabsf(det) >= kEps)) return false;
+  float f = 1.0f / det;
+  V s = lo - pa;
+  float u = f * dot(s, h);
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
+  V q = cross(s, e1);
+  float v = f * dot(ld, q);
+  if (!(v >= 0.0f && u + v <= 1.0f)) return false;
+  t = f * dot(e2, q);
+  if (!(t > kEps)) return false;
+  float w = 1.0f - u - v;
+  n = normalize(v3(na.x * w + nb.x * u + nc.x * v, na.y * w + nb.y * u + nc.y * v,
+                   na.z * w + nb.z * u + nc.z * v));
+  back = dot(ld, n) > kEps;
+  if (cull && back) return false;
+  if (back) n = -n;
+  return true;
+}
+
+// Slab test with a distance bound; a NaN slab (0 * inf) is open.
+__device__ __forceinline__ float slab_lo(float a, float b) {
+  return (a != a || b != b) ? -INFINITY : fminf(a, b);
+}
+__device__ __forceinline__ float slab_hi(float a, float b) {
+  return (a != a || b != b) ? INFINITY : fmaxf(a, b);
+}
+__device__ __forceinline__ bool aabb(V lo, V lid, V bmin, V bmax, float limit) {
+  V t0 = (bmin - lo) * lid;
+  V t1 = (bmax - lo) * lid;
+  float tmin = fmaxf(fmaxf(slab_lo(t0.x, t1.x), slab_lo(t0.y, t1.y)), slab_lo(t0.z, t1.z));
+  float tmax = fminf(fminf(slab_hi(t0.x, t1.x), slab_hi(t0.y, t1.y)), slab_hi(t0.z, t1.z));
+  return tmax >= fmaxf(tmin, 0.0f) && tmin < limit;
+}
+
+__device__ __forceinline__ float safe_scale(float s) { return fabsf(s) > kEps ? s : 1.0f; }
+
+// out_i = sum_j rot[j][i] * v_j  /  out_i = sum_j rot[i][j] * v_j
+__device__ __forceinline__ V rot_t(const float* r, V v) {
+  return v3(r[0] * v.x + r[3] * v.y + r[6] * v.z, r[1] * v.x + r[4] * v.y + r[7] * v.z,
+            r[2] * v.x + r[5] * v.y + r[8] * v.z);
+}
+__device__ __forceinline__ V rot_fwd(const float* r, V v) {
+  return v3(r[0] * v.x + r[1] * v.y + r[2] * v.z, r[3] * v.x + r[4] * v.y + r[5] * v.z,
+            r[6] * v.x + r[7] * v.y + r[8] * v.z);
+}
+
+__device__ __forceinline__ V reflect(V d, V n) {
+  float k = 2.0f * dot(d, n);
+  return v3(d.x - k * n.x, d.y - k * n.y, d.z - k * n.z);
+}
+__device__ __forceinline__ V refract(V d, V n, float a, float b) {
+  float ratio = a / b;
+  float cos_in = -dot(d, n);
+  float sin_sqr = ratio * ratio * (1.0f - cos_in * cos_in);
+  if (sin_sqr > 1.0f) return v3(0.0f, 0.0f, 0.0f);
+  float root = sqrtf(maxp(1.0f - sin_sqr, 0.0f));
+  float k = ratio * cos_in - root;
+  return v3(ratio * d.x + k * n.x, ratio * d.y + k * n.y, ratio * d.z + k * n.z);
+}
+__device__ __forceinline__ float fresnel(V d, V n, float a, float b) {
+  float ratio = a / b;
+  float cos_in = -dot(d, n);
+  float sin_sqr = ratio * ratio * (1.0f - cos_in * cos_in);
+  float cos_refr = sqrtf(maxp(1.0f - sin_sqr, 0.0f));
+  float denom = a * cos_in + b * cos_refr;
+  float r_perp = (a * cos_in - b * cos_refr) / denom;
+  float r_par = (b * cos_in - a * cos_refr) / denom;
+  float refl = 0.5f * (r_perp * r_perp + r_par * r_par);
+  bool degenerate = (cos_in <= 0.0f) || (sin_sqr >= 1.0f) || (denom < kEps);
+  return degenerate ? 1.0f : refl;
+}
+
+// ---------------------------------------------------------- lane state
+
+struct Lane {
+  V ro0, rd0;
+  uint32_t pix;
+  int pixno, sample;
+  V acc;
+  uint32_t rng;
+  bool done;
+  int segments;
+  V origin, direction, throughput, light;
+  int bounces, invis, entry, cur;
+  bool cur_leaf;
+  int cur_slot;
+  V lo, ld, lid;
+  float lt;
+  V lnrm;
+  bool lback;
+  int lmesh;
+  bool w_valid;
+  float w_dst;
+  V w_point, w_normal;
+  bool w_back;
+  int w_mesh;
+  bool c_set, c_valid;
+  V c_point, c_normal;
+  bool c_back;
+  int c_mesh;
+  float c_dst;
+  int sp;  // stack entries; stk[sp - 1] is the top
+  uint32_t stk[kMaxStack];
+};
+
+struct Words {
+  uint32_t* p;
+  int n;  // lanes (the row stride)
+  int i;  // this lane
+  __device__ uint32_t& w(int f) const { return p[(size_t)f * n + i]; }
+  __device__ float f(int f) const { return __uint_as_float(w(f)); }
+  __device__ V v(int f) const { return v3(this->f(f), this->f(f + 1), this->f(f + 2)); }
+  __device__ void put(int f, float x) const { w(f) = __float_as_uint(x); }
+  __device__ void put(int f, V a) const { put(f, a.x); put(f + 1, a.y); put(f + 2, a.z); }
+};
+
+__device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) {
+  L.ro0 = s.v(RO0_X); L.rd0 = s.v(RD0_X);
+  L.pix = s.w(PIX); L.pixno = (int)s.w(PIXNO); L.sample = (int)s.w(SAMPLE);
+  L.acc = s.v(ACC_X);
+  L.rng = s.w(RNG); L.done = s.w(DONE) != 0; L.segments = (int)s.w(SEGMENTS);
+  L.origin = s.v(ORIGIN_X); L.direction = s.v(DIRECTION_X);
+  L.throughput = s.v(THROUGHPUT_X); L.light = s.v(LIGHT_X);
+  L.bounces = (int)s.w(BOUNCES); L.invis = (int)s.w(INVIS);
+  L.entry = (int)s.w(ENTRY); L.cur = (int)s.w(CUR);
+  L.cur_leaf = s.w(CUR_LEAF) != 0; L.cur_slot = (int)s.w(CUR_SLOT);
+  L.lo = s.v(LO_X); L.ld = s.v(LD_X); L.lid = s.v(LID_X);
+  L.lt = s.f(LT); L.lnrm = s.v(LNRM_X); L.lback = s.w(LBACK) != 0; L.lmesh = (int)s.w(LMESH);
+  L.w_valid = s.w(W_VALID) != 0; L.w_dst = s.f(W_DST);
+  L.w_point = s.v(W_POINT_X); L.w_normal = s.v(W_NORMAL_X);
+  L.w_back = s.w(W_BACK) != 0; L.w_mesh = (int)s.w(W_MESH);
+  L.c_set = s.w(C_SET) != 0; L.c_valid = s.w(C_VALID) != 0;
+  L.c_point = s.v(C_POINT_X); L.c_normal = s.v(C_NORMAL_X);
+  L.c_back = s.w(C_BACK) != 0; L.c_mesh = (int)s.w(C_MESH); L.c_dst = s.f(C_DST);
+  // Slot k of the buffer is the k-th entry from the top; the entries
+  // are contiguous from slot 0 (pushes and pops shift the whole stack).
+  int sp = 0;
+  while (sp < s_depth && s.w(stack_base + sp) != kEmpty) ++sp;
+  for (int k = 0; k < sp; ++k) L.stk[sp - 1 - k] = s.w(stack_base + k);
+  L.sp = sp;
+}
+
+__device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_depth) {
+  s.put(RO0_X, L.ro0); s.put(RD0_X, L.rd0);
+  s.w(PIX) = L.pix; s.w(PIXNO) = (uint32_t)L.pixno; s.w(SAMPLE) = (uint32_t)L.sample;
+  s.put(ACC_X, L.acc);
+  s.w(RNG) = L.rng; s.w(DONE) = L.done; s.w(SEGMENTS) = (uint32_t)L.segments;
+  s.put(ORIGIN_X, L.origin); s.put(DIRECTION_X, L.direction);
+  s.put(THROUGHPUT_X, L.throughput); s.put(LIGHT_X, L.light);
+  s.w(BOUNCES) = (uint32_t)L.bounces; s.w(INVIS) = (uint32_t)L.invis;
+  s.w(ENTRY) = (uint32_t)L.entry; s.w(CUR) = (uint32_t)L.cur;
+  s.w(CUR_LEAF) = L.cur_leaf; s.w(CUR_SLOT) = (uint32_t)L.cur_slot;
+  s.put(LO_X, L.lo); s.put(LD_X, L.ld); s.put(LID_X, L.lid);
+  s.put(LT, L.lt); s.put(LNRM_X, L.lnrm); s.w(LBACK) = L.lback; s.w(LMESH) = (uint32_t)L.lmesh;
+  s.w(W_VALID) = L.w_valid; s.put(W_DST, L.w_dst);
+  s.put(W_POINT_X, L.w_point); s.put(W_NORMAL_X, L.w_normal);
+  s.w(W_BACK) = L.w_back; s.w(W_MESH) = (uint32_t)L.w_mesh;
+  s.w(C_SET) = L.c_set; s.w(C_VALID) = L.c_valid;
+  s.put(C_POINT_X, L.c_point); s.put(C_NORMAL_X, L.c_normal);
+  s.w(C_BACK) = L.c_back; s.w(C_MESH) = (uint32_t)L.c_mesh; s.put(C_DST, L.c_dst);
+  for (int k = 0; k < s_depth; ++k)
+    s.w(stack_base + k) = k < L.sp ? L.stk[L.sp - 1 - k] : kEmpty;
+}
+
+// Push on top; a full stack drops its bottom entry, as tpurt's
+// fixed-depth shift register does.
+__device__ __forceinline__ void push(Lane& L, uint32_t e, int s_depth) {
+  if (L.sp == s_depth) {
+    for (int k = 1; k < s_depth; ++k) L.stk[k - 1] = L.stk[k];
+    L.sp = s_depth - 1;
+  }
+  L.stk[L.sp++] = e;
+}
+
+struct Ctx {
+  const MkCfg& c;
+  const Tables& tb;
+  Words s;
+  __device__ const int* chain_root() const { return tb.meta; }
+  __device__ const int* chain_leaf() const { return tb.meta + c.e_count; }
+  __device__ const int* chain_mesh() const { return tb.meta + 2 * c.e_count; }
+  __device__ const int* expand() const { return tb.meta + 3 * c.e_count; }
+  __device__ const int* s_cull() const { return tb.meta + 4 * c.e_count; }
+  __device__ const int* s_onesided() const { return s_cull() + c.n_static; }
+  __device__ const int* s_owner() const { return s_onesided() + c.n_static; }
+  __device__ const int* mesh_cull() const { return s_owner() + c.n_static; }
+};
+
+// WorldToLocalRay (Trace.cl:118-137) for chain entry ``entry``.
+__device__ __forceinline__ void enter(const Ctx& x, int entry, V origin, V direction,
+                                      V& lo, V& ld, V& lid, int& root, bool& leaf) {
+  int ec = min(entry, x.c.e_count - 1);
+  const float* cp = x.tb.chain + ec * kCpWidth;
+  float safe = safe_scale(cp[12]);
+  lo = rot_t(cp + 3, origin - ld3(cp)) / safe;
+  ld = normalize(rot_t(cp + 3, direction) / safe);
+  lid = v3(1.0f / ld.x, 1.0f / ld.y, 1.0f / ld.z);
+  root = x.chain_root()[ec];
+  leaf = x.chain_leaf()[ec] != 0;
+}
+
+__device__ __forceinline__ bool pretest(const Ctx& x, int entry, V lo, V lid, float w_dst) {
+  const float* cp = x.tb.chain + min(entry, x.c.e_count - 1) * kCpWidth;
+  return aabb(lo, lid, ld3(cp + 15), ld3(cp + 18), w_dst / safe_scale(cp[12]) * kGrow);
+}
+
+struct TwoBest {
+  int best_prio, first_meta, second_prio, second_meta, hits;
+  __device__ void init(int arity) {
+    best_prio = second_prio = arity;
+    first_meta = second_meta = hits = 0;
+  }
+  // A new best demotes the old best to second.
+  __device__ void add(int prio, int meta) {
+    if (prio < best_prio) {
+      second_prio = best_prio; second_meta = first_meta;
+      best_prio = prio; first_meta = meta;
+    } else if (prio < second_prio) {
+      second_prio = prio; second_meta = meta;
+    }
+    ++hits;
+  }
+};
+
+// Root-node test of expanded entry ``e`` at enter time (_expand_root).
+__device__ void expand_root(const Ctx& x, Lane& L, int e) {
+  const int arity = x.c.arity;
+  const float* rf = x.tb.roots_f + e * (1 + 6 * arity);
+  const int* ri = x.tb.roots_i + e * arity;
+  float limit = minp(L.lt, L.w_dst / safe_scale(x.tb.chain[e * kCpWidth + 12]) * kGrow);
+  float axis = rf[0];
+  float dcomp = axis == 0.0f ? L.ld.x : (axis == 1.0f ? L.ld.y : L.ld.z);
+  bool fwd = dcomp >= 0.0f;
+  TwoBest b;
+  b.init(arity);
+  for (int slot = 0; slot < arity; ++slot) {
+    int meta = ri[slot];
+    if (meta == 0) continue;
+    const float* bb = rf + 1 + 6 * slot;
+    if (aabb(L.lo, L.lid, ld3(bb), ld3(bb + 3), limit))
+      b.add(fwd ? slot : arity - 1 - slot, meta);
+  }
+  if (b.best_prio < arity) {
+    L.cur = b.first_meta >> 1;
+    L.cur_leaf = (b.first_meta & 1) == 1;
+    // Entering lanes hold an empty stack (see megakernel._expand_root).
+    L.sp = 0;
+    if (b.hits >= 3)
+      L.stk[L.sp++] = ((uint32_t)x.chain_root()[e] << kSlotBits) | (uint32_t)(b.second_prio + 1);
+    if (b.hits >= 2) L.stk[L.sp++] = kTag | (uint32_t)b.second_meta;
+  } else {
+    L.cur = -1;
+    L.cur_leaf = false;
+  }
+}
+
+// Dense MT of the inline static triangles for a fresh ray.
+__device__ void static_stage(const Ctx& x, V origin, V direction, bool& valid, float& dst,
+                             V& point, V& normal, bool& back, int& mesh) {
+  valid = false; dst = INFINITY; point = normal = v3(0.0f, 0.0f, 0.0f);
+  back = false; mesh = -1;
+  if (x.c.n_static == 0) return;
+  V ld = normalize(direction);
+  float lt = INFINITY;
+  V lnrm = v3(0.0f, 0.0f, 0.0f);
+  bool lback = false;
+  int lmesh = -1;
+  for (int s = 0; s < x.c.n_static; ++s) {
+    const float* r = x.tb.srows + 19 * s;
+    V pa = ld3(r);
+    float t;
+    V n;
+    bool bf;
+    if (!mt(origin, ld, pa, ld3(r + 3) - pa, ld3(r + 6) - pa, ld3(r + 9), ld3(r + 12),
+            ld3(r + 15), x.s_cull()[s] != 0, t, n, bf))
+      continue;
+    if (x.s_onesided()[s] && bf) continue;
+    if (t < lt) { lt = t; lnrm = n; lback = bf; lmesh = x.s_owner()[s]; }
+  }
+  if (lmesh < 0) return;
+  valid = true;
+  point = origin + ld * lt;
+  normal = normalize(lnrm);
+  dst = length(point - origin);
+  back = lback;
+  mesh = lmesh;
+}
+
+// One material interaction of a lane at the shading stage
+// (shading.shade_hit_soa with enabled = true).
+__device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisible) {
+  const float* m = x.tb.mats + kMatWidth * max(L.w_mesh, 0);
+  float mtype = m[0], ior = m[1];
+  V color = ld3(m + 2), em_color = ld3(m + 5);
+  float em_strength = m[8], refl = m[9], spec_prob = m[10];
+  V hp = L.w_point, hn = L.w_normal, dir = L.direction;
+
+  bool a_hit = L.w_valid;
+  invisible = a_hit && mtype == 2.0f;
+  bool scatter = a_hit && !invisible;
+  bool is_checker = scatter && mtype == 1.0f;
+  if (is_checker) {
+    float size = em_strength != 0.0f ? em_strength : 1.0f;
+    int xi = (int)floorf(hp.x / size);
+    int zi = (int)floorf(hp.z / size);
+    if (((xi + zi) & 1) != 0) color = em_color;
+    em_strength = 0.0f;
+  }
+  bool mask_cs = is_checker || (scatter && mtype == 0.0f);
+  uint32_t rng = L.rng;
+  V dir_cs = dir;
+  if (mask_cs) {
+    float rv;
+    V rd;
+    rng = random_value(rng, rv);
+    rng = random_direction(rng, rd);
+    float t = refl * (spec_prob >= rv ? 1.0f : 0.0f);
+    V diffuse = normalize(hn + rd);
+    V specular = reflect(dir, hn);
+    float w = 1.0f - t;
+    dir_cs = normalize(v3(diffuse.x * w + specular.x * t, diffuse.y * w + specular.y * t,
+                          diffuse.z * w + specular.z * t));
+  }
+  bool is_glassy = scatter && mtype == 3.0f;
+  V new_dir = mask_cs ? dir_cs : dir;
+  float glassy_w = 1.0f;
+  if (is_glassy) {
+    float ior_cur = L.w_back ? ior : 1.0f;
+    float ior_next = L.w_back ? 1.0f : ior;
+    float rw = fresnel(dir, hn, ior_cur, ior_next);
+    float r01;
+    rng = rand01(rng, r01);
+    bool will_reflect = r01 < rw;
+    new_dir = will_reflect ? reflect(dir, hn) : refract(dir, hn, ior_cur, ior_next);
+    glassy_w = will_reflect ? rw : 1.0f - rw;
+  }
+  V tn = L.throughput * glassy_w;
+
+  // Common tail (Trace.cl:574-591), add-zero / mul-one forms kept.
+  V contrib = tn * (em_color * em_strength);
+  V zero = v3(0.0f, 0.0f, 0.0f);
+  V light_new = L.light + sel(scatter, contrib, zero);
+  V origin_new = scatter ? hp + new_dir * kEps : L.origin;
+  if (invisible) origin_new = hp + dir * kEps;
+  tn = tn * sel(scatter, color, v3(1.0f, 1.0f, 1.0f));
+  float p = maxp(maxp(tn.x, tn.y), tn.z);
+  bool rr = scatter && L.bounces > 3;
+  float q = maxp(1.0f - p, 0.05f);
+  bool killed = false;
+  if (rr) {
+    float r01;
+    rng = rand01(rng, r01);
+    killed = r01 < q;
+    if (!killed) tn = tn / (1.0f - q);
+  }
+  int bounces_new = L.bounces + (scatter ? 1 : 0);
+  continuing = a_hit && !killed && bounces_new < x.c.max_bounces;
+  L.origin = origin_new;
+  if (scatter) L.direction = new_dir;
+  L.throughput = tn;
+  L.light = light_new;
+  L.rng = rng;
+  L.bounces = bounces_new;
+}
+
+// The trip's traversal step on the lane's current bank row, then the
+// chain fold of a finished entry. Returns in_chain.
+__device__ bool traverse(const Ctx& x, Lane& L) {
+  const int E = x.c.e_count;
+  const int ec = min(L.entry, E - 1);
+  const float* cp = x.tb.chain + ec * kCpWidth;
+  const float scale_e = cp[12];
+  if (L.entry < E && L.cur >= 0) {
+    const float* row = x.tb.rows + (size_t)L.cur * x.c.row_width;
+    float limit = minp(L.lt, L.w_dst / safe_scale(scale_e) * kGrow);
+    bool pop;
+    if (L.cur_leaf) {
+      int entry_mesh = x.chain_mesh()[ec];
+      bool is_static = entry_mesh < 0;
+      bool cull_mesh_e = cp[14] != 0.0f;
+      for (int k = 0; k < x.c.leaf_tris; ++k) {
+        const float* t = row + 19 * k;
+        int aux = __float_as_int(t[18]);
+        bool cull = cull_mesh_e;
+        if (is_static)
+          cull = (aux >= 0 && aux < x.c.num_meshes) ? x.mesh_cull()[aux] != 0 : true;
+        V pa = ld3(t);
+        float tt;
+        V n;
+        bool bf;
+        if (mt(L.lo, L.ld, pa, ld3(t + 3) - pa, ld3(t + 6) - pa, ld3(t + 9), ld3(t + 12),
+               ld3(t + 15), cull, tt, n, bf) &&
+            tt < L.lt) {
+          L.lt = tt; L.lnrm = n; L.lback = bf; L.lmesh = is_static ? aux : entry_mesh;
+        }
+      }
+      pop = true;
+    } else {
+      // Node row: arity u8-quantised children on the node's grid,
+      // visited in direction-signed priority order; cur_slot floors the
+      // priority of a resumed node.
+      const int arity = x.c.arity;
+      V go = ld3(row), gs = ld3(row + 3);
+      int axis = __float_as_int(row[6]);
+      float dcomp = axis == 0 ? L.ld.x : (axis == 1 ? L.ld.y : L.ld.z);
+      bool fwd = dcomp >= 0.0f;
+      TwoBest b;
+      b.init(arity);
+      for (int slot = 0; slot < arity; ++slot) {
+        const float* w = row + 7 + 3 * slot;
+        int meta = __float_as_int(w[2]);
+        int prio = fwd ? slot : arity - 1 - slot;
+        if (meta == 0 || prio < L.cur_slot) continue;
+        uint32_t w0 = __float_as_uint(w[0]), w1 = __float_as_uint(w[1]);
+        V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
+                    (float)(int)((w0 >> 16) & 255u));
+        V q_hi = v3((float)(int)((w0 >> 24) & 255u), (float)(int)(w1 & 255u),
+                    (float)(int)((w1 >> 8) & 255u));
+        if (aabb(L.lo, L.lid, go + q_lo * gs, go + q_hi * gs, limit)) b.add(prio, meta);
+      }
+      pop = b.best_prio >= arity;
+      if (!pop) {
+        // The 2nd-nearest hit child goes on top RESOLVED (tag set); a
+        // (row, slot) resume entry below it only when a third exists.
+        if (b.hits >= 3)
+          push(L, ((uint32_t)L.cur << kSlotBits) | (uint32_t)(b.second_prio + 1), x.c.s_depth);
+        if (b.hits >= 2) push(L, kTag | (uint32_t)b.second_meta, x.c.s_depth);
+        L.cur = b.first_meta >> 1;
+        L.cur_leaf = (b.first_meta & 1) == 1;
+        L.cur_slot = 0;
+      }
+    }
+    if (pop) {
+      if (L.sp == 0) {
+        L.cur = -1;
+      } else {
+        uint32_t top = L.stk[--L.sp];
+        bool resolved = (top & kTag) != 0;
+        uint32_t meta = top & 0x7FFFFFFFu;
+        L.cur = resolved ? (int)(meta >> 1) : (int)(top >> kSlotBits);
+        L.cur_slot = resolved ? 0 : (int)(top & kSlotMask);
+        L.cur_leaf = resolved && (meta & 1u) == 1u;
+      }
+    }
+  }
+  // Next mesh: fold the finished entry to world space.
+  if (!(L.entry < E && L.cur < 0)) return false;
+  bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && L.lback) && scale_e > kEps;
+  if (lvalid) {
+    V point_w = rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp);
+    V n_w = normalize(rot_fwd(cp + 3, L.lnrm));
+    float dst = length(point_w - L.origin);
+    if (dst < L.w_dst) {
+      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
+      L.w_back = L.lback; L.w_mesh = L.lmesh;
+    }
+  }
+  L.entry += 1;
+  L.lt = INFINITY;
+  L.lnrm = v3(0.0f, 0.0f, 0.0f);
+  L.lback = false;
+  L.lmesh = -1;
+  return L.entry < E;
+}
+
+// Segment completion: shade -> accumulate/advance -> restart -> static
+// stage -> chain enter (pretest, chain skip, root expansion).
+__device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
+  const MkCfg& c = x.c;
+  const int E = c.e_count;
+  const bool shade = !L.done && L.entry >= E;
+  if (shade && c.use_cache && !L.c_set && L.bounces == 0 && L.sample == 0) {
+    L.c_set = true; L.c_valid = L.w_valid; L.c_point = L.w_point;
+    L.c_normal = L.w_normal; L.c_back = L.w_back; L.c_mesh = L.w_mesh; L.c_dst = L.w_dst;
+  }
+  bool continuing = false, invisible = false;
+  if (shade) {
+    L.segments += 1;
+    shade_hit(x, L, continuing, invisible);
+    if (invisible) L.invis += 1;
+    continuing = continuing && !(invisible && L.invis > c.invisible_budget);
+  }
+  const bool cont = shade && continuing;
+  const bool path_end = shade && !continuing;
+  V zero = v3(0.0f, 0.0f, 0.0f);
+  L.acc = L.acc + sel(path_end, L.light, zero);
+  if (path_end) L.sample += 1;
+  const bool pix_done = path_end && L.sample >= c.rays_per_pixel;
+  bool retire = pix_done, advance = false;
+  if (c.p_count > 1 && pix_done) {
+    bool last_pix = L.pixno >= c.p_count - 1;
+    retire = last_pix;
+    advance = !last_pix;
+    x.s.put(N_FIXED + 3 * L.pixno, L.acc);  // bank into the quota slot
+    L.acc = zero;
+    L.sample = 0;
+    if (advance) {
+      L.pixno += 1;
+      L.pix = (uint32_t)min((int)L.pix + c.pixel_stride, c.width * c.height - 1);
+      const float* sr = x.tb.slot_rd + (size_t)(L.pixno - 1) * x.s.n + x.s.i;
+      size_t comp = (size_t)(c.p_count - 1) * x.s.n;
+      L.rd0 = v3(sr[0], sr[comp], sr[2 * comp]);
+    }
+  }
+  L.done = L.done || retire;
+  const bool new_sample = path_end && !retire;
+  if (!c.seed_reference) {
+    if (new_sample)
+      L.rng = make_seed(L.pix, c.frame_index, (uint32_t)L.sample + (uint32_t)c.sample_offset);
+  } else if (advance) {
+    // Reference mode: one seed per PIXEL (Trace.cl:632-641).
+    L.rng = make_seed(L.pix, c.frame_index, 0u);
+  }
+  if (new_sample) {
+    L.origin = L.ro0; L.direction = L.rd0;
+    L.throughput = v3(1.0f, 1.0f, 1.0f); L.light = zero;
+    L.bounces = 0; L.invis = 0;
+  }
+  bool replay = false;
+  if (c.use_cache) {
+    if (advance) L.c_set = false;
+    replay = new_sample && L.c_set;
+  }
+  const bool restart = cont || (new_sample && !replay);
+  if (restart) { L.entry = 0; L.sp = 0; }
+  if (shade) { L.w_valid = false; L.w_dst = INFINITY; L.w_mesh = -1; }
+  if (restart)
+    static_stage(x, L.origin, L.direction, L.w_valid, L.w_dst, L.w_point, L.w_normal,
+                 L.w_back, L.w_mesh);
+  if (replay) {
+    L.entry = E;
+    L.w_valid = L.c_valid; L.w_dst = L.c_dst; L.w_point = L.c_point;
+    L.w_normal = L.c_normal; L.w_back = L.c_back; L.w_mesh = L.c_mesh;
+  }
+  if (E == 0 || !(entering_in || restart)) return;
+
+  // Enter the chain at L.entry; a failed pretest advances the entry in
+  // place (chain skip), up to n_skip further entries.
+  int cur_e = L.entry, root;
+  bool leaf;
+  V lo, ld, lid;
+  enter(x, cur_e, L.origin, L.direction, lo, ld, lid, root, leaf);
+  bool ok = pretest(x, cur_e, lo, lid, L.w_dst);
+  bool pend = !ok;
+  for (int k = 0; k < c.n_skip && pend; ++k) {
+    cur_e += 1;
+    pend = false;
+    if (cur_e < E) {
+      V lo3, ld3_, lid3;
+      int root3;
+      bool leaf3;
+      enter(x, cur_e, L.origin, L.direction, lo3, ld3_, lid3, root3, leaf3);
+      bool ok3 = pretest(x, cur_e, lo3, lid3, L.w_dst);
+      lo = lo3; ld = ld3_; lid = lid3; root = root3; leaf = leaf3; ok = ok3;
+      pend = !ok3;
+    }
+  }
+  if (pend && cur_e == E - 1) cur_e += 1;  // nothing left: shade now
+  L.entry = cur_e;
+  L.lo = lo; L.ld = ld; L.lid = lid;
+  L.cur = ok ? root : -1;
+  L.cur_leaf = leaf && ok;
+  L.cur_slot = 0;
+  if (do_expand && ok && cur_e < E && x.expand()[cur_e]) expand_root(x, L, cur_e);
+}
+
+__global__ void __launch_bounds__(128) megakernel(MkCfg c, Tables tb, uint32_t* state,
+                                                  int* trips_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_lanes) return;
+  const Ctx x{c, tb, Words{state, c.n_lanes, i}};
+  const int acc_words = c.p_count > 1 ? 3 * c.p_count : 0;
+  const int stack_base = N_FIXED + acc_words;
+  Lane L;
+  load_lane(L, x.s, stack_base, c.s_depth);
+  int trips = 0;
+  // One trip: traversal + fold, then tail_passes segment completions
+  // (megakernel._body_math). A retired lane stops; its state is final.
+  while (!L.done && trips < c.max_trips) {
+    const bool in_chain = c.e_count > 0 && traverse(x, L);
+    tail(x, L, in_chain, c.expand_passes >= 1);
+    for (int p = 1; p < c.tail_passes; ++p) tail(x, L, false, p < c.expand_passes);
+    ++trips;
+  }
+  store_lane(L, x.s, stack_base, c.s_depth);
+  trips_out[i] = trips;
+}
+
+}  // namespace
+
+extern "C" int tpurt_mk_fixed_words() { return N_FIXED; }
+
+extern "C" const char* tpurt_mk_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Launches the megakernel on ``stream``; returns cudaGetLastError().
+extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
+                               const float* mats, const float* srows, const float* roots_f,
+                               const int* roots_i, const int* meta, const float* slot_rd,
+                               uint32_t* state, int* trips, void* stream) {
+  Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd};
+  const int threads = 128;
+  const int blocks = (cfg->n_lanes + threads - 1) / threads;
+  if (blocks > 0)
+    megakernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*cfg, tb, state, trips);
+  return (int)cudaGetLastError();
+}

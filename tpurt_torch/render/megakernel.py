@@ -1,0 +1,980 @@
+"""Persistent-lane megakernel integrator: the plain PyTorch version, the
+lane state both backends share, and ``run_megakernel`` (port of
+tpurt/render/megakernel.py, unrolled-chain regime with u8 bounds).
+
+Each lane owns its whole task — pixel quota, sample loop, bounce loop,
+mesh chain, BVH cursor — as a state machine, and one loop trip advances
+every live lane by one step: traverse the lane's current bank row (node:
+slab-test the children and push the nearest hits on a tagged stack;
+leaf: exact Möller-Trumbore on the inline triangles), fold a finished
+chain entry to world space, then ``tail_passes`` times shade ->
+accumulate/advance -> restart -> inline static stage -> chain enter with
+root pretest, chain skip and root expansion. ``_body_math`` below is
+that trip as tensor ops over (R,) lanes — the same transcription as
+tpurt's ``_body_math``, op for op and in the same association order,
+minus the TPU-only regimes (TLAS, bf16 bounds, dense sweep, jitter,
+list quotas, cross-frame packs).
+
+Two backends run the loop (``run_megakernel(body_backend=...)``):
+
+  "plain"  this module: a Python loop of torch ops on any device. It is
+           the parity anchor (held against tpurt's XLA body on the CPU).
+  "cuda"   render/mega_cuda.py: csrc/megakernel.cu, one CUDA thread per
+           lane running the whole loop in registers.
+
+Setup — lane init, primary rays, the quota slots' direction tables, the
+chain and root tables — is plain torch on the scene's device and shared
+by both. Differences from tpurt's array types: u32 lane fields (pix,
+rng, stack entries) are int64 tensors holding values in [0, 2^32), and
+``iters`` is a Python int.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+import tpurt.config as _cfg
+from tpurt.config import EPSILON
+from tpurt_torch.core import rng as rnglib
+from tpurt_torch.core import v3 as v3lib
+from tpurt_torch.core.camera import make_ray, pixel_uv
+from tpurt_torch.core.v3 import V3
+from tpurt_torch.core.vecmath import euler_rotation
+from tpurt_torch.render.shading import pack_materials, shade_hit_soa
+from tpurt_torch.scene.builder import MEGA_SLOT_BITS
+from tpurt_torch.scene.types import MaterialType, Scene
+
+_F32 = torch.float32
+_I32 = torch.int32
+_INF = float("inf")
+_EPS = float(np.float32(EPSILON))
+_GROW = float(np.float32(1.001))  # pretest / traversal bound slack
+_EMPTY = 0xFFFFFFFF  # empty stack slot
+#: Stack-entry tag: set = a resolved child meta (target<<1 | is_leaf),
+#: clear = a (row << SLOT_BITS | slot) parent resume.
+_TAG = 0x80000000
+_SLOT_MASK = (1 << MEGA_SLOT_BITS) - 1
+
+# Packed chain-parameter table columns (tpurt's (E, 21) layout).
+_CP_POS = 0  # 3 columns
+_CP_ROT = 3  # 9 columns, row-major: rot[i][j] at 3 + 3*i + j
+_CP_SCALE = 12
+_CP_OS = 13  # one_sided as 0.0/1.0
+_CP_CULL = 14  # backface-cull policy as 0.0/1.0
+_CP_RMIN = 15  # 3 columns
+_CP_RMAX = 18  # 3 columns
+CP_WIDTH = 21
+
+
+class _Lane(NamedTuple):
+    iters: int  # loop trips executed so far
+    ro0: V3  # primary origin
+    rd0: V3  # primary direction of the current quota pixel
+    pix: torch.Tensor  # (R,) u32 (int64) current pixel
+    pixno: torch.Tensor  # (R,) i32 index of the current pixel in the quota
+    sample: torch.Tensor  # (R,) i32
+    acc: V3  # current pixel's radiance accumulator
+    accs: Tuple[V3, ...]  # per-quota-slot results (empty at quota 1)
+    rng: torch.Tensor  # (R,) u32 (int64)
+    done: torch.Tensor  # (R,) bool
+    segments: torch.Tensor  # (R,) i32
+    origin: V3
+    direction: V3
+    throughput: V3
+    light: V3
+    bounces: torch.Tensor  # (R,) i32
+    invis: torch.Tensor  # (R,) i32
+    entry: torch.Tensor  # (R,) i32 in [0, E]; E == shading stage
+    cur: torch.Tensor  # (R,) i32 row; -1 = entry exhausted
+    cur_leaf: torch.Tensor  # (R,) bool
+    cur_slot: torch.Tensor  # (R,) i32 first child priority to consider
+    stack: Tuple[torch.Tensor, ...]  # S x (R,) u32 (int64), top first
+    lo: V3  # local ray
+    ld: V3
+    lid: V3
+    lt: torch.Tensor  # (R,) local best distance
+    lnrm: V3
+    lback: torch.Tensor
+    lmesh: torch.Tensor
+    w_valid: torch.Tensor  # world-space best across the chain
+    w_dst: torch.Tensor
+    w_point: V3
+    w_normal: V3
+    w_back: torch.Tensor
+    w_mesh: torch.Tensor
+    c_set: Optional[torch.Tensor] = None  # primary-hit cache (None when off)
+    c_valid: Optional[torch.Tensor] = None
+    c_point: Optional[V3] = None
+    c_normal: Optional[V3] = None
+    c_back: Optional[torch.Tensor] = None
+    c_mesh: Optional[torch.Tensor] = None
+    c_dst: Optional[torch.Tensor] = None
+
+
+class _ChainParams(NamedTuple):
+    """Per-entry transform/material constants: the packed (E, 21) f32
+    table (as a tensor and as host numpy), static root targets, and the
+    root-expansion tables (None when no entry expands)."""
+
+    table: torch.Tensor  # (E, CP_WIDTH) f32
+    table_np: np.ndarray
+    root: Tuple[int, ...]
+    root_leaf: Tuple[bool, ...]
+    mesh: Tuple[int, ...]  # -1 = fused static entry
+    root_t: torch.Tensor  # the three tuples above as (E,) tensors
+    root_leaf_t: torch.Tensor
+    mesh_t: torch.Tensor
+    roots_f: Optional[np.ndarray] = None  # (E, 1 + 6*arity) f32
+    roots_i: Optional[np.ndarray] = None  # (E, arity) i32
+    expand: Tuple[bool, ...] = ()
+
+
+class _Ctx(NamedTuple):
+    """Loop invariants of one run_megakernel call (both backends)."""
+
+    rows: torch.Tensor  # (N, W) f32 bank
+    rows_i: torch.Tensor  # the same bits as i32
+    srows: np.ndarray  # (S, 19) f32 static triangle rows
+    s_cull: Tuple[bool, ...]
+    s_onesided: Tuple[bool, ...]
+    s_owner: Tuple[int, ...]
+    mats: torch.Tensor  # (K, 11)
+    mesh_cull: torch.Tensor  # (K,) bool backface-cull policy per mesh
+    params: Optional[_ChainParams]
+    slot_rd: Optional[V3]  # (P-1, R) directions of quota slots 1..P-1
+    frame_index: int
+    sample_offset: int
+    e_count: int
+    s_depth: int
+    max_bounces: int
+    rays_per_pixel: int
+    seed_mode: str
+    invisible_budget: int
+    use_cache: bool
+    p_count: int
+    pixel_stride: int
+    width: int
+    height: int
+    tail_passes: int
+    expand_passes: int
+    n_skip: int
+    leaf_tris: int
+    arity: int
+
+
+def _cull_policy(mt: int) -> bool:
+    return mt not in (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
+                      int(MaterialType.ONE_SIDED))
+
+
+def _chain_params(scene: Scene) -> _ChainParams:
+    """tpurt's _chain_params on the host, in numpy float32."""
+    rows = []
+    mesh_pos = scene.mesh_pos.cpu().numpy()
+    angles = [t.cpu().numpy() for t in
+              (scene.mesh_pitch, scene.mesh_yaw, scene.mesh_roll)]
+    mesh_scale = scene.mesh_scale.cpu().numpy()
+    mat_type = scene.mat_type.cpu().numpy()
+    qmin = scene.mesh_qmin.cpu().numpy()
+    qscale = scene.mesh_qscale.cpu().numpy()
+    for mesh_idx, _root, _leaf in scene.mega_chain:
+        if mesh_idx < 0:  # fused static entry: identity transform
+            rows.append(np.array(
+                [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0,
+                 1.0, 0.0, 1.0, -_INF, -_INF, -_INF, _INF, _INF, _INF],
+                np.float32))
+            continue
+        i = mesh_idx
+        rot = euler_rotation(angles[0][i], angles[1][i], angles[2][i])
+        mt = int(mat_type[i])
+        rmin = qmin[i]
+        rmax = qmin[i] + np.float32(65535.0) * qscale[i]
+        rows.append(np.concatenate([
+            mesh_pos[i], rot.reshape(9),
+            np.array([mesh_scale[i], float(mt == int(MaterialType.ONE_SIDED)),
+                      float(_cull_policy(mt))], np.float32),
+            rmin, rmax,
+        ]).astype(np.float32))
+    chain = scene.mega_chain
+    expand = tuple(
+        bool(_cfg.MEGA_ROOT_EXPAND) and len(chain) <= _cfg.MEGA_ROOT_EXPAND_MAX_E
+        and not leaf
+        for _m, _r, leaf in chain
+    )
+    table = np.stack(rows)
+    roots_f = roots_i = None
+    if any(expand):
+        roots_f, roots_i = _root_tables(scene, [r for _, r, _ in chain], expand)
+    dev = scene.device
+    root = tuple(r for _, r, _ in chain)
+    root_leaf = tuple(bool(l) for _, _, l in chain)
+    mesh = tuple(m for m, _, _ in chain)
+    return _ChainParams(
+        table=torch.from_numpy(table).to(dev), table_np=table,
+        root=root, root_leaf=root_leaf, mesh=mesh,
+        root_t=torch.tensor(root, dtype=_I32, device=dev),
+        root_leaf_t=torch.tensor(root_leaf, dtype=torch.bool, device=dev),
+        mesh_t=torch.tensor(mesh, dtype=_I32, device=dev),
+        roots_f=roots_f, roots_i=roots_i, expand=expand,
+    )
+
+
+def _root_tables(scene: Scene, chain_roots, expand):
+    """Each expanded entry's root-node test inputs: the sort axis, the
+    per-slot child bounds DECODED with the in-loop expression
+    ``grid_o + q * grid_s`` in f32, and the child metas."""
+    arity = scene.mega_arity
+    roots = scene.mega_rows[list(chain_roots)].cpu().numpy()  # just these rows
+    f_rows, i_rows = [], []
+    for e in range(len(chain_roots)):
+        if not expand[e]:
+            f_rows.append(np.zeros(1 + 6 * arity, np.float32))
+            i_rows.append(np.zeros(arity, np.int32))
+            continue
+        row = roots[e]
+        bits, ints = row.view(np.uint32), row.view(np.int32)
+        grid_o, grid_s = row[0:3], row[3:6]
+        cols = [np.float32(ints[6])]
+        metas = []
+        for slot in range(arity):
+            base = 7 + 3 * slot
+            w0, w1 = bits[base], bits[base + 1]
+            metas.append(ints[base + 2])
+            q_lo = np.array([w0 & 255, (w0 >> 8) & 255, (w0 >> 16) & 255],
+                            np.float32)
+            q_hi = np.array([(w0 >> 24) & 255, w1 & 255, (w1 >> 8) & 255],
+                            np.float32)
+            cols.extend(grid_o + q_lo * grid_s)
+            cols.extend(grid_o + q_hi * grid_s)
+        f_rows.append(np.array(cols, np.float32))
+        i_rows.append(np.array(metas, np.int32))
+    return np.stack(f_rows), np.stack(i_rows)
+
+
+# ---------------------------------------------------------------------------
+# Per-lane pieces (tensor transcriptions of tpurt's)
+# ---------------------------------------------------------------------------
+
+
+def _tab_v3(tab, ec, col: int) -> V3:
+    return V3(tab[ec, col], tab[ec, col + 1], tab[ec, col + 2])
+
+
+def _rot_fwd(tab, ec, v: V3) -> V3:
+    """out_i = sum_j rot[i][j] * v_j, summed j = 0, 1, 2."""
+    return V3(*[
+        tab[ec, _CP_ROT + 3 * i] * v.x + tab[ec, _CP_ROT + 3 * i + 1] * v.y
+        + tab[ec, _CP_ROT + 3 * i + 2] * v.z
+        for i in range(3)
+    ])
+
+
+def _rot_t(tab, ec, v: V3) -> V3:
+    """out_i = sum_j rot[j][i] * v_j."""
+    return V3(*[
+        tab[ec, _CP_ROT + i] * v.x + tab[ec, _CP_ROT + 3 + i] * v.y
+        + tab[ec, _CP_ROT + 6 + i] * v.z
+        for i in range(3)
+    ])
+
+
+def _safe(scale):
+    return torch.where(torch.abs(scale) > _EPS, scale, 1.0)
+
+
+def _enter(ctx: _Ctx, entry, origin: V3, direction: V3):
+    """WorldToLocalRay (Trace.cl:118-137) for each lane's chain entry."""
+    p = ctx.params
+    ec = torch.clamp_max(entry, ctx.e_count - 1).long()
+    tab = p.table
+    safe = _safe(tab[ec, _CP_SCALE])
+    lo = _rot_t(tab, ec, origin - _tab_v3(tab, ec, _CP_POS)) / safe
+    ld = v3lib.normalize(_rot_t(tab, ec, direction) / safe)
+    return (lo, ld, V3(1.0 / ld.x, 1.0 / ld.y, 1.0 / ld.z), p.root_t[ec],
+            p.root_leaf_t[ec])
+
+
+def _mt_core(lo: V3, ld: V3, pa: V3, e1: V3, e2: V3, na: V3, nb: V3, nc: V3,
+             cull):
+    """Exact Möller-Trumbore in tpurt's op order; ``e1 = pb - pa`` and
+    ``e2 = pc - pa`` come precomputed in f32. ``cull`` is a Python bool
+    (static triangles) or a per-lane bool tensor."""
+    h = v3lib.cross(ld, e2)
+    det = v3lib.dot(e1, h)
+    ok = torch.abs(det) >= _EPS
+    f = 1.0 / det
+    s = lo - pa
+    u = f * v3lib.dot(s, h)
+    ok &= (u >= 0.0) & (u <= 1.0)
+    q = v3lib.cross(s, e1)
+    v = f * v3lib.dot(ld, q)
+    ok &= (v >= 0.0) & (u + v <= 1.0)
+    t = f * v3lib.dot(e2, q)
+    ok &= t > _EPS
+    w = 1.0 - u - v
+    n = v3lib.normalize(V3(
+        na.x * w + nb.x * u + nc.x * v,
+        na.y * w + nb.y * u + nc.y * v,
+        na.z * w + nb.z * u + nc.z * v,
+    ))
+    backface = v3lib.dot(ld, n) > _EPS
+    if isinstance(cull, bool):
+        if cull:
+            ok &= ~backface
+    else:
+        ok &= ~(cull & backface)
+    n = v3lib.where(backface, -n, n)
+    return ok, t, n, backface
+
+
+def _static_tri(srow: np.ndarray):
+    """A static triangle row as f32 Python scalars (pa, e1, e2, na, nb,
+    nc), the edge vectors subtracted in f32."""
+    r = srow.astype(np.float32)
+    v = lambda b: r[b:b + 3]
+    f = lambda a: V3(*(float(x) for x in a))
+    return (f(v(0)), f(v(3) - v(0)), f(v(6) - v(0)), f(v(9)), f(v(12)),
+            f(v(15)))
+
+
+def _static_stage(ctx: _Ctx, enabled, origin: V3, direction: V3):
+    """Dense MT of the inline static triangles for lanes with a fresh
+    ray -> the seeded world-space best (valid, dst, point, normal, back,
+    mesh). Candidates fold in order with strict <."""
+    zeros = torch.zeros_like(enabled, dtype=_F32)
+    zero3 = V3(zeros, zeros, zeros)
+    falses = torch.zeros_like(enabled)
+    if len(ctx.s_cull) == 0:
+        return (falses, zeros + _INF, zero3, zero3, falses,
+                torch.full_like(enabled, -1, dtype=_I32))
+    ld = v3lib.normalize(direction)
+    lt = zeros + _INF
+    lnrm = zero3
+    lback = falses
+    lmesh = torch.full_like(enabled, -1, dtype=_I32)
+    for s_idx in range(len(ctx.s_cull)):
+        pa, e1, e2, na, nb, nc = _static_tri(ctx.srows[s_idx])
+        ok, t, n, backface = _mt_core(origin, ld, pa, e1, e2, na, nb, nc,
+                                      bool(ctx.s_cull[s_idx]))
+        if ctx.s_onesided[s_idx]:
+            ok &= ~backface
+        win = enabled & ok & (t < lt)
+        lt = torch.where(win, t, lt)
+        lnrm = v3lib.where(win, n, lnrm)
+        lback = torch.where(win, backface, lback)
+        lmesh = torch.where(win, int(ctx.s_owner[s_idx]), lmesh)
+    valid = enabled & (lmesh >= 0)
+    point = origin + ld * lt
+    n_w = v3lib.normalize(lnrm)
+    dst = v3lib.length(point - origin)
+    return (
+        valid,
+        torch.where(valid, dst, _INF),
+        v3lib.where(valid, point, zero3),
+        v3lib.where(valid, n_w, zero3),
+        valid & lback,
+        torch.where(valid, lmesh, -1),
+    )
+
+
+def _aabb_soa(lo: V3, lid: V3, bmin: V3, bmax: V3, limit):
+    """Slab test with a distance bound; NaN slabs (0 * inf) are open."""
+    t0 = (bmin - lo) * lid
+    t1 = (bmax - lo) * lid
+    sx, sy, sz = (torch.nan_to_num(torch.minimum(a, b), nan=-_INF,
+                                   posinf=_INF, neginf=-_INF)
+                  for a, b in zip(t0, t1))
+    bx, by, bz = (torch.nan_to_num(torch.maximum(a, b), nan=_INF,
+                                   posinf=_INF, neginf=-_INF)
+                  for a, b in zip(t0, t1))
+    tmin = torch.maximum(torch.maximum(sx, sy), sz)
+    tmax = torch.minimum(torch.minimum(bx, by), bz)
+    return (tmax >= torch.clamp_min(tmin, 0.0)) & (tmin < limit)
+
+
+def _pretest(ctx: _Ctx, entry, lo: V3, lid: V3, w_dst):
+    """Root pretest: slab the entry's local root box against the bound."""
+    tab = ctx.params.table
+    ec = torch.clamp_max(entry, ctx.e_count - 1).long()
+    safe = _safe(tab[ec, _CP_SCALE])
+    return _aabb_soa(lo, lid, _tab_v3(tab, ec, _CP_RMIN),
+                     _tab_v3(tab, ec, _CP_RMAX), w_dst / safe * _GROW)
+
+
+def _two_best(hit, prio, meta, best):
+    """Two-best child tracking: a new best demotes the old best."""
+    best_prio, first_meta, second_prio, second_meta, hit_count = best
+    better = hit & (prio < best_prio)
+    second = hit & ~better & (prio < second_prio)
+    second_prio = torch.where(better, best_prio,
+                              torch.where(second, prio, second_prio))
+    second_meta = torch.where(better, first_meta,
+                              torch.where(second, meta, second_meta))
+    best_prio = torch.where(better, prio, best_prio)
+    first_meta = torch.where(better, meta, first_meta)
+    return (best_prio, first_meta, second_prio, second_meta,
+            hit_count + hit.to(_I32))
+
+
+def _expand_root(ctx: _Ctx, e: int, mask, lo: V3, ld: V3, lid: V3, lt, w_dst,
+                 cur, cur_leaf, stack):
+    """Entry ``e``'s root-node test at enter time from the precomputed
+    tables: descend straight to the first hit child and push the second
+    child / parent resume exactly as the node step would."""
+    p = ctx.params
+    arity = ctx.arity
+    rf, ri = p.roots_f[e], p.roots_i[e]
+    scale = float(p.table_np[e, _CP_SCALE])
+    safe = scale if abs(scale) > _EPS else 1.0
+    limit = torch.minimum(lt, w_dst / safe * _GROW)
+    axis = float(rf[0])
+    dcomp = ld.x if axis == 0.0 else (ld.y if axis == 1.0 else ld.z)
+    fwd = dcomp >= 0.0
+    zeros_i = torch.zeros_like(cur)
+    best = (zeros_i + arity, zeros_i, zeros_i + arity, zeros_i, zeros_i)
+    for slot in range(arity):
+        meta = int(ri[slot])
+        if meta == 0:  # empty slot: never hits
+            continue
+        b = 1 + 6 * slot
+        bmin = V3(*(float(x) for x in rf[b:b + 3]))
+        bmax = V3(*(float(x) for x in rf[b + 3:b + 6]))
+        hit = _aabb_soa(lo, lid, bmin, bmax, limit)
+        prio = torch.where(fwd, slot, arity - 1 - slot).to(_I32)
+        best = _two_best(hit, prio, zeros_i + meta, best)
+    best_prio, first_meta, second_prio, second_meta, hit_count = best
+    desc = mask & (best_prio < arity)
+    push_child = desc & (hit_count >= 2)
+    push_resume = desc & (hit_count >= 3)
+    resume_entry = (p.root[e] << MEGA_SLOT_BITS) | (second_prio + 1).long()
+    child_entry = _TAG | second_meta.long()
+    cur = torch.where(desc, first_meta >> 1, torch.where(mask, -1, cur))
+    cur_leaf = torch.where(desc, (first_meta & 1) == 1, cur_leaf & ~mask)
+    # Entering lanes hold an empty stack (restart resets it; a chain
+    # advance happens only once the previous entry's stack drained).
+    return cur, cur_leaf, (
+        torch.where(push_child, child_entry, stack[0]),
+        torch.where(push_resume, resume_entry, stack[1]),
+    ) + tuple(stack[2:])
+
+
+def _seed(ctx: _Ctx, pix, sample_u):
+    if ctx.seed_mode == "reference":
+        return rnglib.make_seed(pix, ctx.frame_index, 0)
+    return rnglib.make_seed(pix, ctx.frame_index,
+                            (sample_u + ctx.sample_offset) & 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------------------
+# One loop trip
+# ---------------------------------------------------------------------------
+
+
+def _traverse(s: _Lane, ctx: _Ctx):
+    """The trip's traversal step (one bank row per lane) and the chain
+    fold of entries that finished. Returns the post-traversal lane and
+    the in_chain mask (lanes that advanced to another chain entry)."""
+    e_count = ctx.e_count
+    p = ctx.params
+    tab = p.table
+    trav = ~s.done & (s.entry < e_count) & (s.cur >= 0)
+    ec = torch.clamp_max(s.entry, e_count - 1).long()
+    idx = torch.where(trav, s.cur, 0).long()
+    row, row_i = ctx.rows[idx], ctx.rows_i[idx]
+    col = lambda j: row[:, j]
+    coli = lambda j: row_i[:, j]
+    scale_e = tab[ec, _CP_SCALE]
+    limit = torch.minimum(s.lt, s.w_dst / _safe(scale_e) * _GROW)
+
+    # --- leaf branch: inline exact MT tests ---------------------------
+    leaf_on = trav & s.cur_leaf
+    entry_mesh = p.mesh_t[ec]
+    is_static = entry_mesh < 0
+    cull_mesh_e = tab[ec, _CP_CULL] != 0.0
+    k_meshes = ctx.mesh_cull.shape[0]
+    lt, lnrm, lback, lmesh = s.lt, s.lnrm, s.lback, s.lmesh
+    for k in range(ctx.leaf_tris):
+        b = 19 * k
+        aux = coli(b + 18)
+        owner_cull = torch.where(
+            (aux >= 0) & (aux < k_meshes),
+            ctx.mesh_cull[torch.clamp(aux, 0, k_meshes - 1).long()], True)
+        cull = torch.where(is_static, owner_cull, cull_mesh_e)
+        cv = lambda j: V3(col(j), col(j + 1), col(j + 2))
+        pa = cv(b)
+        ok, t, n, backface = _mt_core(s.lo, s.ld, pa, cv(b + 3) - pa,
+                                      cv(b + 6) - pa, cv(b + 9), cv(b + 12),
+                                      cv(b + 15), cull)
+        win = leaf_on & ok & (t < lt)
+        lt = torch.where(win, t, lt)
+        lnrm = v3lib.where(win, n, lnrm)
+        lback = torch.where(win, backface, lback)
+        lmesh = torch.where(win, torch.where(is_static, aux, entry_mesh), lmesh)
+
+    # --- node branch: arity u8-quantised children, nearest first -------
+    node_on = trav & ~s.cur_leaf
+    grid_o = V3(col(0), col(1), col(2))
+    grid_s = V3(col(3), col(4), col(5))
+    sort_axis = coli(6)
+    dcomp = torch.where(sort_axis == 0, s.ld.x,
+                        torch.where(sort_axis == 1, s.ld.y, s.ld.z))
+    fwd = dcomp >= 0.0
+    arity = ctx.arity
+    zeros_i = torch.zeros_like(s.cur)
+    best = (zeros_i + arity, zeros_i, zeros_i + arity, zeros_i, zeros_i)
+    b2f = lambda w: w.to(_F32)
+    for slot in range(arity):
+        base = 7 + 3 * slot
+        w0, w1, meta = coli(base), coli(base + 1), coli(base + 2)
+        q_lo = V3(b2f(w0 & 255), b2f((w0 >> 8) & 255), b2f((w0 >> 16) & 255))
+        q_hi = V3(b2f((w0 >> 24) & 255), b2f(w1 & 255), b2f((w1 >> 8) & 255))
+        hit = _aabb_soa(s.lo, s.lid, grid_o + q_lo * grid_s,
+                        grid_o + q_hi * grid_s, limit)
+        prio = torch.where(fwd, slot, arity - 1 - slot).to(_I32)
+        hit &= (meta != 0) & (prio >= s.cur_slot)
+        best = _two_best(hit, prio, meta, best)
+    best_prio, first_meta, second_prio, second_meta, hit_count = best
+
+    first_found = best_prio < arity
+    descend = node_on & first_found
+    # The 2nd-nearest hit child is pushed RESOLVED (tag set); a (row,
+    # slot) resume entry only when a third hit child exists.
+    push_child = descend & (hit_count >= 2)
+    push_resume = descend & (hit_count >= 3)
+    pop = (node_on & ~first_found) | leaf_on
+    resume_entry = ((torch.where(trav, s.cur, 0).long() << MEGA_SLOT_BITS)
+                    | (second_prio + 1).long())
+    child_entry = _TAG | second_meta.long()
+    top = s.stack[0]
+    top_empty = top == _EMPTY
+    pop_shift = pop & ~top_empty
+    s_depth = ctx.s_depth
+    empty = torch.full_like(top, _EMPTY)
+    stack1 = [
+        torch.where(push_resume, s.stack[i - 1] if i > 0 else resume_entry,
+                    torch.where(pop_shift,
+                                s.stack[i + 1] if i + 1 < s_depth else empty,
+                                s.stack[i]))
+        for i in range(s_depth)
+    ]
+    stack = tuple(
+        torch.where(push_child, stack1[i - 1] if i > 0 else child_entry,
+                    stack1[i])
+        for i in range(s_depth)
+    )
+    cur = torch.where(descend, first_meta >> 1, s.cur)
+    cur_leaf = torch.where(descend, (first_meta & 1) == 1, s.cur_leaf)
+    cur_slot = torch.where(descend, 0, s.cur_slot)
+    resume = pop & ~top_empty
+    top_resolved = (top & _TAG) != 0
+    top_meta = top & 0x7FFFFFFF
+    cur_popped = torch.where(top_resolved, top_meta >> 1,
+                             top >> MEGA_SLOT_BITS).to(_I32)
+    slot_popped = torch.where(top_resolved, 0, top & _SLOT_MASK).to(_I32)
+    cur = torch.where(resume, cur_popped, cur)
+    cur_slot = torch.where(resume, slot_popped, cur_slot)
+    cur_leaf = torch.where(resume, top_resolved & ((top_meta & 1) == 1),
+                           cur_leaf)
+    cur = torch.where(pop & top_empty, -1, cur)
+
+    # --- next mesh: fold the finished entry to world space -------------
+    fin = ~s.done & (s.entry < e_count) & (cur < 0)
+    lvalid = fin & (lmesh >= 0)
+    lvalid &= ~((tab[ec, _CP_OS] != 0.0) & lback)
+    lvalid &= scale_e > _EPS
+    point_l = s.lo + s.ld * lt
+    point_w = _rot_fwd(tab, ec, point_l * scale_e) + _tab_v3(tab, ec, _CP_POS)
+    n_w = v3lib.normalize(_rot_fwd(tab, ec, lnrm))
+    dst = v3lib.length(point_w - s.origin)
+    closer = lvalid & (dst < s.w_dst)
+    entry = torch.where(fin, s.entry + 1, s.entry)
+    zeros = torch.zeros_like(lt)
+    t = s._replace(
+        entry=entry, cur=cur, cur_leaf=cur_leaf, cur_slot=cur_slot,
+        stack=stack,
+        lt=torch.where(fin, _INF, lt),
+        lnrm=v3lib.where(fin, V3(zeros, zeros, zeros), lnrm),
+        lback=lback & ~fin,
+        lmesh=torch.where(fin, -1, lmesh),
+        w_valid=torch.where(fin, s.w_valid | closer, s.w_valid),
+        w_dst=torch.where(closer, dst, s.w_dst),
+        w_point=v3lib.where(closer, point_w, s.w_point),
+        w_normal=v3lib.where(closer, n_w, s.w_normal),
+        w_back=torch.where(closer, lback, s.w_back),
+        w_mesh=torch.where(closer, lmesh, s.w_mesh),
+    )
+    return t, fin & (entry < e_count)
+
+
+def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
+    """Segment completion: shade -> accumulate/advance -> restart ->
+    static stage -> chain enter (pretest, chain skip, root expansion).
+    Lanes not at the shading stage pass through unchanged, so running it
+    again completes segments that need no traversal."""
+    e_count, p_count = ctx.e_count, ctx.p_count
+    shade = ~t.done & (t.entry >= e_count)
+    segments = t.segments + shade.to(_I32)
+    res = shade_hit_soa(
+        ctx.mats, shade, t.w_valid, t.w_point, t.w_normal, t.w_back,
+        t.w_mesh, t.origin, t.direction, t.throughput, t.light, t.rng,
+        t.bounces, ctx.max_bounces,
+    )
+    invis = t.invis + (shade & res.invisible).to(_I32)
+    continuing = res.continuing & ~(res.invisible & (invis > ctx.invisible_budget))
+
+    cache = {}
+    if ctx.use_cache:  # primary-hit cache store (sample 0, bounce 0)
+        store = shade & ~t.c_set & (t.bounces == 0) & (t.sample == 0)
+        cache = dict(
+            c_set=t.c_set | store,
+            c_valid=torch.where(store, t.w_valid, t.c_valid),
+            c_point=v3lib.where(store, t.w_point, t.c_point),
+            c_normal=v3lib.where(store, t.w_normal, t.c_normal),
+            c_back=torch.where(store, t.w_back, t.c_back),
+            c_mesh=torch.where(store, t.w_mesh, t.c_mesh),
+            c_dst=torch.where(store, t.w_dst, t.c_dst),
+        )
+
+    cont = shade & continuing
+    path_end = shade & ~continuing
+    acc = t.acc + V3(*(torch.where(path_end, c, 0.0) for c in res.light))
+    sample = t.sample + path_end.to(_I32)
+    pix_done = path_end & (sample >= ctx.rays_per_pixel)
+    if p_count > 1:
+        # Quota mode: a finished pixel banks into its slot and the lane
+        # advances to its next quota pixel (stride = pixel_stride).
+        last_pix = t.pixno >= (p_count - 1)
+        retire = pix_done & last_pix
+        advance = pix_done & ~last_pix
+        accs = tuple(
+            V3(*(torch.where(pix_done & (t.pixno == k), a, b)
+                 for a, b in zip(acc, t.accs[k])))
+            for k in range(p_count)
+        )
+        acc = V3(*(torch.where(pix_done, 0.0, c) for c in acc))
+        pixno = t.pixno + advance.to(_I32)
+        adv_pix = torch.clamp_max(t.pix + ctx.pixel_stride,
+                                  ctx.width * ctx.height - 1)
+        pix = torch.where(advance, adv_pix, t.pix)
+        sample = torch.where(pix_done, 0, sample)
+        # The new pixel's precomputed primary direction (slot pixno).
+        k = (pixno - 1).clamp(0, p_count - 2).long()[None]
+        rd_n = V3(*(torch.gather(c, 0, k)[0] for c in ctx.slot_rd))
+        rd0 = v3lib.where(advance, rd_n, t.rd0)
+    else:
+        retire = pix_done
+        advance = torch.zeros_like(pix_done)
+        accs, pixno, pix, rd0 = t.accs, t.pixno, t.pix, t.rd0
+    done = t.done | retire
+    new_sample = path_end & ~retire
+
+    ro0 = t.ro0
+    rng = res.rng
+    if ctx.seed_mode != "reference":
+        rng = torch.where(new_sample, _seed(ctx, pix, sample.long()), rng)
+    elif p_count > 1:
+        # Reference mode draws one seed per PIXEL (the stream runs across
+        # its samples, Trace.cl:632-641): re-seed on advance only.
+        rng = torch.where(advance, _seed(ctx, pix, 0), rng)
+
+    origin = v3lib.where(new_sample, ro0, res.origin)
+    direction = v3lib.where(new_sample, rd0, res.direction)
+    throughput = V3(*(torch.where(new_sample, 1.0, c) for c in res.throughput))
+    light = V3(*(torch.where(new_sample, 0.0, c) for c in res.light))
+    bounces = torch.where(new_sample, 0, res.bounces)
+    invis = torch.where(new_sample, 0, invis)
+
+    # Cached primary replay: new samples with a cache skip the chain (a
+    # quota advance invalidates the cache — it belongs to the old pixel).
+    if ctx.use_cache:
+        cache["c_set"] = cache["c_set"] & ~advance
+        replay = new_sample & cache["c_set"]
+    else:
+        replay = torch.zeros_like(new_sample)
+    restart = cont | (new_sample & ~replay)
+    entry = torch.where(restart, 0, t.entry)
+    stack = tuple(torch.where(restart, _EMPTY, a) for a in t.stack)
+
+    # World-best reset + static stage + cached replay (before entering,
+    # so the root pretest sees the seeded w_dst).
+    sv, sd, sp, sn, sb, sm = _static_stage(ctx, restart, origin, direction)
+    w_valid = torch.where(restart, sv, t.w_valid & ~shade)
+    w_dst = torch.where(restart, sd, torch.where(shade, _INF, t.w_dst))
+    w_point = v3lib.where(restart, sp, t.w_point)
+    w_normal = v3lib.where(restart, sn, t.w_normal)
+    w_back = torch.where(restart, sb, t.w_back)
+    w_mesh = torch.where(restart, sm, torch.where(shade, -1, t.w_mesh))
+    if ctx.use_cache:
+        entry = torch.where(replay, e_count, entry)
+        w_valid = torch.where(replay, cache["c_valid"], w_valid)
+        w_dst = torch.where(replay, cache["c_dst"], w_dst)
+        w_point = v3lib.where(replay, cache["c_point"], w_point)
+        w_normal = v3lib.where(replay, cache["c_normal"], w_normal)
+        w_back = torch.where(replay, cache["c_back"], w_back)
+        w_mesh = torch.where(replay, cache["c_mesh"], w_mesh)
+
+    cur, cur_leaf, cur_slot = t.cur, t.cur_leaf, t.cur_slot
+    lo, ld, lid = t.lo, t.ld, t.lid
+    if e_count:
+        entering = entering_in | restart
+        lo_e, ld_e, lid_e, root_e, leaf_e = _enter(ctx, entry, origin, direction)
+        ok_e = _pretest(ctx, entry, lo_e, lid_e, w_dst)
+        # Chain skip: a failed pretest advances the entry in place, up to
+        # n_skip more entries in this pass.
+        cur_e = entry
+        pend = entering & ~ok_e
+        for _ in range(ctx.n_skip):
+            cur_e = torch.where(pend, cur_e + 1, cur_e)
+            valid2 = pend & (cur_e < e_count)
+            lo3, ld3, lid3, root3, leaf3 = _enter(ctx, cur_e, origin, direction)
+            ok3 = _pretest(ctx, cur_e, lo3, lid3, w_dst)
+            lo_e = v3lib.where(valid2, lo3, lo_e)
+            ld_e = v3lib.where(valid2, ld3, ld_e)
+            lid_e = v3lib.where(valid2, lid3, lid_e)
+            root_e = torch.where(valid2, root3, root_e)
+            leaf_e = torch.where(valid2, leaf3, leaf_e)
+            ok_e = torch.where(valid2, ok3, ok_e)
+            pend = valid2 & ~ok3
+        # A failure at the last entry leaves the lane shade-ready now.
+        cur_e = torch.where(pend & (cur_e == e_count - 1), cur_e + 1, cur_e)
+        entry = torch.where(entering, cur_e, entry)
+        lo = v3lib.where(entering, lo_e, lo)
+        ld = v3lib.where(entering, ld_e, ld)
+        lid = v3lib.where(entering, lid_e, lid)
+        cur = torch.where(entering, torch.where(ok_e, root_e, -1), cur)
+        cur_leaf = torch.where(entering, leaf_e & ok_e, cur_leaf)
+        cur_slot = torch.where(entering, 0, cur_slot)
+        for e_x in range(e_count):
+            if not do_expand:
+                break
+            if ctx.params.expand[e_x]:
+                cur, cur_leaf, stack = _expand_root(
+                    ctx, e_x, entering & ok_e & (entry == e_x), lo, ld, lid,
+                    t.lt, w_dst, cur, cur_leaf, stack,
+                )
+
+    return t._replace(
+        ro0=ro0, rd0=rd0, pix=pix, pixno=pixno, sample=sample, acc=acc,
+        accs=accs, rng=rng, done=done, segments=segments, origin=origin,
+        direction=direction, throughput=throughput, light=light,
+        bounces=bounces, invis=invis, entry=entry, cur=cur,
+        cur_leaf=cur_leaf, cur_slot=cur_slot, stack=stack, lo=lo, ld=ld,
+        lid=lid, w_valid=w_valid, w_dst=w_dst, w_point=w_point,
+        w_normal=w_normal, w_back=w_back, w_mesh=w_mesh, **cache,
+    )
+
+
+def _body_math(s: _Lane, ctx: _Ctx) -> _Lane:
+    """One loop trip (tpurt _body_math): traversal, fold, then the tail
+    ``tail_passes`` times. Does not advance ``iters``."""
+    if ctx.e_count:
+        t, in_chain = _traverse(s, ctx)
+    else:
+        t, in_chain = s, torch.zeros_like(s.done)
+    t = _tail(t, ctx, in_chain, do_expand=ctx.expand_passes >= 1)
+    no_lanes = torch.zeros_like(s.done)
+    for p in range(1, ctx.tail_passes):
+        t = _tail(t, ctx, no_lanes, do_expand=p < ctx.expand_passes)
+    return t
+
+
+def run_plain(lane: _Lane, ctx: _Ctx, max_iterations: Optional[int]) -> _Lane:
+    """The loop as torch ops: trips until every lane is done or
+    ``max_iterations`` more trips ran."""
+    cap = None if max_iterations is None else lane.iters + int(max_iterations)
+    while bool((~lane.done).any()) and (cap is None or lane.iters < cap):
+        lane = _body_math(lane, ctx)._replace(iters=lane.iters + 1)
+    return lane
+
+
+# ---------------------------------------------------------------------------
+# Driver
+# ---------------------------------------------------------------------------
+
+
+def _unsupported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def run_megakernel(
+    scene: Scene,
+    ro0,  # (R, 3) primary origins (or V3)
+    rd0,  # (R, 3) primary directions (or V3)
+    pixel_index: torch.Tensor,  # (R,) pixel ids
+    frame_index: int,
+    rays_per_pixel: int,
+    max_bounces: int,
+    seed_mode: str,
+    invisible_budget: int,
+    sample_offset: int = 0,
+    subpixel_jitter: bool = False,
+    camera=None,
+    width: int = 0,
+    height: int = 0,
+    initial_state: Optional[_Lane] = None,
+    max_iterations: Optional[int] = None,
+    return_state: bool = False,
+    body_backend: str = "plain",
+    pixels_per_lane: int = 1,
+    pixel_stride: Optional[int] = None,
+    tail_passes: int = 1,
+    dense: bool = False,
+    pixel_list=None,
+    frames_per_batch: int = 1,
+):
+    """Returns (mean radiance (R*pixels_per_lane, 3), exact path segment
+    count (int), loop trips) — or the raw lane state when
+    ``return_state``. Semantics as tpurt's run_megakernel: with
+    ``pixels_per_lane`` P > 1 lane i renders pixels pix[i] + k*stride
+    (stride defaults to R) and radiance row k*R+i is its quota slot k.
+
+    ``body_backend``: "plain" (this module's torch loop, any device) or
+    "cuda" (render/mega_cuda.py). ``max_iterations`` caps the trips run
+    from ``initial_state`` (or from the fresh lanes), which is how the
+    two backends and tpurt are held against each other trip by trip.
+    """
+    if subpixel_jitter:
+        _unsupported("subpixel_jitter", "A.7")
+    if pixel_list is not None:
+        _unsupported("pixel_list (list-quota mode)", "A.7")
+    if frames_per_batch > 1:
+        _unsupported("frames_per_batch > 1 (cross-frame packing)", "A.5")
+    if dense:
+        _unsupported("mega_dense (kernel B2)", "A.8")
+    if scene.mega_tlas or scene.mega_bounds_fmt != "u8":
+        _unsupported("TLAS scenes and bf16 bounds", "A.7")
+    if body_backend not in ("plain", "cuda"):
+        raise ValueError(f"unknown body_backend: {body_backend!r}")
+    if max_bounces <= 0 and not return_state:
+        r = ro0.x.shape[0] if isinstance(ro0, V3) else ro0.shape[0]
+        return (torch.zeros((r * pixels_per_lane, 3), dtype=_F32,
+                            device=scene.device), 0, 0)
+    lane, ctx = prepare(
+        scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
+        max_bounces, seed_mode, invisible_budget, sample_offset, camera,
+        width, height, pixels_per_lane, pixel_stride, tail_passes,
+    )
+    if initial_state is not None:
+        lane = initial_state
+    if body_backend == "cuda":
+        from tpurt_torch.render import mega_cuda
+
+        final = mega_cuda.run(lane, ctx, max_iterations)
+    else:
+        final = run_plain(lane, ctx, max_iterations)
+    if return_state:
+        return final
+    return finish(final, ctx)
+
+
+def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
+            rays_per_pixel: int, max_bounces: int, seed_mode: str,
+            invisible_budget: int, sample_offset: int = 0, camera=None,
+            width: int = 0, height: int = 0, pixels_per_lane: int = 1,
+            pixel_stride: Optional[int] = None, tail_passes: int = 1):
+    """The shared setup of both backends -> (fresh lane state, loop
+    invariants): chain and root tables, quota slot directions, and lanes
+    seeded by the static stage and entered at chain entry 0."""
+    if not isinstance(ro0, V3):
+        ro0 = v3lib.from_rows(ro0)
+    if not isinstance(rd0, V3):
+        rd0 = v3lib.from_rows(rd0)
+    dev = scene.device
+    r = ro0.x.shape[0]
+    p_count = int(pixels_per_lane)
+    e_count = len(scene.mega_chain)
+    params = _chain_params(scene) if e_count else None
+    use_cache = rays_per_pixel > 1
+    mat_type = scene.mat_type.cpu().numpy()
+    stride = r if pixel_stride is None else int(pixel_stride)
+    ctx = _Ctx(
+        rows=scene.mega_rows, rows_i=scene.mega_rows.view(_I32),
+        srows=scene.mega_static_rows.cpu().numpy(),
+        s_cull=scene.mega_static_cull, s_onesided=scene.mega_static_onesided,
+        s_owner=scene.mega_static_owner,
+        mats=pack_materials(scene),
+        mesh_cull=torch.tensor([_cull_policy(int(m)) for m in mat_type],
+                               dtype=torch.bool, device=dev),
+        params=params, slot_rd=None,
+        frame_index=int(frame_index), sample_offset=int(sample_offset),
+        e_count=e_count, s_depth=2 * scene.mega_stack_depth,
+        max_bounces=int(max_bounces), rays_per_pixel=int(rays_per_pixel),
+        seed_mode=seed_mode, invisible_budget=int(invisible_budget),
+        use_cache=use_cache, p_count=p_count, pixel_stride=stride,
+        width=int(width), height=int(height),
+        tail_passes=max(1, int(tail_passes)),
+        expand_passes=int(_cfg.MEGA_EXPAND_PASSES),
+        n_skip=(min(e_count - 1, _cfg.MEGA_SKIP_CAP)
+                if e_count <= _cfg.SELECT_GATHER_THRESHOLD else 0),
+        leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity,
+    )
+
+    if p_count > 1:
+        # Quota slots' primary directions, from the same pixel_uv +
+        # make_ray chain as the entry rays.
+        pi0 = pixel_index.to(torch.int64)
+        slot_rd = []
+        for k in range(1, p_count):
+            pk = torch.clamp_max(pi0 + k * stride, width * height - 1)
+            _ro, rd_k = make_ray(camera, pixel_uv(pk % width, pk // width,
+                                                  width, height))
+            slot_rd.append(rd_k)
+        ctx = ctx._replace(slot_rd=v3lib.from_rows(
+            torch.stack(slot_rd).contiguous()))
+    pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
+    return _initial_lane(ctx, ro0, rd0, pix), ctx
+
+
+def finish(final: _Lane, ctx: _Ctx):
+    """(mean radiance rows, exact segment count, trips) of a final state."""
+    accs = final.accs if ctx.p_count > 1 else (final.acc,)
+    mean = torch.cat([v3lib.to_rows(a) for a in accs]) / float(ctx.rays_per_pixel)
+    return mean, int(final.segments.sum()), final.iters
+
+
+def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
+    """Fresh lanes: the static stage seeds the primary segment's world
+    best, then the lane enters chain entry 0 (pretest + root expansion)."""
+    r = pix.shape[0]
+    dev = pix.device
+    zeros = torch.zeros(r, dtype=_F32, device=dev)
+    zero3 = V3(zeros, zeros, zeros)
+    zeros_i = torch.zeros(r, dtype=_I32, device=dev)
+    falses = torch.zeros(r, dtype=torch.bool, device=dev)
+    ones = zeros + 1.0
+    stack = tuple(torch.full((r,), _EMPTY, dtype=torch.int64, device=dev)
+                  for _ in range(ctx.s_depth))
+    sv, sd, sp, sn, sb, sm = _static_stage(ctx, ~falses, ro0, rd0)
+    if ctx.e_count:
+        lo0, ld0, lid0, root0, leaf0 = _enter(ctx, zeros_i, ro0, rd0)
+        pre_ok = _pretest(ctx, zeros_i, lo0, lid0, sd)
+        cur0 = torch.where(pre_ok, root0, -1)
+        cur_leaf0 = leaf0 & (cur0 >= 0)
+        if ctx.params.expand and ctx.params.expand[0]:
+            cur0, cur_leaf0, stack = _expand_root(
+                ctx, 0, pre_ok, lo0, ld0, lid0, zeros + _INF, sd, cur0,
+                cur_leaf0, stack,
+            )
+    else:
+        lo0, ld0, lid0 = ro0, rd0, V3(1.0 / rd0.x, 1.0 / rd0.y, 1.0 / rd0.z)
+        cur0, cur_leaf0 = zeros_i - 1, falses
+    cache = {}
+    if ctx.use_cache:
+        cache = dict(c_set=falses, c_valid=falses, c_point=zero3,
+                     c_normal=zero3, c_back=falses, c_mesh=zeros_i - 1,
+                     c_dst=zeros + _INF)
+    return _Lane(
+        iters=0, ro0=ro0, rd0=rd0, pix=pix, pixno=zeros_i, sample=zeros_i,
+        acc=zero3,
+        accs=tuple(zero3 for _ in range(ctx.p_count)) if ctx.p_count > 1 else (),
+        rng=_seed(ctx, pix, 0), done=falses, segments=zeros_i,
+        origin=ro0, direction=rd0, throughput=V3(ones, ones, ones),
+        light=zero3, bounces=zeros_i, invis=zeros_i, entry=zeros_i,
+        cur=cur0, cur_leaf=cur_leaf0, cur_slot=zeros_i, stack=stack,
+        lo=lo0, ld=ld0, lid=lid0, lt=zeros + _INF, lnrm=zero3, lback=falses,
+        lmesh=zeros_i - 1, w_valid=sv, w_dst=sd, w_point=sp, w_normal=sn,
+        w_back=sb, w_mesh=sm, **cache,
+    )

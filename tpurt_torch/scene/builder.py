@@ -1,0 +1,549 @@
+"""SceneBuilder: host-side scene assembly -> frozen torch Scene (port of
+tpurt/scene/builder.py, unrolled-chain regime).
+
+Geometry, BVHs and the megakernel row bank are built in numpy exactly as
+tpurt builds them — the SAH builder is tpurt's own (``tpurt.accel.bvh``
+and the native C++ path in ``tpurt._native``), and the bank emitters
+below are the same code — so the port's banks are bit-identical to
+tpurt's by construction (tests/test_torch_scene.py holds them so).
+
+Supported at freeze: u8 child bounds, the arity and leaf counts from
+``tpurt.config``, the inline static stage, one fused static chain entry
+plus one entry per instanced mesh. The TLAS regime (more instanced
+meshes than ``MEGA_TLAS_THRESHOLD``), bf16 bounds and material slots
+raise NotImplementedError (ROADMAP A.7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from tpurt.accel.bvh import BVHNodes, build_bvh
+from tpurt.config import CORNELL_BREATHING_ROOM
+from tpurt_torch.scene.obj import load_obj as _load_obj_file
+from tpurt_torch.scene.obj import parse_obj
+from tpurt_torch.scene.types import MaterialType, Scene
+
+#: Bits of a packed stack entry reserved for the resume slot.
+MEGA_SLOT_BITS = 6
+#: Triangle budget of the inline static stage.
+MEGA_STATIC_MAX_TRIS = 64
+
+
+def mega_row_width(leaf_tris: int, arity: int) -> int:
+    """Bank row width for u8 bounds (tpurt builder.mega_row_width)."""
+    w = max(19 * leaf_tris, 7 + 3 * arity)
+    w = -(-w // 8) * 8
+    if leaf_tris >= 8:
+        w = max(w, 160)
+    if w > 160:
+        w = -(-w // 64) * 64
+        if w == 256:
+            w = 320
+    return w
+
+
+def _i32f(v) -> np.float32:
+    return np.array(v, np.int32).view(np.float32)
+
+
+def _pack_child_slots(row, kids, arity: int, lo, hi):
+    """One node row's u8 child-slot words on the node's grid (row[0:6]);
+    decoded boxes always contain the true boxes; empty slots are
+    self-missing boxes with meta 0."""
+    scale = (hi - lo) / 255.0
+    origin32 = lo.astype(np.float32)
+    scale32 = np.where(scale > 0, scale, 0.0).astype(np.float32)
+    row[0:3] = origin32
+    row[3:6] = scale32
+    safe = np.where(scale32 > 0, scale32.astype(np.float64), 1.0)
+    dec = lambda q: origin32.astype(np.float64) + q * scale32.astype(np.float64)
+    for s_idx, (meta, clo, chi) in enumerate(kids):
+        ql = np.clip(np.floor((clo - origin32) / safe), 0, 255)
+        qh = np.clip(np.ceil((chi - origin32) / safe), 0, 255)
+        for _ in range(3):
+            ql = np.where(dec(ql) > clo, np.maximum(ql - 1, 0), ql)
+            qh = np.where(
+                (dec(qh) < chi) & (scale32 > 0), np.minimum(qh + 1, 255), qh
+            )
+        ql = ql.astype(np.uint32)
+        qh = qh.astype(np.uint32)
+        w0 = ql[0] | (ql[1] << 8) | (ql[2] << 16) | (qh[0] << 24)
+        w1 = qh[1] | (qh[2] << 8)
+        base = 7 + 3 * s_idx
+        row[base] = np.array(w0, np.uint32).view(np.float32)
+        row[base + 1] = np.array(w1, np.uint32).view(np.float32)
+        row[base + 2] = _i32f(meta)
+    for s_idx in range(len(kids), arity):
+        base = 7 + 3 * s_idx
+        row[base] = np.array(
+            np.uint32(255 | (255 << 8) | (255 << 16)), np.uint32
+        ).view(np.float32)
+        row[base + 1] = 0.0
+        row[base + 2] = 0.0
+
+
+def _emit_mega_subtree(rows, nodes, root, tri_pos, tri_nrm, tri_mesh,
+                       leaf_tris: int, row_width: int, arity: int):
+    """Emit a BVH2 subtree as arity-wide megakernel rows (layouts as in
+    tpurt builder._emit_mega_subtree, u8 format). Returns (root_row,
+    root_is_leaf, depth)."""
+    bmin, bmax, child, first, ntris = nodes
+    counts: Dict[int, int] = {}
+
+    def subtree_count(i) -> int:
+        i = int(i)
+        if i not in counts:
+            if ntris[i] > 0:
+                counts[i] = int(ntris[i])
+            else:
+                counts[i] = subtree_count(child[i]) + subtree_count(
+                    int(child[i]) + 1
+                )
+        return counts[i]
+
+    def subtree_tris(i):
+        out = []
+        stack = [int(i)]
+        while stack:
+            j = stack.pop()
+            if ntris[j] > 0:
+                out.extend(range(int(first[j]), int(first[j]) + int(ntris[j])))
+            else:
+                stack.append(int(child[j]) + 1)
+                stack.append(int(child[j]))
+        return out
+
+    def emit_leaf(i):
+        tris = subtree_tris(i)
+        assert 1 <= len(tris) <= leaf_tris, len(tris)
+        row = np.zeros(row_width, np.float32)
+        for k in range(leaf_tris):
+            base = 19 * k
+            if k < len(tris):
+                t = tris[k]
+                row[base:base + 9] = np.asarray(tri_pos[t], np.float32).reshape(9)
+                row[base + 9:base + 18] = np.asarray(
+                    tri_nrm[t], np.float32).reshape(9)
+                row[base + 18] = _i32f(-1 if tri_mesh is None else int(tri_mesh[t]))
+            else:
+                row[base + 18] = _i32f(-1)  # zero triangle: MT det==0 rejects
+        rows.append(row)
+        return len(rows) - 1
+
+    def collect_slots(i):
+        slots = [i]
+
+        def area(j):
+            s = bmax[j] - bmin[j]
+            return float(s[0] * (s[1] + s[2]) + s[1] * s[2])
+
+        while len(slots) < arity - 1:
+            internals = [
+                j for j in slots
+                if ntris[j] == 0 and subtree_count(j) > leaf_tris
+            ]
+            if not internals:
+                break
+            j = max(internals, key=area)
+            slots.remove(j)
+            slots.append(int(child[j]))
+            slots.append(int(child[j]) + 1)
+        return slots
+
+    def emit_node(i):
+        if ntris[i] > 0 or subtree_count(i) <= leaf_tris:
+            return emit_leaf(i), True, 0
+        slots = collect_slots(i)
+        my = len(rows)
+        rows.append(None)  # reserve (pre-order)
+        row = np.zeros(row_width, np.float32)
+        lo = np.min([bmin[j] for j in slots], axis=0).astype(np.float64)
+        hi = np.max([bmax[j] for j in slots], axis=0).astype(np.float64)
+        axis = int(np.argmax(hi - lo))
+        slots.sort(key=lambda j: float(bmin[j][axis] + bmax[j][axis]))
+        row[6] = _i32f(axis)
+        kids = []
+        depth = 0
+        for j in slots:
+            target, is_leaf, d = emit_node(j)
+            depth = max(depth, d)
+            kids.append((
+                (target << 1) | (1 if is_leaf else 0),
+                np.asarray(bmin[j], np.float64),
+                np.asarray(bmax[j], np.float64),
+            ))
+        _pack_child_slots(row, kids, arity, lo, hi)
+        rows[my] = row
+        return my, False, depth + 1
+
+    return emit_node(root)
+
+
+@dataclasses.dataclass
+class Material:
+    """Host-side RayTracingMaterial (readobj.hpp:48-56)."""
+
+    type: MaterialType = MaterialType.SOLID
+    ior: float = 1.0
+    color: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    emission_color: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    emission_strength: float = 0.0
+    reflectiveness: float = 0.0
+    specular_probability: float = 0.0
+
+
+@dataclasses.dataclass
+class MeshHandle:
+    """Host-side MeshInfo (readobj.hpp:75-81); mutable until freeze."""
+
+    node_idx: int
+    pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    pitch: float = 0.0
+    yaw: float = 0.0
+    roll: float = 0.0
+    scale: float = 1.0
+    material: Material = dataclasses.field(default_factory=Material)
+    first_tri: int = 0
+    num_tris: int = 0
+
+
+def _is_identity(m: MeshHandle) -> bool:
+    return (
+        tuple(np.asarray(m.pos, np.float64).tolist()) == (0.0, 0.0, 0.0)
+        and float(m.pitch) == 0.0 and float(m.yaw) == 0.0
+        and float(m.roll) == 0.0 and float(m.scale) == 1.0
+    )
+
+
+def _culls(mt: int) -> bool:
+    """Backface-cull policy: cull unless Glassy/Invisible/OneSided
+    (Trace.cl:460-462)."""
+    return mt not in (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
+                      int(MaterialType.ONE_SIDED))
+
+
+class SceneBuilder:
+    def __init__(self) -> None:
+        self._tri_pos: List[np.ndarray] = []
+        self._tri_nrm: List[np.ndarray] = []
+        self._num_tris = 0
+        self.nodes = BVHNodes.empty()
+        self.meshes: List[MeshHandle] = []
+        self._mesh_cache: Dict[str, Tuple[int, int, int]] = {}
+
+    # -- geometry ---------------------------------------------------------
+
+    def _append_tris(self, pos: np.ndarray, nrm: np.ndarray) -> int:
+        first = self._num_tris
+        self._tri_pos.append(np.asarray(pos, np.float32).reshape(-1, 3, 3))
+        self._tri_nrm.append(np.asarray(nrm, np.float32).reshape(-1, 3, 3))
+        self._num_tris += self._tri_pos[-1].shape[0]
+        return first
+
+    def _consolidate(self):
+        if len(self._tri_pos) != 1:
+            empty = np.zeros((0, 3, 3), np.float32)
+            self._tri_pos = [np.concatenate(self._tri_pos, 0)
+                             if self._tri_pos else empty]
+            self._tri_nrm = [np.concatenate(self._tri_nrm, 0)
+                             if self._tri_nrm else empty]
+        return self._tri_pos[0], self._tri_nrm[0]
+
+    def add_triangles(self, pos, nrm, max_depth: int = 64) -> MeshHandle:
+        """Append a triangle soup, build its BVH, return an (un-added)
+        handle with the default OBJ material (white Solid)."""
+        pos = np.asarray(pos, np.float32).reshape(-1, 3, 3)
+        nrm = np.asarray(nrm, np.float32).reshape(-1, 3, 3)
+        first = self._append_tris(pos, nrm)
+        tri_pos, tri_nrm = self._consolidate()
+        root = self._build_bvh_fast(tri_pos, tri_nrm, first, pos.shape[0],
+                                    max_depth)
+        return MeshHandle(
+            node_idx=root,
+            material=Material(type=MaterialType.SOLID, color=(1.0, 1.0, 1.0)),
+            first_tri=first, num_tris=pos.shape[0],
+        )
+
+    def _build_bvh_fast(self, tri_pos, tri_nrm, first: int, count: int,
+                        max_depth: int) -> int:
+        """SAH build: native C++ for large meshes, numpy otherwise —
+        exactly tpurt's SceneBuilder._build_bvh_fast."""
+        if count >= 512:
+            from tpurt import _native
+            from tpurt.accel.bvh import DEFAULT_LEAF_CAP
+
+            out = _native.build_bvh(
+                tri_pos, tri_nrm, first, count, max_depth, DEFAULT_LEAF_CAP
+            )
+            if out is not None:
+                bmin, bmax, child, nfirst, ntris = out
+                base = len(self.nodes)
+                for i in range(len(ntris)):
+                    self.nodes.append(
+                        bmin[i], bmax[i],
+                        int(child[i]) + base if ntris[i] == 0 else 0,
+                        int(nfirst[i]), int(ntris[i]),
+                    )
+                return base
+        return build_bvh(self.nodes, tri_pos, tri_nrm, first, count, max_depth)
+
+    def load_obj(self, path: str) -> MeshHandle:
+        """loadMeshFromOBJFile with the per-file geometry cache."""
+        if path in self._mesh_cache:
+            root, first, num = self._mesh_cache[path]
+            return MeshHandle(
+                node_idx=root,
+                material=Material(type=MaterialType.SOLID, color=(1.0, 1.0, 1.0)),
+                first_tri=first, num_tris=num,
+            )
+        pos, nrm = _load_obj_file(path)
+        handle = self.add_triangles(pos, nrm, max_depth=64)
+        self._mesh_cache[path] = (handle.node_idx, handle.first_tri,
+                                  handle.num_tris)
+        return handle
+
+    def load_obj_text(self, text: str) -> MeshHandle:
+        pos, nrm = parse_obj(text)
+        return self.add_triangles(pos, nrm, max_depth=64)
+
+    # -- instances --------------------------------------------------------
+
+    def add_mesh(self, handle: MeshHandle) -> int:
+        self.meshes.append(handle)
+        return len(self.meshes) - 1
+
+    def add_quad(self, a, b, c, d, normal, color) -> MeshHandle:
+        """addQuad (readobj.hpp:378-408): triangles (a,b,c), (a,c,d), one
+        normal, identity transform, Solid of ``color``; added at once."""
+        a, b, c, d = (np.asarray(v, np.float32) for v in (a, b, c, d))
+        normal = np.asarray(normal, np.float32)
+        pos = np.stack([np.stack([a, b, c]), np.stack([a, c, d])])
+        nrm = np.broadcast_to(normal, (2, 3, 3)).copy()
+        first = self._append_tris(pos, nrm)
+        tri_pos, tri_nrm = self._consolidate()
+        root = build_bvh(self.nodes, tri_pos, tri_nrm, first, 2, max_depth=10)
+        handle = MeshHandle(
+            node_idx=root,
+            material=Material(type=MaterialType.SOLID,
+                              color=tuple(map(float, color))),
+            first_tri=first, num_tris=2,
+        )
+        self.add_mesh(handle)
+        return handle
+
+    def add_cornell_box(self, mesh: MeshHandle) -> None:
+        """addCornellBoxToScene (image.hpp:401-449), geometry and
+        materials as tpurt builds them."""
+        room = CORNELL_BREATHING_ROOM
+        bmin = self.nodes.bmin[mesh.node_idx] * np.float32(mesh.scale)
+        bmax = self.nodes.bmax[mesh.node_idx] * np.float32(mesh.scale)
+        min_x, max_x = bmin[0] - room, bmax[0] + room
+        min_y, max_y = bmin[1], bmax[1] + room  # floor not lowered
+        min_z, max_z = bmin[2] - room, bmax[2] + room
+
+        floor = self.add_quad(
+            (min_x, min_y, min_z), (max_x, min_y, min_z),
+            (max_x, min_y, max_z), (min_x, min_y, max_z),
+            (0, 1, 0), (0.1, 0.1, 0.1),
+        )
+        floor.material = Material(
+            type=MaterialType.SOLID, ior=1.0, color=(0.1, 0.1, 0.1),
+            specular_probability=1.0,
+        )
+        self.add_quad(  # ceiling
+            (min_x, max_y, min_z), (max_x, max_y, min_z),
+            (max_x, max_y, max_z), (min_x, max_y, max_z),
+            (0, -1, 0), (1.0, 1.0, 1.0),
+        )
+        front = self.add_quad(
+            (min_x, min_y, max_z), (max_x, min_y, max_z),
+            (max_x, max_y, max_z), (min_x, max_y, max_z),
+            (0, 0, -1), (1.0, 1.0, 1.0),
+        )
+        front.material.type = MaterialType.ONE_SIDED
+        self.add_quad(  # back wall, green
+            (min_x, min_y, min_z), (max_x, min_y, min_z),
+            (max_x, max_y, min_z), (min_x, max_y, min_z),
+            (0, 0, 1), (0.1, 0.8, 0.1),
+        )
+        self.add_quad(  # left wall, blue
+            (min_x, min_y, min_z), (min_x, min_y, max_z),
+            (min_x, max_y, max_z), (min_x, max_y, min_z),
+            (1, 0, 0), (0.1, 0.1, 1.0),
+        )
+        self.add_quad(  # right wall, red
+            (max_x, min_y, min_z), (max_x, min_y, max_z),
+            (max_x, max_y, max_z), (max_x, max_y, min_z),
+            (-1, 0, 0), (1.0, 0.2, 0.2),
+        )
+        lx, lz, ly = 50.0, 50.0, max_y - 1.0
+        light = self.add_quad(
+            (-lx, ly, -lz), (lx, ly, -lz), (lx, ly, lz), (-lx, ly, lz),
+            (0, -1, 0), (0.0, 0.0, 0.0),
+        )
+        light.material = Material(
+            type=MaterialType.SOLID, ior=1.0, color=(1.0, 1.0, 1.0),
+            emission_color=(1.0, 1.0, 1.0), emission_strength=8.0,
+            specular_probability=1.0,
+        )
+
+    # -- freeze -----------------------------------------------------------
+
+    def freeze(self, device="cpu") -> Scene:
+        """Flatten to a Scene on ``device`` (tpurt SceneBuilder.freeze,
+        the megakernel's fields)."""
+        import tpurt.config as cfgmod
+
+        if cfgmod.MEGA_BF16_BOUNDS:
+            raise NotImplementedError(
+                "bf16 node bounds are not ported yet (ROADMAP A.7)")
+        tri_pos, tri_nrm = self._consolidate()
+        bmin, bmax, child, first, ntris = self.nodes.as_arrays()
+        bmin_arr = np.asarray(bmin, np.float32).reshape(-1, 3)
+        bmax_arr = np.asarray(bmax, np.float32).reshape(-1, 3)
+
+        # Per-root uint16 quantisation grid parameters: the chain's
+        # root-pretest box is this grid's span (as in tpurt's freeze).
+        root_params = {}
+        for root in sorted({m.node_idx for m in self.meshes}):
+            gmin = bmin_arr[root].astype(np.float64)
+            scale = (bmax_arr[root].astype(np.float64) - gmin) / 65535.0
+            root_params[root] = (
+                gmin.astype(np.float32),
+                np.where(scale > 0, scale, 0.0).astype(np.float32),
+            )
+
+        leaf_tris = int(cfgmod.MEGA_LEAF_TRIS)
+        arity = int(cfgmod.MEGA_NODE_ARITY)
+        assert 2 <= arity <= (1 << MEGA_SLOT_BITS) - 1
+        row_width = mega_row_width(leaf_tris, arity)
+        rows: List[np.ndarray] = []
+        chain: List[Tuple[int, int, bool]] = []
+        chain_members: List[Tuple[int, ...]] = []
+        mega_depth = 0
+        nodes_tuple = (bmin_arr, bmax_arr, child, first, ntris)
+
+        # Inline static stage: small identity meshes (OneSided only as
+        # single quads, where candidate-level rejection is equivalent).
+        inline = [
+            i for i, m in enumerate(self.meshes)
+            if m.num_tris > 0 and _is_identity(m)
+            and (int(m.material.type) != int(MaterialType.ONE_SIDED)
+                 or m.num_tris <= 2)
+        ]
+        if sum(self.meshes[i].num_tris for i in inline) > MEGA_STATIC_MAX_TRIS:
+            inline = []
+        static_rows, static_cull, static_onesided, static_owner = [], [], [], []
+        for i in inline:
+            m = self.meshes[i]
+            mt = int(m.material.type)
+            for t in range(m.first_tri, m.first_tri + m.num_tris):
+                row = np.zeros(19, np.float32)
+                row[0:9] = tri_pos[t].reshape(9)
+                row[9:18] = tri_nrm[t].reshape(9)
+                row[18] = _i32f(i)
+                static_rows.append(row)
+                static_owner.append(i)
+                static_cull.append(_culls(mt))
+                static_onesided.append(mt == int(MaterialType.ONE_SIDED))
+
+        static_members = [
+            i for i, m in enumerate(self.meshes)
+            if m.num_tris > 0 and _is_identity(m)
+            and int(m.material.type) != int(MaterialType.ONE_SIDED)
+            and i not in inline
+        ]
+        if static_members:
+            ms = [self.meshes[i] for i in static_members]
+            s_pos = np.concatenate(
+                [tri_pos[m.first_tri:m.first_tri + m.num_tris] for m in ms]).copy()
+            s_nrm = np.concatenate(
+                [tri_nrm[m.first_tri:m.first_tri + m.num_tris] for m in ms]).copy()
+            s_mesh = np.concatenate(
+                [np.full(self.meshes[i].num_tris, i, np.int64)
+                 for i in static_members])
+            s_nodes = BVHNodes.empty()
+            s_root = build_bvh(s_nodes, s_pos, s_nrm, 0, len(s_pos), 64,
+                               leaf_cap=2, aux=s_mesh)
+            root_row, root_leaf, d = _emit_mega_subtree(
+                rows, s_nodes.as_arrays(), s_root, s_pos, s_nrm, s_mesh,
+                leaf_tris, row_width, arity,
+            )
+            chain.append((-1, root_row, root_leaf))
+            chain_members.append(tuple(static_members))
+            mega_depth = max(mega_depth, d)
+
+        inst_list = [
+            i for i, m in enumerate(self.meshes)
+            if i not in static_members and i not in inline and m.num_tris > 0
+        ]
+        if len(inst_list) > int(cfgmod.MEGA_TLAS_THRESHOLD):
+            raise NotImplementedError(
+                f"{len(inst_list)} instanced meshes would route through "
+                "tpurt's TLAS regime, which is not ported yet (ROADMAP A.7)")
+        emitted: Dict[int, Tuple[int, bool]] = {}
+        for i in inst_list:
+            m = self.meshes[i]
+            if m.node_idx not in emitted:
+                root_row, root_leaf, d = _emit_mega_subtree(
+                    rows, nodes_tuple, m.node_idx, tri_pos, tri_nrm, None,
+                    leaf_tris, row_width, arity,
+                )
+                mega_depth = max(mega_depth, d)
+                emitted[m.node_idx] = (root_row, root_leaf)
+            root_row, root_leaf = emitted[m.node_idx]
+            chain.append((i, root_row, root_leaf))
+            chain_members.append((i,))
+
+        mega_rows = (np.stack(rows) if rows
+                     else np.zeros((1, row_width), np.float32))
+        assert len(mega_rows) < (1 << 26), "row index exceeds packed fields"
+
+        k = len(self.meshes)
+        zeros3 = np.zeros((0, 3), np.float32)
+        mats = [m.material for m in self.meshes]
+        f32 = lambda vals, *shape: np.asarray(vals, np.float32).reshape(k, *shape)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return Scene(
+            tri_pos_a=t(tri_pos[:, 0]), tri_pos_b=t(tri_pos[:, 1]),
+            tri_pos_c=t(tri_pos[:, 2]), tri_nrm_a=t(tri_nrm[:, 0]),
+            tri_nrm_b=t(tri_nrm[:, 1]), tri_nrm_c=t(tri_nrm[:, 2]),
+            mesh_qmin=t(np.stack([root_params[m.node_idx][0] for m in self.meshes])
+                        if k else zeros3),
+            mesh_qscale=t(np.stack([root_params[m.node_idx][1] for m in self.meshes])
+                          if k else zeros3),
+            mega_rows=t(mega_rows),
+            mega_static_rows=t(np.stack(static_rows) if static_rows
+                               else np.zeros((0, 19), np.float32)),
+            mesh_root=t(np.asarray([m.node_idx for m in self.meshes], np.int32)),
+            mesh_pos=t(f32([m.pos for m in self.meshes], 3)),
+            mesh_pitch=t(f32([m.pitch for m in self.meshes])),
+            mesh_yaw=t(f32([m.yaw for m in self.meshes])),
+            mesh_roll=t(f32([m.roll for m in self.meshes])),
+            mesh_scale=t(f32([m.scale for m in self.meshes])),
+            mat_type=t(np.asarray([int(m.type) for m in mats], np.int32)),
+            mat_ior=t(f32([m.ior for m in mats])),
+            mat_color=t(f32([m.color for m in mats], 3)),
+            mat_emission_color=t(f32([m.emission_color for m in mats], 3)),
+            mat_emission_strength=t(f32([m.emission_strength for m in mats])),
+            mat_reflectiveness=t(f32([m.reflectiveness for m in mats])),
+            mat_specular_prob=t(f32([m.specular_probability for m in mats])),
+            mesh_tri_ranges=tuple((m.first_tri, m.num_tris) for m in self.meshes),
+            mega_chain=tuple(chain),
+            mega_chain_members=tuple(chain_members),
+            mega_stack_depth=int(mega_depth) + 2,
+            mesh_mat_types=tuple(int(m.type) for m in mats),
+            mega_static_cull=tuple(static_cull),
+            mega_static_onesided=tuple(static_onesided),
+            mega_static_owner=tuple(static_owner),
+            mesh_identity=tuple(_is_identity(m) for m in self.meshes),
+            mega_bounds_fmt="u8",
+            mega_leaf_tris=leaf_tris,
+            mega_arity=arity,
+            mega_tlas=False,
+        )

@@ -1,0 +1,141 @@
+"""Scene representation (torch port of tpurt/scene/types.py).
+
+``Scene`` is a plain dataclass: tensor fields plus static metadata. It
+carries what the megakernel path and the scalar oracle read: the
+triangle soup, the megakernel row bank (``mega_rows``), the inline
+static stage, the per-mesh transforms, quantisation grids and materials.
+The modular engine's threaded-BVH fields are not ported yet.
+
+Integer words inside the f32 banks (child metas, leaf aux words, static
+owners) are bit patterns: read them with ``Tensor.view(torch.int32)``,
+never with a cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+class MaterialType(enum.IntEnum):
+    """MaterialType (Trace.cl:28-34)."""
+
+    SOLID = 0
+    CHECKER = 1
+    INVISIBLE = 2
+    GLASSY = 3
+    ONE_SIDED = 4
+
+
+#: Tensor fields and their dtypes, in declaration order.
+ARRAY_FIELDS = {
+    "tri_pos_a": torch.float32, "tri_pos_b": torch.float32,
+    "tri_pos_c": torch.float32, "tri_nrm_a": torch.float32,
+    "tri_nrm_b": torch.float32, "tri_nrm_c": torch.float32,
+    "mesh_qmin": torch.float32, "mesh_qscale": torch.float32,
+    "mega_rows": torch.float32, "mega_static_rows": torch.float32,
+    "mesh_root": torch.int32, "mesh_pos": torch.float32,
+    "mesh_pitch": torch.float32, "mesh_yaw": torch.float32,
+    "mesh_roll": torch.float32, "mesh_scale": torch.float32,
+    "mat_type": torch.int32, "mat_ior": torch.float32,
+    "mat_color": torch.float32, "mat_emission_color": torch.float32,
+    "mat_emission_strength": torch.float32,
+    "mat_reflectiveness": torch.float32, "mat_specular_prob": torch.float32,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """Frozen scene: K mesh instances over a shared triangle soup, with
+    the megakernel's row bank and traversal chain (tpurt Scene
+    semantics, field for field)."""
+
+    tri_pos_a: torch.Tensor  # (T, 3) f32
+    tri_pos_b: torch.Tensor
+    tri_pos_c: torch.Tensor
+    tri_nrm_a: torch.Tensor
+    tri_nrm_b: torch.Tensor
+    tri_nrm_c: torch.Tensor
+    mesh_qmin: torch.Tensor  # (K, 3) f32 root quantisation grid origin
+    mesh_qscale: torch.Tensor  # (K, 3) f32 root quantisation cell size
+    mega_rows: torch.Tensor  # (Mm, W) f32, bitcast-i32 words inside
+    mega_static_rows: torch.Tensor  # (S, 19) f32
+    mesh_root: torch.Tensor  # (K,) i32
+    mesh_pos: torch.Tensor  # (K, 3) f32
+    mesh_pitch: torch.Tensor  # (K,) f32
+    mesh_yaw: torch.Tensor
+    mesh_roll: torch.Tensor
+    mesh_scale: torch.Tensor
+    mat_type: torch.Tensor  # (K,) i32
+    mat_ior: torch.Tensor
+    mat_color: torch.Tensor  # (K, 3)
+    mat_emission_color: torch.Tensor  # (K, 3)
+    mat_emission_strength: torch.Tensor
+    mat_reflectiveness: torch.Tensor
+    mat_specular_prob: torch.Tensor
+
+    # --- static metadata (same meaning as tpurt's) ---
+    mesh_tri_ranges: Tuple[Tuple[int, int], ...] = ()
+    mega_chain: Tuple[Tuple[int, int, bool], ...] = ()
+    mega_chain_members: Tuple[Tuple[int, ...], ...] = ()
+    mega_stack_depth: int = 8
+    mesh_mat_types: Tuple[int, ...] = ()
+    mega_static_cull: Tuple[bool, ...] = ()
+    mega_static_onesided: Tuple[bool, ...] = ()
+    mega_static_owner: Tuple[int, ...] = ()
+    mesh_identity: Tuple[bool, ...] = ()
+    mega_bounds_fmt: str = "u8"
+    mega_leaf_tris: int = 3
+    mega_arity: int = 8
+    mega_tlas: bool = False
+
+    @property
+    def num_meshes(self) -> int:
+        return self.mesh_root.shape[0]
+
+    @property
+    def num_triangles(self) -> int:
+        return self.tri_pos_a.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mega_rows.device
+
+    def to(self, device) -> "Scene":
+        """The same scene with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(device) for f in ARRAY_FIELDS
+        })
+
+
+#: Static metadata fields (everything in Scene that is not a tensor).
+STATIC_FIELDS = tuple(
+    f.name for f in dataclasses.fields(Scene) if f.name not in ARRAY_FIELDS
+)
+
+
+def from_arrays(arrays: Mapping[str, np.ndarray], static: Mapping,
+                device="cpu") -> Scene:
+    """Build a Scene from numpy arrays (by ARRAY_FIELDS name) and static
+    metadata (by STATIC_FIELDS name) — e.g. a tpurt Scene's fields read
+    out as numpy, carried across to the port unchanged. Banks keep their
+    exact bits (no dtype round trip through a cast)."""
+    if static.get("mega_tlas"):
+        raise NotImplementedError(
+            "TLAS scenes are not ported yet (ROADMAP A.7)")
+    if static.get("mega_bounds_fmt", "u8") != "u8":
+        raise NotImplementedError(
+            "bf16 node bounds are not ported yet (ROADMAP A.7)")
+    tensors = {}
+    for name, dtype in ARRAY_FIELDS.items():
+        a = np.ascontiguousarray(arrays[name])
+        np_dtype = np.float32 if dtype == torch.float32 else np.int32
+        if a.dtype != np_dtype:
+            raise ValueError(f"{name}: expected {np_dtype.__name__}, got {a.dtype}")
+        tensors[name] = torch.from_numpy(a.copy()).to(device)
+    meta = {k: static[k] for k in STATIC_FIELDS if k in static}
+    return Scene(**tensors, **meta)
