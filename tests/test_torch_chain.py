@@ -55,9 +55,10 @@ def chain():
             tscene, tcam, jnp.asarray([0, 0, 0, k], jnp.int32), batch=b,
             pixels_per_lane=2, **statics)
         states[k] = port_lane(st)
-    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural)
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cpu")
     assert [m for m, _, _ in scene.mega_chain] == [-1, 1, 2]
-    return scene, Camera.create(**POSE), states
+    return scene, Camera.create(**POSE, device="cpu"), states
 
 
 @pytest.mark.parametrize("trips", [1, 4, 16])

@@ -119,7 +119,7 @@ def test_make_camera_rays_within_2ulp(pose):
     xs, ys = np.meshgrid(np.arange(w), np.arange(h))
     xs, ys = xs.ravel().astype(np.int32), ys.ravel().astype(np.int32)
     ro, rd, seeds = camera.make_camera_rays(
-        camera.Camera.create(**pose), torch.from_numpy(xs),
+        camera.Camera.create(**pose, device="cpu"), torch.from_numpy(xs),
         torch.from_numpy(ys), w, h, frame_index=3)
     tro, trd, tseeds = tcam.make_camera_rays(
         tcam.Camera.create(**pose), jnp.asarray(xs), jnp.asarray(ys), w, h,

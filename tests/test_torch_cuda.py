@@ -1,5 +1,7 @@
-"""The hand-written CUDA megakernel against its plain torch version on
-the card. Marked ``cuda``: without a CUDA device every test skips (the
+"""The hand-written CUDA kernels against their plain torch versions on
+the card: the megakernel (B1) and its dense instantiation, the dense
+sweep (B2) alone, and the exact sweep (B3) alone and in the modular
+engine. Marked ``cuda``: without a CUDA device every test skips (the
 decision is made in a fixture, at run time). On the GPU machine, which
 has no jax, run them without tests/conftest.py:
 
@@ -13,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpurt.config import RenderConfig
+from tpurt_torch.config import RenderConfig
 from tpurt_torch.core.camera import Camera
-from tpurt_torch.render import mega_cuda
+from tpurt_torch.core.v3 import V3
+from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 from tpurt_torch.render.megakernel import run_megakernel
 from tpurt_torch.render.renderer import flat_batch_args, render_frame
 from tpurt_torch.scene import procedural
@@ -40,11 +43,11 @@ def knot_obj_text() -> str:
     return "\n".join(lines) + "\n"
 
 
-def chain_scene(builder_cls, material_cls, mt, proc):
+def chain_scene(builder_cls, material_cls, mt, proc, device=None):
     """An identity icosphere big enough for the fused static chain entry,
     two transformed instances of one OBJ (Glassy, OneSided) and a light,
     built with either package's builder (the CPU tests build it with
-    tpurt's too)."""
+    tpurt's too, whose freeze takes no device)."""
     b = builder_cls()
     pos, nrm = proc.icosphere(1, radius=40.0)
     ball = b.add_triangles(pos, nrm)
@@ -65,7 +68,7 @@ def chain_scene(builder_cls, material_cls, mt, proc):
     light.material = material_cls(type=mt.SOLID, color=(1, 1, 1),
                                   emission_color=(1, 1, 0.9),
                                   emission_strength=10.0)
-    return b.freeze()
+    return b.freeze() if device is None else b.freeze(device)
 
 
 
@@ -114,7 +117,8 @@ def test_kernel_rejects_a_malformed_buffer(cuda_scene):
 def test_kernel_matches_plain_on_a_chain_scene(cuda_scene):
     """Fused static BVH entry, two transformed instances (Glassy and
     OneSided), chain skip and root expansion on three entries."""
-    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural).to("cuda")
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cuda")
     cam = Camera.create((0, 80, 220), pitch=-0.15, yaw=3.14159,
                         fov_degrees=70, aspect_ratio=1.0, device="cuda")
     cfg = CFG.replace(rays_per_pixel=3, max_bounces=6, mega_tail_passes=3)
@@ -124,3 +128,77 @@ def test_kernel_matches_plain_on_a_chain_scene(cuda_scene):
                              return_state=True, **args) for b in ("plain", "cuda")]
         agree, _err = mega_cuda.compare_lanes(*st)
         assert agree >= 0.995, (trips, agree)
+
+
+def _aimed_rays(rows, n, seed, spread=60.0):
+    """Rays (origins, unit directions) aimed near random triangles of
+    ``rows`` (T, 18), numpy f32."""
+    r = np.random.default_rng(seed)
+    tri = rows[r.integers(0, len(rows), n)]
+    w = r.dirichlet((1, 1, 1), n).astype(np.float32) * 1.2 - 0.1
+    target = tri[:, 0:3] * w[:, :1] + tri[:, 3:6] * w[:, 1:2] + tri[:, 6:9] * w[:, 2:3]
+    o = (target + r.normal(size=(n, 3)) * spread).astype(np.float32)
+    d = target - o
+    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_dense_sweep_kernel_matches_plain(cuda_scene):
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cuda")
+    table = plucker_fused.build_dense_table(scene)
+    o, d = _aimed_rays(table.rows[:table.count].cpu().numpy(), 20000, 0)
+    entry = torch.from_numpy(np.random.default_rng(1).integers(0, 3, 20000)).cuda()
+    lo = V3(*(torch.from_numpy(o[:, i].copy()).cuda() for i in range(3)))
+    ld = V3(*(torch.from_numpy(d[:, i].copy()).cuda() for i in range(3)))
+    before = plucker_fused.LAUNCHES
+    t, col = plucker_fused.sweep_entry_local(lo, ld, entry, table)
+    assert plucker_fused.LAUNCHES == before + 1
+    tp, colp = plucker_fused.sweep_plain(lo, ld, entry, table)
+    assert torch.equal(col, colp) and bool((col >= 0).any())
+    assert torch.equal(t, tp)
+
+
+def test_dense_megakernel_matches_plain(cuda_scene):
+    scene, cam = cuda_scene
+    cfg = CFG.replace(mega_dense=True)
+    args = flat_batch_args(scene, cam, cfg, 0)
+    for trips in (1, 4, 16):
+        st = {b: run_megakernel(scene, body_backend=b, max_iterations=trips,
+                                return_state=True, **args)
+              for b in ("plain", "cuda")}
+        agree, _err = mega_cuda.compare_lanes(st["plain"], st["cuda"])
+        assert agree >= 0.995, (trips, agree)
+    before = mega_cuda.DENSE_LAUNCHES
+    sk, sp = {}, {}
+    kern = render_frame(scene, cam, cfg.replace(mega_body="pallas"), stats=sk)
+    assert mega_cuda.DENSE_LAUNCHES > before
+    plain = render_frame(scene, cam, cfg.replace(mega_body="xla"), stats=sp)
+    assert (kern != plain).any(axis=-1).mean() <= 0.005
+    assert abs(sk["segments"] - sp["segments"]) <= 0.005 * sp["segments"]
+
+
+def test_mt_sweep_kernel_matches_plain(cuda_scene):
+    pos, nrm = procedural.icosphere(3, radius=50.0)
+    rows = np.concatenate([pos.reshape(-1, 9), nrm.reshape(-1, 9)], 1).astype(np.float32)
+    o, d = _aimed_rays(rows, 30000, 2, spread=150.0)
+    cull = torch.from_numpy(np.arange(len(rows)) % 4 != 0).cuda()
+    p_rows, flags = mt_sweep.pad_tri_rows(torch.from_numpy(rows).cuda(), cull)
+    ro, rd = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    before = mt_sweep.LAUNCHES
+    t, idx = mt_sweep.mt_sweep(ro, rd, p_rows, flags, len(rows))
+    assert mt_sweep.LAUNCHES == before + 1
+    tp, idxp = mt_sweep.mt_sweep_plain(ro, rd, p_rows, flags, len(rows))
+    assert torch.equal(idx, idxp) and bool((idx >= 0).any()) and bool((idx < 0).any())
+    assert torch.equal(t, tp)
+
+
+def test_modular_kernel_frame_equals_exact(cuda_scene):
+    scene, cam = cuda_scene
+    cfg = CFG.replace(engine="modular", tile_size=32)
+    before = mt_sweep.LAUNCHES
+    sk, se = {}, {}
+    kern = render_frame(scene, cam, cfg.replace(dense_engine="pallas"), stats=sk)
+    assert mt_sweep.LAUNCHES > before
+    exact = render_frame(scene, cam, cfg.replace(dense_engine="exact"), stats=se)
+    np.testing.assert_array_equal(kern, exact)
+    assert sk["segments"] == se["segments"]

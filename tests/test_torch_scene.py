@@ -35,8 +35,10 @@ def bits(a) -> np.ndarray:
 def _scenes(which):
     if which == "cornell":
         cfg = RenderConfig(object_path="sphere1.obj")
-        return cornell_sphere_scene(1, cfg)[0], t_cornell(1, cfg)[0]
-    return (chain_scene(SceneBuilder, Material, MaterialType, procedural),
+        return (cornell_sphere_scene(1, cfg, device="cpu")[0],
+                t_cornell(1, cfg)[0])
+    return (chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cpu"),
             chain_scene(TBuilder, TMaterial, TMT, t_proc))
 
 
@@ -76,7 +78,7 @@ def test_from_arrays_round_trip(scenes):
     mine, theirs = scenes
     carried = port_scene.from_arrays(
         {f: np.asarray(getattr(theirs, f)) for f in ARRAY_FIELDS},
-        {f: getattr(theirs, f) for f in STATIC_FIELDS})
+        {f: getattr(theirs, f) for f in STATIC_FIELDS}, device="cpu")
     for f in ARRAY_FIELDS:
         np.testing.assert_array_equal(
             bits(getattr(carried, f)).view(np.uint8),
@@ -104,7 +106,7 @@ def test_scene_to_device_and_unported_regimes():
     moved = scene.to("cpu")
     assert moved.device.type == "cpu" and moved.mega_chain == scene.mega_chain
     with pytest.raises(NotImplementedError, match="TLAS"):
-        port_scene.from_arrays({}, {"mega_tlas": True})
+        port_scene.from_arrays({}, {"mega_tlas": True}, device="cpu")
     b = SceneBuilder()
     pos, nrm = procedural.icosphere(0, radius=5.0)
     for i in range(9):  # more instanced meshes than MEGA_TLAS_THRESHOLD
@@ -112,4 +114,4 @@ def test_scene_to_device_and_unported_regimes():
         h.pos = (10.0 * (i + 1), 0.0, 0.0)
         b.add_mesh(h)
     with pytest.raises(NotImplementedError, match="TLAS"):
-        b.freeze()
+        b.freeze("cpu")

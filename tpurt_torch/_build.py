@@ -1,22 +1,26 @@
-"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+"""Build the native sources in ``csrc/`` and load them with ctypes.
 
-Route: nvcc by hand into a shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds, not minutes):
+Route: a shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds, not minutes). CUDA sources (``<name>.cu``) go
+through nvcc for Hopper:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -fmad=false -shared -Xcompiler -fPIC -o <lib>.so csrc/<name>.cu
 
 ``-fmad=false`` keeps every a*b+c a rounded multiply and a rounded add,
 as the plain torch version computes them; no fast math, so divisions
-and square roots stay IEEE. The library lands in ``build/tpurt_torch/``
-at the repository root, named by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one loads at once. A failed
-build raises with the compiler's output.
+and square roots stay IEEE. Host sources (``<name>.cpp``, the SAH BVH
+builder) go through g++. A library lands in ``build/tpurt_torch/`` at
+the repository root, named by a hash of its source, the ``.cuh``
+headers beside it and the flags, so an edited source rebuilds and an
+unchanged one loads at once. A failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -30,6 +34,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 
@@ -43,36 +48,67 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def _source(name: str) -> str:
+    cu = os.path.join(CSRC, name + ".cu")
+    return cu if os.path.exists(cu) else os.path.join(CSRC, name + ".cpp")
+
+
+def _flags(src: str):
+    return NVCC_FLAGS if src.endswith(".cu") else GXX_FLAGS
+
+
 def lib_path(name: str) -> str:
-    """The library path for ``csrc/<name>.cu`` at its current hash."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu`` (or ``.cpp``) at its
+    current hash."""
+    src = _source(name)
+    digest = hashlib.sha256(" ".join(_flags(src)).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hash is already built;
-    returns the library path. The compiler's output (ptxas register and
-    spill report included) is kept beside it as ``<lib>.log``."""
+    """Compile ``csrc/<name>`` unless its hash is already built; returns
+    the library path. The compiler's output (for nvcc, ptxas's register
+    and spill report) is kept beside it as ``<lib>.log``."""
     out = lib_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    src = _source(name)
+    compiler = nvcc_path() if src.endswith(".cu") else "g++"
+    cmd = [compiler, *_flags(src), "-o", tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(out + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}:\n"
+            f"{compiler} failed ({proc.returncode}) building {name}:\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
+def build_all(names) -> dict:
+    """Build several sources at once — one compiler process each, all
+    started together — and return {name: seconds until its build ended}."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.time()
+
+    def one(name):
+        build(name)
+        return time.time() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed and load ``csrc/<name>.cu`` (once per process)."""
+    """Build if needed and load ``csrc/<name>`` (once per process)."""
     with _LOCK:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(build(name))

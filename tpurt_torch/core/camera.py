@@ -49,7 +49,7 @@ class Camera(NamedTuple):
 
     @classmethod
     def create(cls, position, pitch=0.0, yaw=0.0, roll=0.0, fov_degrees=90.0,
-               aspect_ratio=1.0, device="cpu") -> "Camera":
+               aspect_ratio=1.0, device="cuda") -> "Camera":
         position = np.asarray(position, np.float32)
         p = np.array([position[0], position[1], position[2],
                       pitch, yaw, roll, fov_degrees, aspect_ratio], np.float32)

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt.config import EPSILON
+from tpurt_torch.config import EPSILON
 from tpurt_torch.core.rng import rsqrt, sqrt
 
 _EPS = float(np.float32(EPSILON))

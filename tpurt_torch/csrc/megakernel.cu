@@ -29,9 +29,19 @@
 // Lane state crosses the C boundary as one (n_fields, R) buffer of
 // 32-bit words; the field order is enum Field below, mirrored by
 // LANE_WORDS in render/mega_cuda.py (a CPU test holds the two equal).
+//
+// The brute-force mode (RenderConfig.mega_dense) is a second
+// instantiation of the same kernel, megakernel<true>: its traversal step
+// resolves the lane's whole chain entry with kernel B2's sweep
+// (dense_sweep.cuh) plus the exact Möller-Trumbore recompute of the
+// winner, where megakernel<false> steps one bank row. The choice is a
+// template parameter, made on the host at launch, so the BVH kernel's
+// code and registers are what they were without it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "dense_sweep.cuh"
 
 namespace {
 
@@ -90,6 +100,7 @@ struct Tables {
   const int* meta;       // root[E] leaf[E] mesh[E] expand[E]
                          // s_cull[S] s_onesided[S] s_owner[S] mesh_cull[K]
   const float* slot_rd;  // (3, P-1, R) quota slot directions
+  DenseTable dt;         // the dense sweep's table (megakernel<true> only)
 };
 
 struct V {
@@ -541,14 +552,38 @@ __device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisib
   L.bounces = bounces_new;
 }
 
-// The trip's traversal step on the lane's current bank row, then the
-// chain fold of a finished entry. Returns in_chain.
+// The trip's traversal step — one bank row, or in dense mode the whole
+// chain entry — then the chain fold of a finished entry. Returns
+// in_chain.
+template <bool kDense>
 __device__ bool traverse(const Ctx& x, Lane& L) {
   const int E = x.c.e_count;
   const int ec = min(L.entry, E - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
   const float scale_e = cp[12];
-  if (L.entry < E && L.cur >= 0) {
+  if (kDense && L.entry < E && L.cur >= 0) {
+    // Acceptance and t from the sweep; normal, backface and the cull
+    // verdict from the exact test on the winner (megakernel._dense_hit).
+    float t_sw;
+    const int col = dense_sweep(x.tb.dt, ec, L.lo.x, L.lo.y, L.lo.z, L.ld.x, L.ld.y,
+                                L.ld.z, t_sw);
+    L.lt = t_sw;
+    L.lmesh = -1;
+    if (col >= 0) {
+      const float* r = x.tb.dt.rows + 18 * (size_t)col;
+      const V pa = ld3(r);
+      float te;
+      V n;
+      bool bf;
+      if (mt(L.lo, L.ld, pa, ld3(r + 3) - pa, ld3(r + 6) - pa, ld3(r + 9), ld3(r + 12),
+             ld3(r + 15), x.tb.dt.cull[col] != 0.0f, te, n, bf)) {
+        L.lnrm = n;
+        L.lback = bf;
+        L.lmesh = x.tb.dt.owner[col];
+      }
+    }
+    L.cur = -1;
+  } else if (L.entry < E && L.cur >= 0) {
     const float* row = x.tb.rows + (size_t)L.cur * x.c.row_width;
     float limit = minp(L.lt, L.w_dst / safe_scale(scale_e) * kGrow);
     bool pop;
@@ -742,6 +777,7 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
   if (do_expand && ok && cur_e < E && x.expand()[cur_e]) expand_root(x, L, cur_e);
 }
 
+template <bool kDense>
 __global__ void __launch_bounds__(128) megakernel(MkCfg c, Tables tb, uint32_t* state,
                                                   int* trips_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -755,7 +791,7 @@ __global__ void __launch_bounds__(128) megakernel(MkCfg c, Tables tb, uint32_t* 
   // One trip: traversal + fold, then tail_passes segment completions
   // (megakernel._body_math). A retired lane stops; its state is final.
   while (!L.done && trips < c.max_trips) {
-    const bool in_chain = c.e_count > 0 && traverse(x, L);
+    const bool in_chain = c.e_count > 0 && traverse<kDense>(x, L);
     tail(x, L, in_chain, c.expand_passes >= 1);
     for (int p = 1; p < c.tail_passes; ++p) tail(x, L, false, p < c.expand_passes);
     ++trips;
@@ -772,15 +808,24 @@ extern "C" const char* tpurt_mk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches the megakernel on ``stream``; returns cudaGetLastError().
+// Launches the megakernel on ``stream`` — the dense instantiation when
+// ``dense`` is not null; returns cudaGetLastError().
 extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
                                const float* mats, const float* srows, const float* roots_f,
                                const int* roots_i, const int* meta, const float* slot_rd,
-                               uint32_t* state, int* trips, void* stream) {
-  Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd};
+                               uint32_t* state, int* trips, const DenseTable* dense,
+                               void* stream) {
+  Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd, DenseTable{}};
   const int threads = 128;
   const int blocks = (cfg->n_lanes + threads - 1) / threads;
-  if (blocks > 0)
-    megakernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*cfg, tb, state, trips);
+  if (blocks > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dense) {
+      tb.dt = *dense;
+      megakernel<true><<<blocks, threads, 0, s>>>(*cfg, tb, state, trips);
+    } else {
+      megakernel<false><<<blocks, threads, 0, s>>>(*cfg, tb, state, trips);
+    }
+  }
   return (int)cudaGetLastError();
 }

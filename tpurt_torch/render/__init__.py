@@ -1,2 +1,3 @@
-"""Shading, tonemap, the megakernel (plain torch version + CUDA kernel)
-and the flat renderer."""
+"""Shading, tonemap, the megakernel (plain torch version + CUDA kernel,
+BVH and dense), the modular engine (intersection, the dense sweeps,
+integrator) and the renderers."""

@@ -11,6 +11,10 @@ says what bounds it on the card and why one thread per lane.
 kernel — one launch per call, counted in ``LAUNCHES`` — or raises; on a
 CPU lane state it runs the kernel's plain version,
 ``megakernel.run_plain``, because a CPU tensor is what it was given.
+A brute-force context (``ctx.dense`` set, RenderConfig.mega_dense)
+launches the kernel's dense instantiation, whose traversal step is
+kernel B2's sweep (render/plucker_fused.py); those launches are counted
+in ``DENSE_LAUNCHES``.
 
 The lane state crosses the C boundary as one contiguous (n_words, R)
 int32 buffer: ``LANE_WORDS`` (the kernel's ``enum Field``, word for
@@ -30,8 +34,10 @@ import torch
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import megakernel as mk
 
-#: Kernel launches made by ``run`` (incremented where a launch is made).
+#: Kernel launches made by ``launch`` (incremented where a launch is
+#: made): the BVH instantiation and the dense one.
 LAUNCHES = 0
+DENSE_LAUNCHES = 0
 
 _MAX_STACK = 64  # kMaxStack in the kernel
 
@@ -198,7 +204,7 @@ def _lib():
     lib = _build.load("megakernel")
     if not getattr(lib, "_tpurt_ready", False):
         vp = ctypes.c_void_p
-        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 11
+        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 12
         lib.tpurt_mk_launch.restype = ctypes.c_int
         lib.tpurt_mk_fixed_words.argtypes = []
         lib.tpurt_mk_fixed_words.restype = ctypes.c_int
@@ -215,7 +221,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
            ) -> torch.Tensor:
     """Run the kernel in place on a packed CUDA lane buffer; returns the
     (R,) int32 trips each lane ran."""
-    global LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES
     if buf.device.type != "cuda":
         raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
     if buf.dtype != torch.int32 or buf.dim() != 2 or not buf.is_contiguous():
@@ -248,6 +254,11 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
         leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=rows.shape[1],
         frame_index=ctx.frame_index, sample_offset=ctx.sample_offset,
     )
+    dense = None
+    if ctx.dense is not None:
+        from tpurt_torch.render.plucker_fused import check_table
+
+        dense = check_table(ctx.dense, dev)
     lib = _lib()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
@@ -256,12 +267,16 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
             ctypes.byref(cfg), ptr(rows), ptr(tabs["chain"]), ptr(tabs["mats"]),
             ptr(tabs["srows"]), ptr(tabs["roots_f"]), ptr(tabs["roots_i"]),
             ptr(tabs["meta"]), ptr(tabs["slot_rd"]), ptr(buf), ptr(trips),
+            None if dense is None else ctypes.c_void_p(ctypes.addressof(dense)),
             ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.tpurt_mk_error_string(err).decode())
-    LAUNCHES += 1
+    if dense is None:
+        LAUNCHES += 1
+    else:
+        DENSE_LAUNCHES += 1
     return trips
 
 

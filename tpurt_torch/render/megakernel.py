@@ -12,15 +12,21 @@ accumulate/advance -> restart -> inline static stage -> chain enter with
 root pretest, chain skip and root expansion. ``_body_math`` below is
 that trip as tensor ops over (R,) lanes — the same transcription as
 tpurt's ``_body_math``, op for op and in the same association order,
-minus the TPU-only regimes (TLAS, bf16 bounds, dense sweep, jitter,
-list quotas, cross-frame packs).
+minus the regimes not ported yet (TLAS, bf16 bounds, jitter, list
+quotas, cross-frame packs).
+
+The brute-force mode (``dense=True``, RenderConfig.mega_dense) replaces
+the traversal step: each trip resolves a lane's whole chain entry with
+the dense Plücker sweep (render/plucker_fused.py) and recomputes the
+winner exactly (``_dense_hit``); root expansion is off.
 
 Two backends run the loop (``run_megakernel(body_backend=...)``):
 
   "plain"  this module: a Python loop of torch ops on any device. It is
            the parity anchor (held against tpurt's XLA body on the CPU).
   "cuda"   render/mega_cuda.py: csrc/megakernel.cu, one CUDA thread per
-           lane running the whole loop in registers.
+           lane running the whole loop in registers (its dense
+           instantiation runs kernel B2's sweep in the traversal step).
 
 Setup — lane init, primary rays, the quota slots' direction tables, the
 chain and root tables — is plain torch on the scene's device and shared
@@ -36,13 +42,15 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-import tpurt.config as _cfg
-from tpurt.config import EPSILON
+import tpurt_torch.config as _cfg
+from tpurt_torch.config import EPSILON
 from tpurt_torch.core import rng as rnglib
 from tpurt_torch.core import v3 as v3lib
 from tpurt_torch.core.camera import make_ray, pixel_uv
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.core.vecmath import euler_rotation
+from tpurt_torch.render.intersect import mt_core as _mt_core
+from tpurt_torch.render.intersect import mt_rows
 from tpurt_torch.render.shading import pack_materials, shade_hit_soa
 from tpurt_torch.scene.builder import MEGA_SLOT_BITS
 from tpurt_torch.scene.types import MaterialType, Scene
@@ -163,6 +171,7 @@ class _Ctx(NamedTuple):
     n_skip: int
     leaf_tris: int
     arity: int
+    dense: Optional["DenseTable"] = None  # the brute-force sweep's table
 
 
 def _cull_policy(mt: int) -> bool:
@@ -295,39 +304,6 @@ def _enter(ctx: _Ctx, entry, origin: V3, direction: V3):
     ld = v3lib.normalize(_rot_t(tab, ec, direction) / safe)
     return (lo, ld, V3(1.0 / ld.x, 1.0 / ld.y, 1.0 / ld.z), p.root_t[ec],
             p.root_leaf_t[ec])
-
-
-def _mt_core(lo: V3, ld: V3, pa: V3, e1: V3, e2: V3, na: V3, nb: V3, nc: V3,
-             cull):
-    """Exact Möller-Trumbore in tpurt's op order; ``e1 = pb - pa`` and
-    ``e2 = pc - pa`` come precomputed in f32. ``cull`` is a Python bool
-    (static triangles) or a per-lane bool tensor."""
-    h = v3lib.cross(ld, e2)
-    det = v3lib.dot(e1, h)
-    ok = torch.abs(det) >= _EPS
-    f = 1.0 / det
-    s = lo - pa
-    u = f * v3lib.dot(s, h)
-    ok &= (u >= 0.0) & (u <= 1.0)
-    q = v3lib.cross(s, e1)
-    v = f * v3lib.dot(ld, q)
-    ok &= (v >= 0.0) & (u + v <= 1.0)
-    t = f * v3lib.dot(e2, q)
-    ok &= t > _EPS
-    w = 1.0 - u - v
-    n = v3lib.normalize(V3(
-        na.x * w + nb.x * u + nc.x * v,
-        na.y * w + nb.y * u + nc.y * v,
-        na.z * w + nb.z * u + nc.z * v,
-    ))
-    backface = v3lib.dot(ld, n) > _EPS
-    if isinstance(cull, bool):
-        if cull:
-            ok &= ~backface
-    else:
-        ok &= ~(cull & backface)
-    n = v3lib.where(backface, -n, n)
-    return ok, t, n, backface
 
 
 def _static_tri(srow: np.ndarray):
@@ -579,8 +555,44 @@ def _traverse(s: _Lane, ctx: _Ctx):
     cur_leaf = torch.where(resume, top_resolved & ((top_meta & 1) == 1),
                            cur_leaf)
     cur = torch.where(pop & top_empty, -1, cur)
+    return _fold(s, ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur, cur_leaf,
+                 cur_slot, stack)
 
-    # --- next mesh: fold the finished entry to world space -------------
+
+def _dense_hit(s: _Lane, ctx: _Ctx, ec):
+    """Brute-force traversal step: the plain dense sweep of the lane's
+    whole entry, then the exact MT recompute of the winner -> (t, normal,
+    backface, mesh or -1). Acceptance and t come from the sweep, shading
+    data from the exact test (tpurt's _dense_hit, Trace.cl:276-317)."""
+    from tpurt_torch.render.plucker_fused import sweep_plain
+
+    table = ctx.dense
+    t_sw, col = sweep_plain(s.lo, s.ld, ec, table)
+    cc = torch.clamp_min(col, 0)
+    ok, _t, n, back = mt_rows(s.lo, s.ld, table.rows[cc], table.cull[cc] != 0.0)
+    return t_sw, n, back, torch.where((col >= 0) & ok, table.owner[cc], -1)
+
+
+def _traverse_dense(s: _Lane, ctx: _Ctx):
+    """The dense trip's traversal step: every traversing lane adopts its
+    entry's winner and finishes the entry (cur = -1), then the fold."""
+    e_count = ctx.e_count
+    trav = ~s.done & (s.entry < e_count) & (s.cur >= 0)
+    ec = torch.clamp_max(s.entry, e_count - 1).long()
+    d_t, d_nrm, d_back, d_mesh = _dense_hit(s, ctx, ec)
+    return _fold(
+        s, ctx, ec, ctx.params.table[ec, _CP_SCALE],
+        torch.where(trav, d_t, s.lt), v3lib.where(trav, d_nrm, s.lnrm),
+        torch.where(trav, d_back, s.lback), torch.where(trav, d_mesh, s.lmesh),
+        torch.where(trav, -1, s.cur), s.cur_leaf, s.cur_slot, s.stack)
+
+
+def _fold(s: _Lane, ctx: _Ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur,
+          cur_leaf, cur_slot, stack):
+    """Next mesh: fold entries that finished (cur < 0) to world space and
+    advance them. Returns the lane and the in_chain mask."""
+    e_count = ctx.e_count
+    tab = ctx.params.table
     fin = ~s.done & (s.entry < e_count) & (cur < 0)
     lvalid = fin & (lmesh >= 0)
     lvalid &= ~((tab[ec, _CP_OS] != 0.0) & lback)
@@ -771,7 +783,8 @@ def _body_math(s: _Lane, ctx: _Ctx) -> _Lane:
     """One loop trip (tpurt _body_math): traversal, fold, then the tail
     ``tail_passes`` times. Does not advance ``iters``."""
     if ctx.e_count:
-        t, in_chain = _traverse(s, ctx)
+        step = _traverse if ctx.dense is None else _traverse_dense
+        t, in_chain = step(s, ctx)
     else:
         t, in_chain = s, torch.zeros_like(s.done)
     t = _tail(t, ctx, in_chain, do_expand=ctx.expand_passes >= 1)
@@ -832,20 +845,20 @@ def run_megakernel(
     (stride defaults to R) and radiance row k*R+i is its quota slot k.
 
     ``body_backend``: "plain" (this module's torch loop, any device) or
-    "cuda" (render/mega_cuda.py). ``max_iterations`` caps the trips run
+    "cuda" (render/mega_cuda.py). ``dense``: the brute-force mode (a
+    scene without chain entries has nothing to sweep and runs the
+    ordinary loop). ``max_iterations`` caps the trips run
     from ``initial_state`` (or from the fresh lanes), which is how the
     two backends and tpurt are held against each other trip by trip.
     """
     if subpixel_jitter:
-        _unsupported("subpixel_jitter", "A.7")
+        _unsupported("subpixel_jitter", "A.4")
     if pixel_list is not None:
-        _unsupported("pixel_list (list-quota mode)", "A.7")
+        _unsupported("pixel_list (list-quota mode)", "A.4")
     if frames_per_batch > 1:
-        _unsupported("frames_per_batch > 1 (cross-frame packing)", "A.5")
-    if dense:
-        _unsupported("mega_dense (kernel B2)", "A.8")
+        _unsupported("frames_per_batch > 1 (cross-frame packing)", "A.3")
     if scene.mega_tlas or scene.mega_bounds_fmt != "u8":
-        _unsupported("TLAS scenes and bf16 bounds", "A.7")
+        _unsupported("TLAS scenes and bf16 bounds", "A.2")
     if body_backend not in ("plain", "cuda"):
         raise ValueError(f"unknown body_backend: {body_backend!r}")
     if max_bounces <= 0 and not return_state:
@@ -855,7 +868,7 @@ def run_megakernel(
     lane, ctx = prepare(
         scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
         max_bounces, seed_mode, invisible_budget, sample_offset, camera,
-        width, height, pixels_per_lane, pixel_stride, tail_passes,
+        width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
     )
     if initial_state is not None:
         lane = initial_state
@@ -874,10 +887,12 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             rays_per_pixel: int, max_bounces: int, seed_mode: str,
             invisible_budget: int, sample_offset: int = 0, camera=None,
             width: int = 0, height: int = 0, pixels_per_lane: int = 1,
-            pixel_stride: Optional[int] = None, tail_passes: int = 1):
+            pixel_stride: Optional[int] = None, tail_passes: int = 1,
+            dense: bool = False):
     """The shared setup of both backends -> (fresh lane state, loop
-    invariants): chain and root tables, quota slot directions, and lanes
-    seeded by the static stage and entered at chain entry 0."""
+    invariants): chain and root tables (the dense sweep's table in
+    brute-force mode, where no root expands), quota slot directions, and
+    lanes seeded by the static stage and entered at chain entry 0."""
     if not isinstance(ro0, V3):
         ro0 = v3lib.from_rows(ro0)
     if not isinstance(rd0, V3):
@@ -887,6 +902,15 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
     p_count = int(pixels_per_lane)
     e_count = len(scene.mega_chain)
     params = _chain_params(scene) if e_count else None
+    table = None
+    if dense and e_count:
+        from tpurt_torch.render.plucker_fused import build_dense_table
+
+        # Dense mode never walks rows: cur >= 0 only flags an entry for
+        # the sweep, so no root expands (tpurt: megakernel.py:1499-1501).
+        params = params._replace(expand=(False,) * e_count, roots_f=None,
+                                 roots_i=None)
+        table = build_dense_table(scene)
     use_cache = rays_per_pixel > 1
     mat_type = scene.mat_type.cpu().numpy()
     stride = r if pixel_stride is None else int(pixel_stride)
@@ -909,7 +933,7 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         expand_passes=int(_cfg.MEGA_EXPAND_PASSES),
         n_skip=(min(e_count - 1, _cfg.MEGA_SKIP_CAP)
                 if e_count <= _cfg.SELECT_GATHER_THRESHOLD else 0),
-        leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity,
+        leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity, dense=table,
     )
 
     if p_count > 1:

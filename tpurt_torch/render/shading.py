@@ -5,6 +5,10 @@ Materials are fetched with an indexed read of the packed (K, 11) table —
 the same values tpurt's select chains produce. tpurt's material-set
 pruning only saves code size on the TPU and is bitwise-neutral, so the
 port keeps every branch.
+
+``shade_hit_soa`` carries vectors as V3 component triples (the
+megakernel's layout); ``shade_hit`` is the (R, 3)-row wrapper the modular
+integrator calls, numerically identical (it only repacks).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpurt.config import EPSILON, IOR_AIR
+from tpurt_torch.config import EPSILON, IOR_AIR
 from tpurt_torch.core import rng as rnglib
 from tpurt_torch.core import v3 as v3lib
 from tpurt_torch.core.v3 import V3
@@ -27,6 +31,17 @@ MAT_TYPE, MAT_IOR = 0, 1
 MAT_COLOR, MAT_EMC = 2, 5  # 3 columns each
 MAT_EMS, MAT_REFL, MAT_SPEC = 8, 9, 10
 MAT_WIDTH = 11
+
+
+class ShadeResult(NamedTuple):
+    origin: torch.Tensor  # (R, 3)
+    direction: torch.Tensor
+    throughput: torch.Tensor
+    light: torch.Tensor
+    rng: torch.Tensor  # u32 in int64
+    bounces: torch.Tensor  # i32
+    continuing: torch.Tensor  # bool
+    invisible: torch.Tensor  # bool
 
 
 class ShadeResultSoA(NamedTuple):
@@ -166,3 +181,29 @@ def shade_hit_soa(
         continuing=continuing,
         invisible=invisible,
     )
+
+
+def select_material(scene: Scene, mesh_idx: torch.Tensor):
+    """Row-layout material fetch: (mtype i32, ior, color (R, 3), emission
+    color (R, 3), emission strength, reflectiveness, specular prob)."""
+    mtype, ior, color, em_color, em_strength, refl, spec = select_material_soa(
+        pack_materials(scene), mesh_idx)
+    return (mtype.to(torch.int32), ior, v3lib.to_rows(color),
+            v3lib.to_rows(em_color), em_strength, refl, spec)
+
+
+def shade_hit(scene: Scene, enabled, hit_valid, hit_point, hit_normal,
+              hit_backface, hit_mesh, origin, direction, throughput, light,
+              rng, bounces, max_bounces: int) -> ShadeResult:
+    """(R, 3)-layout wrapper over ``shade_hit_soa`` (the modular engine's
+    calling convention)."""
+    rows = v3lib.from_rows
+    res = shade_hit_soa(
+        pack_materials(scene), enabled, hit_valid, rows(hit_point),
+        rows(hit_normal), hit_backface, hit_mesh, rows(origin), rows(direction),
+        rows(throughput), rows(light), rng, bounces, max_bounces)
+    return ShadeResult(
+        origin=v3lib.to_rows(res.origin), direction=v3lib.to_rows(res.direction),
+        throughput=v3lib.to_rows(res.throughput), light=v3lib.to_rows(res.light),
+        rng=res.rng, bounces=res.bounces, continuing=res.continuing,
+        invisible=res.invisible)

@@ -1,17 +1,18 @@
 """SceneBuilder: host-side scene assembly -> frozen torch Scene (port of
 tpurt/scene/builder.py, unrolled-chain regime).
 
-Geometry, BVHs and the megakernel row bank are built in numpy exactly as
-tpurt builds them — the SAH builder is tpurt's own (``tpurt.accel.bvh``
-and the native C++ path in ``tpurt._native``), and the bank emitters
-below are the same code — so the port's banks are bit-identical to
-tpurt's by construction (tests/test_torch_scene.py holds them so).
+Geometry, BVHs, the modular engine's threaded node rows and the
+megakernel row bank are built in numpy exactly as tpurt builds them —
+the SAH builder is the port's copy of tpurt's (``accel/bvh.py`` and the
+C++ builder behind ``_native``), and the emitters below are the same
+code — so the port's banks are bit-identical to tpurt's
+(tests/test_torch_scene.py and tests/test_torch_config.py hold them so).
 
 Supported at freeze: u8 child bounds, the arity and leaf counts from
-``tpurt.config``, the inline static stage, one fused static chain entry
-plus one entry per instanced mesh. The TLAS regime (more instanced
-meshes than ``MEGA_TLAS_THRESHOLD``), bf16 bounds and material slots
-raise NotImplementedError (ROADMAP A.7).
+``tpurt_torch.config``, the inline static stage, one fused static chain
+entry plus one entry per instanced mesh. The TLAS regime (more
+instanced meshes than ``MEGA_TLAS_THRESHOLD``), bf16 bounds and material
+slots raise NotImplementedError (ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -22,8 +23,11 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from tpurt.accel.bvh import BVHNodes, build_bvh
-from tpurt.config import CORNELL_BREATHING_ROOM
+from tpurt_torch import _native
+from tpurt_torch import config as cfgmod
+from tpurt_torch.accel.bvh import (
+    DEFAULT_LEAF_CAP, BVHNodes, build_bvh, thread_links)
+from tpurt_torch.config import CORNELL_BREATHING_ROOM
 from tpurt_torch.scene.obj import load_obj as _load_obj_file
 from tpurt_torch.scene.obj import parse_obj
 from tpurt_torch.scene.types import MaterialType, Scene
@@ -184,6 +188,65 @@ def _emit_mega_subtree(rows, nodes, root, tri_pos, tri_nrm, tri_mesh,
     return emit_node(root)
 
 
+def _subtree_indices(child, ntris, root):
+    stack = [int(root)]
+    while stack:
+        idx = stack.pop()
+        yield idx
+        if ntris[idx] == 0:
+            stack.append(int(child[idx]))
+            stack.append(int(child[idx]) + 1)
+
+
+def _walk_rows(bmin_arr, bmax_arr, child, first, ntris, hit, miss, roots):
+    """The modular walk's packed node rows (Scene.node_q) and each mesh
+    root's uint16 grid (origin, cell) — tpurt's freeze, step for step.
+    Conservative: decoded lo <= true lo and decoded hi >= true hi,
+    checked and fixed up element-wise against f32 decode rounding, so
+    the walk may over-visit but never misses. The megakernel chain's
+    root-pretest box is the grid's span."""
+    m_nodes = len(ntris)
+    assert m_nodes < (1 << 24), "node count exceeds packed miss-link field"
+    assert ntris.max(initial=0) < (1 << 8), (
+        "leaf size exceeds packed field; lower the builder leaf cap")
+    w6 = np.where(ntris == 0, hit.astype(np.int64), first).astype(np.int32)
+    w7 = ((miss.astype(np.int64) + 1) | (ntris.astype(np.int64) << 24)
+          ).astype(np.int32)
+    qlo = np.zeros((m_nodes, 3), np.uint16)
+    qhi = np.zeros((m_nodes, 3), np.uint16)
+    root_params = {}
+    f32 = lambda x: x.astype(np.float32).astype(np.float64)
+    for root in roots:
+        members = list(_subtree_indices(child, ntris, root))
+        gmin = bmin_arr[root].astype(np.float64)
+        gmax = bmax_arr[root].astype(np.float64)
+        scale = (gmax - gmin) / 65535.0
+        safe = np.where(scale > 0, scale, 1.0)
+        sub_lo = bmin_arr[members].astype(np.float64)
+        sub_hi = bmax_arr[members].astype(np.float64)
+        ql = np.clip(np.floor((sub_lo - gmin) / safe), 0, 65535)
+        qh = np.clip(np.ceil((sub_hi - gmin) / safe), 0, 65535)
+        gmin32, scale32 = f32(gmin), f32(np.where(scale > 0, scale, 0.0))
+        for _ in range(3):
+            ql = np.where(gmin32 + ql * scale32 > sub_lo,
+                          np.maximum(ql - 1, 0), ql)
+            qh = np.where((gmin32 + qh * scale32 < sub_hi) & (scale32 > 0),
+                          np.minimum(qh + 1, 65535), qh)
+        qlo[members] = ql.astype(np.uint16)
+        qhi[members] = qh.astype(np.uint16)
+        root_params[root] = (gmin.astype(np.float32),
+                             np.where(scale > 0, scale, 0.0).astype(np.float32))
+    q32 = lambda lo16, hi16: (lo16.astype(np.uint32)
+                              | (hi16.astype(np.uint32) << 16)).view(np.float32)
+    node_q = np.zeros((m_nodes, 5), np.float32)
+    node_q[:, 0] = q32(qlo[:, 0], qlo[:, 1])
+    node_q[:, 1] = q32(qlo[:, 2], qhi[:, 0])
+    node_q[:, 2] = q32(qhi[:, 1], qhi[:, 2])
+    node_q[:, 3] = w6.view(np.float32)
+    node_q[:, 4] = w7.view(np.float32)
+    return node_q, root_params
+
+
 @dataclasses.dataclass
 class Material:
     """Host-side RayTracingMaterial (readobj.hpp:48-56)."""
@@ -273,24 +336,19 @@ class SceneBuilder:
                         max_depth: int) -> int:
         """SAH build: native C++ for large meshes, numpy otherwise —
         exactly tpurt's SceneBuilder._build_bvh_fast."""
-        if count >= 512:
-            from tpurt import _native
-            from tpurt.accel.bvh import DEFAULT_LEAF_CAP
-
-            out = _native.build_bvh(
-                tri_pos, tri_nrm, first, count, max_depth, DEFAULT_LEAF_CAP
+        if count < 512:
+            return build_bvh(self.nodes, tri_pos, tri_nrm, first, count,
+                             max_depth)
+        bmin, bmax, child, nfirst, ntris = _native.build_bvh(
+            tri_pos, tri_nrm, first, count, max_depth, DEFAULT_LEAF_CAP)
+        base = len(self.nodes)
+        for i in range(len(ntris)):
+            self.nodes.append(
+                bmin[i], bmax[i],
+                int(child[i]) + base if ntris[i] == 0 else 0,
+                int(nfirst[i]), int(ntris[i]),
             )
-            if out is not None:
-                bmin, bmax, child, nfirst, ntris = out
-                base = len(self.nodes)
-                for i in range(len(ntris)):
-                    self.nodes.append(
-                        bmin[i], bmax[i],
-                        int(child[i]) + base if ntris[i] == 0 else 0,
-                        int(nfirst[i]), int(ntris[i]),
-                    )
-                return base
-        return build_bvh(self.nodes, tri_pos, tri_nrm, first, count, max_depth)
+        return base
 
     def load_obj(self, path: str) -> MeshHandle:
         """loadMeshFromOBJFile with the per-file geometry cache."""
@@ -394,29 +452,21 @@ class SceneBuilder:
 
     # -- freeze -----------------------------------------------------------
 
-    def freeze(self, device="cpu") -> Scene:
+    def freeze(self, device="cuda") -> Scene:
         """Flatten to a Scene on ``device`` (tpurt SceneBuilder.freeze,
-        the megakernel's fields)."""
-        import tpurt.config as cfgmod
-
+        untiled regime)."""
         if cfgmod.MEGA_BF16_BOUNDS:
             raise NotImplementedError(
-                "bf16 node bounds are not ported yet (ROADMAP A.7)")
+                "bf16 node bounds are not ported yet (ROADMAP A.2)")
         tri_pos, tri_nrm = self._consolidate()
         bmin, bmax, child, first, ntris = self.nodes.as_arrays()
         bmin_arr = np.asarray(bmin, np.float32).reshape(-1, 3)
         bmax_arr = np.asarray(bmax, np.float32).reshape(-1, 3)
 
-        # Per-root uint16 quantisation grid parameters: the chain's
-        # root-pretest box is this grid's span (as in tpurt's freeze).
-        root_params = {}
-        for root in sorted({m.node_idx for m in self.meshes}):
-            gmin = bmin_arr[root].astype(np.float64)
-            scale = (bmax_arr[root].astype(np.float64) - gmin) / 65535.0
-            root_params[root] = (
-                gmin.astype(np.float32),
-                np.where(scale > 0, scale, 0.0).astype(np.float32),
-            )
+        roots = sorted({m.node_idx for m in self.meshes})
+        hit, miss = thread_links(child, ntris, roots)
+        node_q, root_params = _walk_rows(bmin_arr, bmax_arr, child, first,
+                                         ntris, hit, miss, roots)
 
         leaf_tris = int(cfgmod.MEGA_LEAF_TRIS)
         arity = int(cfgmod.MEGA_NODE_ARITY)
@@ -485,7 +535,7 @@ class SceneBuilder:
         if len(inst_list) > int(cfgmod.MEGA_TLAS_THRESHOLD):
             raise NotImplementedError(
                 f"{len(inst_list)} instanced meshes would route through "
-                "tpurt's TLAS regime, which is not ported yet (ROADMAP A.7)")
+                "tpurt's TLAS regime, which is not ported yet (ROADMAP A.2)")
         emitted: Dict[int, Tuple[int, bool]] = {}
         for i in inst_list:
             m = self.meshes[i]
@@ -513,6 +563,13 @@ class SceneBuilder:
             tri_pos_a=t(tri_pos[:, 0]), tri_pos_b=t(tri_pos[:, 1]),
             tri_pos_c=t(tri_pos[:, 2]), tri_nrm_a=t(tri_nrm[:, 0]),
             tri_nrm_b=t(tri_nrm[:, 1]), tri_nrm_c=t(tri_nrm[:, 2]),
+            node_min=t(bmin_arr), node_max=t(bmax_arr),
+            node_index=t(np.where(ntris == 0, child, first).astype(np.int32)),
+            node_ntris=t(ntris.astype(np.int32)), node_hit=t(hit),
+            node_miss=t(miss), node_q=t(node_q),
+            tri_packed=t(np.concatenate(
+                [tri_pos.reshape(-1, 9), tri_nrm.reshape(-1, 9)], axis=1
+            ).astype(np.float32)),
             mesh_qmin=t(np.stack([root_params[m.node_idx][0] for m in self.meshes])
                         if k else zeros3),
             mesh_qscale=t(np.stack([root_params[m.node_idx][1] for m in self.meshes])
@@ -533,6 +590,7 @@ class SceneBuilder:
             mat_emission_strength=t(f32([m.emission_strength for m in mats])),
             mat_reflectiveness=t(f32([m.reflectiveness for m in mats])),
             mat_specular_prob=t(f32([m.specular_probability for m in mats])),
+            max_leaf_tris=max(int(ntris.max()) if len(ntris) else 0, 1),
             mesh_tri_ranges=tuple((m.first_tri, m.num_tris) for m in self.meshes),
             mega_chain=tuple(chain),
             mega_chain_members=tuple(chain_members),

@@ -1,14 +1,19 @@
 """Canonical scenes (port of tpurt/scene/presets.py): the reference's
 default workload — the model (an OBJ, or a procedural stand-in keyed by
 name) made white Solid with specularProbability 1 at scale 0.5, inside
-the Cornell box, appended last, seen from the settings.hpp camera."""
+the Cornell box, appended last, seen from the settings.hpp camera — and
+the scenes of tpurt's bench rows (bench.py ``build_scene``).
+
+Every entry point builds on ``device``, the CUDA device unless the
+caller names another; without a card that fails, it does not fall back.
+"""
 
 from __future__ import annotations
 
 import os
 from typing import Optional, Tuple
 
-from tpurt.config import RenderConfig
+from tpurt_torch.config import RenderConfig
 from tpurt_torch.core.camera import Camera
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, MeshHandle, SceneBuilder
@@ -33,7 +38,7 @@ def _model_for(builder: SceneBuilder, cfg: RenderConfig) -> MeshHandle:
 
 
 def scene_around(builder: SceneBuilder, mesh: MeshHandle, cfg: RenderConfig,
-                 device="cpu") -> Tuple[Scene, Camera]:
+                 device="cuda") -> Tuple[Scene, Camera]:
     """The reference main program's model setup (main.cpp:256-304) for
     ``mesh``."""
     mesh.material = Material(
@@ -52,7 +57,7 @@ def scene_around(builder: SceneBuilder, mesh: MeshHandle, cfg: RenderConfig,
     return builder.freeze(device), cam
 
 
-def default_scene(cfg: Optional[RenderConfig] = None, device="cpu"
+def default_scene(cfg: Optional[RenderConfig] = None, device="cuda"
                   ) -> Tuple[Scene, Camera, SceneBuilder]:
     cfg = cfg or RenderConfig()
     b = SceneBuilder()
@@ -61,8 +66,26 @@ def default_scene(cfg: Optional[RenderConfig] = None, device="cpu"
 
 
 def cornell_sphere_scene(subdivisions: int = 2,
-                         cfg: Optional[RenderConfig] = None, device="cpu"
+                         cfg: Optional[RenderConfig] = None, device="cuda"
                          ) -> Tuple[Scene, Camera, SceneBuilder]:
     """Cornell box around an icosphere (the tests' small scene)."""
     cfg = (cfg or RenderConfig()).replace(object_path=f"sphere{subdivisions}.obj")
     return default_scene(cfg, device)
+
+
+def bench_scene(kind: str, cfg: RenderConfig, device="cuda"
+                ) -> Tuple[Scene, Camera]:
+    """A scene of tpurt's bench rows (bench.py ``build_scene``):
+    "teapot" — the 6,144-triangle torus knot of the low-poly
+    brute-force row ``teapot-720p-bruteforce``; "sphere" — the
+    1,280-triangle icosphere of radius 100 of the parity row
+    ``parity-640x480-1spp``. Each at scale 0.5 in the Cornell box."""
+    if kind == "teapot":
+        pos, nrm = procedural.torus_knot(segments=96, sides=32, radius=80.0,
+                                         tube=22.0)
+    elif kind == "sphere":
+        pos, nrm = procedural.icosphere(3, radius=100.0)
+    else:
+        raise ValueError(f"unknown bench scene: {kind!r}")
+    b = SceneBuilder()
+    return scene_around(b, b.add_triangles(pos, nrm), cfg, device)

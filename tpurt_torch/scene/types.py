@@ -1,14 +1,15 @@
 """Scene representation (torch port of tpurt/scene/types.py).
 
 ``Scene`` is a plain dataclass: tensor fields plus static metadata. It
-carries what the megakernel path and the scalar oracle read: the
-triangle soup, the megakernel row bank (``mega_rows``), the inline
-static stage, the per-mesh transforms, quantisation grids and materials.
-The modular engine's threaded-BVH fields are not ported yet.
+carries what both engines and the scalar oracle read: the triangle soup,
+the modular engine's threaded BVH (``node_*``, the packed ``node_q``
+rows and the exact ``tri_packed`` triangle rows), the megakernel row
+bank (``mega_rows``), the inline static stage, the per-mesh transforms,
+quantisation grids and materials.
 
 Integer words inside the f32 banks (child metas, leaf aux words, static
-owners) are bit patterns: read them with ``Tensor.view(torch.int32)``,
-never with a cast.
+owners, ``node_q`` words) are bit patterns: read them with
+``Tensor.view(torch.int32)``, never with a cast.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ ARRAY_FIELDS = {
     "tri_pos_a": torch.float32, "tri_pos_b": torch.float32,
     "tri_pos_c": torch.float32, "tri_nrm_a": torch.float32,
     "tri_nrm_b": torch.float32, "tri_nrm_c": torch.float32,
+    "node_min": torch.float32, "node_max": torch.float32,
+    "node_index": torch.int32, "node_ntris": torch.int32,
+    "node_hit": torch.int32, "node_miss": torch.int32,
+    "node_q": torch.float32, "tri_packed": torch.float32,
     "mesh_qmin": torch.float32, "mesh_qscale": torch.float32,
     "mega_rows": torch.float32, "mega_static_rows": torch.float32,
     "mesh_root": torch.int32, "mesh_pos": torch.float32,
@@ -51,8 +56,8 @@ ARRAY_FIELDS = {
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Frozen scene: K mesh instances over a shared triangle soup, with
-    the megakernel's row bank and traversal chain (tpurt Scene
-    semantics, field for field)."""
+    the modular engine's BVH and the megakernel's row bank and traversal
+    chain (tpurt Scene semantics, field for field)."""
 
     tri_pos_a: torch.Tensor  # (T, 3) f32
     tri_pos_b: torch.Tensor
@@ -60,6 +65,25 @@ class Scene:
     tri_nrm_a: torch.Tensor
     tri_nrm_b: torch.Tensor
     tri_nrm_c: torch.Tensor
+    # Flat BVH (GPUNode semantics, src/readobj.hpp:27-31): ``index`` is
+    # the first triangle of a leaf or the first child of an internal
+    # node; siblings are adjacent.
+    node_min: torch.Tensor  # (M, 3) f32
+    node_max: torch.Tensor  # (M, 3) f32
+    node_index: torch.Tensor  # (M,) i32
+    node_ntris: torch.Tensor  # (M,) i32, 0 = internal
+    # Threaded walk links per mesh subtree: on a box hit of an internal
+    # node go to node_hit (its first child), on a miss or after a leaf
+    # to node_miss; -1 ends the walk.
+    node_hit: torch.Tensor  # (M,) i32
+    node_miss: torch.Tensor  # (M,) i32
+    # The walk's packed node rows: u16 box bounds on the mesh's grid
+    #   [0] qx_lo | qy_lo<<16   [1] qz_lo | qx_hi<<16   [2] qy_hi | qz_hi<<16
+    #   [3] i32 first child (internal) / first triangle (leaf)
+    #   [4] i32 (miss_link + 1) | (num_tris << 24)
+    # decoded as mesh_qmin + q * mesh_qscale (conservative).
+    node_q: torch.Tensor  # (M, 5) f32
+    tri_packed: torch.Tensor  # (T, 18) f32: pa pb pc na nb nc, exact
     mesh_qmin: torch.Tensor  # (K, 3) f32 root quantisation grid origin
     mesh_qscale: torch.Tensor  # (K, 3) f32 root quantisation cell size
     mega_rows: torch.Tensor  # (Mm, W) f32, bitcast-i32 words inside
@@ -79,6 +103,7 @@ class Scene:
     mat_specular_prob: torch.Tensor
 
     # --- static metadata (same meaning as tpurt's) ---
+    max_leaf_tris: int = 2  # largest BVH leaf: bounds the walk's leaf loop
     mesh_tri_ranges: Tuple[Tuple[int, int], ...] = ()
     mega_chain: Tuple[Tuple[int, int, bool], ...] = ()
     mega_chain_members: Tuple[Tuple[int, ...], ...] = ()
@@ -119,17 +144,18 @@ STATIC_FIELDS = tuple(
 
 
 def from_arrays(arrays: Mapping[str, np.ndarray], static: Mapping,
-                device="cpu") -> Scene:
-    """Build a Scene from numpy arrays (by ARRAY_FIELDS name) and static
-    metadata (by STATIC_FIELDS name) — e.g. a tpurt Scene's fields read
-    out as numpy, carried across to the port unchanged. Banks keep their
-    exact bits (no dtype round trip through a cast)."""
+                device="cuda") -> Scene:
+    """Build a Scene on ``device`` from numpy arrays (by ARRAY_FIELDS
+    name) and static metadata (by STATIC_FIELDS name) — e.g. a tpurt
+    Scene's fields read out as numpy, carried across to the port
+    unchanged. Banks keep their exact bits (no dtype round trip through
+    a cast)."""
     if static.get("mega_tlas"):
         raise NotImplementedError(
-            "TLAS scenes are not ported yet (ROADMAP A.7)")
+            "TLAS scenes are not ported yet (ROADMAP A.2)")
     if static.get("mega_bounds_fmt", "u8") != "u8":
         raise NotImplementedError(
-            "bf16 node bounds are not ported yet (ROADMAP A.7)")
+            "bf16 node bounds are not ported yet (ROADMAP A.2)")
     tensors = {}
     for name, dtype in ARRAY_FIELDS.items():
         a = np.ascontiguousarray(arrays[name])
