@@ -16,16 +16,19 @@ Phases (each raises on failure, so any failure exits nonzero):
    4 bounces, P=8, tail 5.
 5. B1's path at full size, bunny-1080p-plain: 16 trips of the 262,144-
    lane batch through kernel and plain version (compared, timed), the
-   kernel to completion, ``render_image`` with mega_body="auto"
+   kernel to completion (its persistent launch: resident blocks, lanes
+   per thread; slowest and mean lane trips; the bound counted from the
+   kernel's per-lane work), ``render_image`` with mega_body="auto"
    (launches counted), 3 frames timed.
 6. B2 alone at full width: 230,400 primary rays of the teapot frame
    (every fourth pixel, so the whole frame is sampled) in the teapot's
-   local space against its 6,144 triangle columns — columns equal on
-   every ray, t bit-identical — both timed.
+   local space against its 6,144 triangle columns, through the block
+   sweep — columns equal on every ray, t bit-identical — both timed.
 7. B2's path at full size, teapot-720p-bruteforce: 4 trips of the
    230,400-lane batch through the dense megakernel and its plain
-   version, the kernel to completion, ``render_image`` (dense launches
-   counted), 3 frames timed.
+   version, the kernel to completion (launch, trips and counted bound as
+   in phase 5), ``render_image`` (dense launches counted), 3 frames
+   timed.
 8. B2's path, small: teapot at 320x180 with the same knobs, the dense
    megakernel against its plain version as in phase 3.
 9. B3 alone at full width: the 307,200 camera rays of the 640x480 frame
@@ -57,10 +60,23 @@ MAX_FLIP = 0.005  # frames: <= 0.5% of pixels differ (knife-edge class)
 SEG_TOL = 0.005  # segment counts within 0.5%
 PEAK_F32 = 67e12  # H100 SXM f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
-#: Estimated f32 operations of one megakernel lane trip: a node row's
-#: eight slab tests (~30 each) or a leaf row's three MT tests (~50 each),
-#: plus the shading pass and the fold.
-B1_OPS_PER_TRIP = 300
+# f32 operations of the megakernel's branches, read stage by stage off
+# csrc/megakernel.cu, for its per-lane work counts. Where a branch
+# leaves early on its data, only the stages that always run are counted,
+# so the bound they give stays a lower bound.
+#: A child-box test of a node row: 6 u8 -> f32 conversions, the box on
+#: the node's grid (6 mul, 6 add), the slab test (6 sub, 6 mul, 6
+#: NaN-guarded min/max at 3 each, 4 min/max, a max and 2 compares).
+BOX_OPS = 55
+#: One triangle of a leaf row up to its det test: e1, e2 (6 sub),
+#: h = ld x e2 (6 mul, 3 sub), det (3 mul, 2 add), a compare.
+MT_DET_OPS = 21
+#: A segment completion's shading tail, whatever the material: the
+#: throughput weight (3 mul), emission (6 mul), light (3 add), the
+#: colour (3 mul), Russian roulette's max and q (10). The material's own
+#: scatter, the bounce origin, the static stage and the chain re-entry
+#: of a restarted segment are not counted.
+SHADE_OPS = 25
 CARD = ""
 
 
@@ -153,7 +169,8 @@ def phase2():
         f"all in {time.time() - t0:.1f} s")
     for name in names[:3]:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(k in line for k in ("entry function", "registers", "spill",
+                                       "stack frame")):
                 log(f"  ptxas {name}:", line.strip())
 
 
@@ -274,40 +291,76 @@ def phase4():
 
 def time_trips(scene, cam, cfg, k: int, label: str):
     """The full-size batch's first ``k`` trips through both backends from
-    one lane state (agreement, kernel ms, plain ms, the lane trips those
-    k trips ran), then the kernel alone to completion (ms, lane trips)."""
+    one lane state (agreement, kernel ms, plain ms, the lane work those
+    k trips did), then the kernel alone to completion, twice (ms, trips,
+    work), with its persistent launch configuration."""
+    import torch
+
+    from tpurt_torch.core.v3 import V3
     from tpurt_torch.render import mega_cuda
     from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render.renderer import flat_batch_args
 
     lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
     buf0 = mega_cuda.pack(lane)
+    r = lane.done.shape[0]
     mega_cuda.launch(buf0.clone(), ctx, k)  # warm-up
     times = {}
     for backend in ("cuda", "plain", "cuda", "plain"):
         buf = buf0.clone()
         if backend == "cuda":
-            trips_k, ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, k))
-            kern = mega_cuda.unpack(buf, ctx, lane.iters + k)
+            (trips_k, work_k), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, k))
+            kern, kbuf = mega_cuda.unpack(buf, ctx, lane.iters + k), buf
         else:
             plain, ms = cuda_ms(lambda: mk.run_plain(lane, ctx, k))
         times.setdefault(backend, []).extend(ms)
     agree, err = mega_cuda.compare_lanes(plain, kern)
-    log(f"{label} batch ({lane.done.shape[0]} lanes), {k} trips: integer "
+    log(f"{label} batch ({r} lanes), {k} trips: integer "
         f"fields agree on {agree:.4%} of lanes, float max abs err {err:.3g}; "
         f"kernel ms {times['cuda']}, plain ms {times['plain']} | {CARD}")
     if agree < LANE_AGREE:
         raise AssertionError(f"{label} {k} trips: lane agreement {agree:.4%}")
-    buf = buf0.clone()
-    trips, ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
-    log(f"{label} batch to completion: kernel {ms[0]:.3f} ms, "
-        f"{int(trips.max())} trips for the slowest lane, mean "
-        f"{float(trips.float().mean()):.1f} | {CARD}")
-    return dict(agree=agree, err=err, ms=min(times["cuda"]),
-                plain_ms=min(times["plain"]), full_ms=ms[0],
-                lane_trips_k=int(trips_k.long().sum()),
-                lane_trips=int(trips.long().sum()), lanes=lane.done.shape[0],
-                ctx=ctx)
+    # The next k trips from the kernel's k-trip state: the rate of later,
+    # less coherent trips against the first ones.
+    later = kbuf.clone()
+    (trips_2k, _w), later_ms = cuda_ms(lambda: mega_cuda.launch(later, ctx, k))
+    n_k, n_2k = int(trips_k.long().sum()), int(trips_2k.long().sum())
+    log(f"{label}: trips 1-{k} {min(times['cuda']):.3f} ms for {n_k} lane trips "
+        f"({n_k / min(times['cuda']) * 1e3:.4g}/s); trips {k + 1}-{2 * k} "
+        f"{later_ms[0]:.3f} ms for {n_2k} ({n_2k / later_ms[0] * 1e3:.4g}/s) | {CARD}")
+    full = []
+    for _ in range(2):
+        buf = buf0.clone()
+        (trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
+        full.extend(ms)
+    launch = mega_cuda.launch_config(ctx.dense is not None)
+    blocks = min(launch["blocks_per_sm"] * launch["sms"],
+                 -(-r // launch["threads"]))
+    log(f"{label} persistent launch: {blocks} blocks x {launch['threads']} "
+        f"threads ({launch['blocks_per_sm']} resident per SM x {launch['sms']} "
+        f"SMs = {launch['resident_lanes']} resident lanes) for {r} lanes, "
+        f"{r / (blocks * launch['threads']):.2f} lanes per thread")
+    log(f"{label} batch to completion: kernel ms {full}, {int(trips.max())} "
+        f"trips for the slowest lane, mean {float(trips.float().mean()):.2f}, "
+        f"{int(trips.long().sum())} lane trips | {CARD}")
+    # The slowest lane alone, from its first state: how long its chain of
+    # trips takes with the card to itself (the floor under a batch that
+    # starts it late). It must end where it ended in the batch.
+    i = int(trips.argmax())
+    ctx1 = ctx if ctx.slot_rd is None else ctx._replace(
+        slot_rd=V3(*(c[:, i:i + 1].contiguous() for c in ctx.slot_rd)))
+    buf1 = buf0[:, i:i + 1].contiguous()
+    _out, one_ms = cuda_ms(lambda: mega_cuda.launch(buf1, ctx1, None))
+    if not torch.equal(buf1[:, 0], buf[:, i]):
+        raise AssertionError(f"{label}: the slowest lane alone ended elsewhere")
+    tenth = max(1, r // 10)
+    log(f"{label} slowest lane (index {i}) alone: {one_ms[0]:.3f} ms for its "
+        f"{int(trips[i])} trips; mean trips of the first / last tenth of the "
+        f"lane indices {float(trips[:tenth].float().mean()):.1f} / "
+        f"{float(trips[-tenth:].float().mean()):.1f} | {CARD}")
+    return dict(err=err, ms=min(times["cuda"]), plain_ms=min(times["plain"]),
+                full_ms=min(full), work_k=[int(w) for w in work_k.long().sum(1)],
+                work=[int(w) for w in work.long().sum(1)], lanes=r, ctx=ctx)
 
 
 def main_path(name, scene, cam, cfg, counter: str, min_lit=0.05):
@@ -343,16 +396,25 @@ def main_path(name, scene, cam, cfg, counter: str, min_lit=0.05):
     return img, stats, launched[counter], best
 
 
-def megakernel_bound(scene, tt, lane_trips):
-    """B1's bound for ``lane_trips`` lane trips: B1_OPS_PER_TRIP operations
-    each; the bank and each lane's words read once and written once."""
+def megakernel_bound(scene, tt, work, label: str):
+    """B1's bound for a launch whose lanes did ``work`` (child-box tests,
+    leaf rows, segment completions): those counts times their branches'
+    operations; the bank and each lane's words read once and written
+    once."""
     from tpurt_torch.render import mega_cuda
 
     ctx = tt["ctx"]
     words = len(mega_cuda.LANE_WORDS) + ctx.s_depth + (
         3 * ctx.p_count if ctx.p_count > 1 else 0)
     nbytes = scene.mega_rows.numel() * 4 + 2 * words * 4 * tt["lanes"]
-    return bound(lane_trips * B1_OPS_PER_TRIP, nbytes)
+    boxes, leaves, segs = work
+    ops = (boxes * BOX_OPS + leaves * ctx.leaf_tris * MT_DET_OPS
+           + segs * SHADE_OPS)
+    b_ms, b_by = bound(ops, nbytes)
+    log(f"B1 bound, {label}: {b_ms:.3f} ms ({b_by}): {boxes} box tests x "
+        f"{BOX_OPS} + {leaves} leaf rows x {ctx.leaf_tris} x {MT_DET_OPS} + "
+        f"{segs} segments x {SHADE_OPS} = {ops:.4g} ops, {nbytes} bytes")
+    return b_ms, b_by
 
 
 def phase5(scene):
@@ -361,11 +423,10 @@ def phase5(scene):
     tt = time_trips(scene, cam, cfg, 16, "bunny-1080p")
     _img, _stats, launches, _best = main_path(
         "bunny-1080p-plain", scene, cam, cfg, "megakernel")
-    b_ms, b_by = megakernel_bound(scene, tt, tt["lane_trips_k"])
-    f_ms, f_by = megakernel_bound(scene, tt, tt["lane_trips"])
-    log(f"B1 bound, 16 trips: {b_ms:.3f} ms ({b_by}, {tt['lane_trips_k']} lane "
-        f"trips); whole batch: {f_ms:.3f} ms ({f_by}, {tt['lane_trips']} lane "
-        f"trips x {B1_OPS_PER_TRIP} ops) against {tt['full_ms']:.3f} ms")
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], "16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], "whole batch")
+    log(f"B1 whole batch: {tt['full_ms']:.3f} ms against its bound "
+        f"{f_ms:.3f} ms | {CARD}")
     return dict(name="megakernel (B1)", route="cuda",
                 source="tpurt_torch/csrc/megakernel.cu",
                 replaces="tpurt/render/mega_pallas.py:237", launches=launches,
@@ -373,19 +434,21 @@ def phase5(scene):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def dense_sweep_ops(lo, ld, entry, table) -> float:
-    """f32 operations the dense sweep does on these inputs, stage by
-    stage as the kernel leaves a column early: every pair 6 (det: 3 mul,
-    2 add, a compare); |det| >= eps 15 (reciprocal, u: 6 mul 5 add, a
-    multiply, 2 compares); u in range 15 (v the same, u + v, 2 compares);
-    v in range 11 (t: 3 mul 3 add, a multiply, 2 compares, the cull
-    test)."""
+def dense_sweep_ops(lo, ld, entry, table):
+    """f32 operations the block sweep does on these inputs, stage by
+    stage as the kernel leaves a column early: every pair 21 (det: 3 mul,
+    2 add; the u numerator: 6 mul, 5 add; the det test and the pre-test:
+    2 multiplies, 3 compares); kept by both tests 4 (reciprocal, a
+    multiply, 2 compares); u in range 15 (v the same, u + v, 2
+    compares); v in range 11 (t: 3 mul 3 add, a multiply, 2 compares,
+    the cull test). Also returns the share of det-passing pairs that
+    reach the division."""
     import torch
 
     from tpurt_torch.core.v3 import V3
     from tpurt_torch.render import plucker_fused as pf
 
-    ops = 0.0
+    ops = n_det = n_keep = 0.0
     for e in range(table.entry_range.shape[0]):
         a, b = (int(x) for x in table.entry_range[e])
         c = table.coeffs[:, :, a:b]
@@ -396,18 +459,23 @@ def dense_sweep_ops(lo, ld, entry, table) -> float:
             d = V3(*(x[idx, None] for x in ld))
             det, u_num, v_num, _t = pf._planes(o, d, c)
             ok_det = torch.abs(det) >= pf._EPS
-            u = u_num / det
-            ok_u = ok_det & (u >= 0.0) & (u <= 1.0)
-            v = v_num / det
+            keep = ok_det & ~pf.u_pretest_drops(det, u_num)
+            f = 1.0 / det
+            u = f * u_num
+            ok_u = keep & (u >= 0.0) & (u <= 1.0)
+            v = f * v_num
             ok_v = ok_u & (v >= 0.0) & (u + v <= 1.0)
-            ops += (6.0 * det.numel() + 15.0 * float(ok_det.sum())
+            n_det += float(ok_det.sum())
+            n_keep += float(keep.sum())
+            ops += (21.0 * det.numel() + 4.0 * float(keep.sum())
                     + 15.0 * float(ok_u.sum()) + 11.0 * float(ok_v.sum()))
-    return ops
+    return ops, n_keep / max(n_det, 1.0)
 
 
-def phase6():
-    """B2 alone at full width: one primary ray per lane of the teapot
-    batch, from every fourth pixel, in the teapot's local space."""
+def teapot_sweep_inputs(device="cuda"):
+    """B2's inputs at full width: one primary ray per lane of the teapot
+    batch, from every fourth pixel (so the whole frame is sampled), in
+    the teapot's local space -> (scene, lo, ld, entry, table)."""
     import torch
 
     from tpurt_torch.core import v3 as v3lib
@@ -417,16 +485,26 @@ def phase6():
     from tpurt_torch.scene.presets import bench_scene
 
     cfg = teapot_cfg(1280, 720)
-    scene, cam = bench_scene("teapot", cfg, device="cuda")
+    scene, cam = bench_scene("teapot", cfg, device=device)
     table = pf.build_dense_table(scene)
     pix = torch.arange(0, cfg.width * cfg.height, cfg.pixels_per_lane,
-                       device="cuda")
+                       device=device)
     ro, rd = make_ray(cam, pixel_uv(pix % cfg.width, pix // cfg.width,
                                     cfg.width, cfg.height))
     (mesh, _root, _leaf), = scene.mega_chain
     lo, ld = local_rays(scene, mesh, v3lib.from_rows(ro), v3lib.from_rows(rd))
-    r = pix.shape[0]
-    entry = torch.zeros(r, dtype=torch.int32, device="cuda")
+    entry = torch.zeros(pix.shape[0], dtype=torch.int32, device=device)
+    return scene, lo, ld, entry, table
+
+
+def phase6():
+    """B2 alone at full width (teapot_sweep_inputs)."""
+    import torch
+
+    from tpurt_torch.render import plucker_fused as pf
+
+    scene, lo, ld, entry, table = teapot_sweep_inputs()
+    r = entry.shape[0]
     log(f"teapot scene: {scene.num_triangles} triangles, {table.count} columns "
         f"in {table.entry_range.shape[0]} chain entry, {r} rays")
     pf.sweep_entry_local(lo, ld, entry, table)  # warm-up
@@ -443,12 +521,14 @@ def phase6():
         f"bit-identical {same_t}; kernel ms {k_ms}, plain ms {p_ms} | {CARD}")
     if same_col < 1.0 or not same_t:
         raise AssertionError("B2 kernel differs from its plain version")
-    ops = dense_sweep_ops(lo, ld, entry, table)
+    ops, divided = dense_sweep_ops(lo, ld, entry, table)
     tpad = table.ids.shape[0]
-    nbytes = r * 7 * 4 + table.coeffs.numel() * 4 + 2 * tpad * 4 + r * 8
+    nbytes = (r * 7 * 4 + (table.coeffs.numel() + table.det_u.numel()) * 4
+              + 2 * tpad * 4 + r * 8)
     b_ms, b_by = bound(ops, nbytes)
     log(f"B2 bound {b_ms:.3f} ms ({b_by}): {ops:.4g} ops "
-        f"({ops / (r * table.count):.2f} per pair), {nbytes} bytes")
+        f"({ops / (r * table.count):.2f} per pair), {nbytes} bytes; the "
+        f"pre-test sends {divided:.4%} of det-passing pairs to the division")
     return dict(name="dense_sweep (B2)", route="cuda",
                 source="tpurt_torch/csrc/dense_sweep.cuh",
                 replaces="tpurt/render/plucker_fused.py:251", launches=None,
@@ -463,15 +543,18 @@ def phase7(b2):
     cfg = teapot_cfg(1280, 720)
     scene, cam = bench_scene("teapot", cfg, device="cuda")
     tt = time_trips(scene, cam, cfg, 4, "teapot-720p-dense")
-    _img, stats, launches, _best = main_path(
+    _img, _stats, launches, _best = main_path(
         "teapot-720p-bruteforce", scene, cam, cfg, "dense")
-    # The frame's sweep work at the primary sweep's operations per pair:
-    # one sweep of every column per path segment.
+    # The batch's sweeps (counted by the kernel; the teapot is one entry of
+    # every column) at the primary sweep's operations per pair, plus the
+    # shading tails.
     cols = tt["ctx"].dense.count
-    f_ms, f_by = bound(stats["segments"] * cols * b2["ops_per_pair"], 0)
+    _boxes, sweeps, segs = tt["work"]
+    f_ms, f_by = bound(sweeps * cols * b2["ops_per_pair"] + segs * SHADE_OPS, 0)
     log(f"teapot-720p-bruteforce: dense kernel to completion {tt['full_ms']:.3f} "
-        f"ms against its sweep bound {f_ms:.3f} ms ({f_by}: {stats['segments']} "
-        f"segments x {cols} columns x {b2['ops_per_pair']:.2f} ops) | {CARD}")
+        f"ms against its bound {f_ms:.3f} ms ({f_by}: {sweeps} sweeps x {cols} "
+        f"columns x {b2['ops_per_pair']:.2f} ops + {segs} segments x "
+        f"{SHADE_OPS}) | {CARD}")
     b2["launches"] = launches
     return b2
 

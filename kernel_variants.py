@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""Time variants of the megakernel and the dense sweep against the
+shipped kernels on one CUDA card.
+
+    python3 kernel_variants.py     # from the repository root, one card
+
+A variant is a copy of csrc/megakernel.cu or csrc/dense_sweep.cu with
+one of its launch constants changed (threads a block, the least resident
+blocks per SM that ``__launch_bounds__`` asks for, the block sweep's
+unroll factor), or with the persistent grid replaced by one thread per
+lane ("grid": as many blocks as the lanes need, so that each thread runs
+one lane and no thread takes a second). Each is built with the package's
+own nvcc flags beside the shipped library and swapped in for it while it
+runs, so the wrappers (``mega_cuda.launch``, ``sweep_entry_local``) run
+it unchanged. Workloads, at full size:
+
+- bunny-1080p-plain's batch (262,144 lanes) through megakernel<false>:
+  its first 16 trips, and to completion;
+- teapot-720p-bruteforce's batch (230,400 lanes) to completion through
+  megakernel<true>;
+- B2 alone on the teapot's 230,400 primary rays x 6,144 columns
+  (chip_smoke.py's phase 6 inputs).
+
+The shipped build and its variants run in turns (in order, then in
+reverse), best of the two; every variant's results (lane words, trips,
+work counts, columns and t) must equal the shipped build's word for
+word. ptxas's register and spill report and each megakernel variant's
+launch are printed, with every time beside the card's name and power
+limit. The last line is a JSON summary.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import chip_smoke as cs
+
+_MK = "megakernel"
+_SW = "dense_sweep"
+_GRID = ("const int blocks = per_sm * sms < needed ? per_sm * sms : needed;",
+         "const int blocks = needed;")
+
+
+def _const(name: str, old: int, new: int):
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+#: label -> (source, [(text, replacement), ...]); the shipped constants
+#: are kThreads 128 x kMinBlocks 9, kDenseThreads 256 x kDenseMinBlocks
+#: 4, kDenseSweepUnroll 1 (megakernel.cu) and kUnroll 4 (dense_sweep.cu).
+VARIANTS = {
+    "grid": (_MK, [_GRID]),
+    "b1-min8": (_MK, [_const("kMinBlocks", 9, 8)]),
+    "b1-min10": (_MK, [_const("kMinBlocks", 9, 10)]),
+    "b1-t64": (_MK, [_const("kThreads", 128, 64), _const("kMinBlocks", 9, 18)]),
+    "b1-t256": (_MK, [_const("kThreads", 128, 256), _const("kMinBlocks", 9, 4)]),
+    "dense-t128": (_MK, [_const("kDenseThreads", 256, 128),
+                         _const("kDenseMinBlocks", 4, 8)]),
+    "dense-min3": (_MK, [_const("kDenseMinBlocks", 4, 3)]),
+    "dense-min5": (_MK, [_const("kDenseMinBlocks", 4, 5)]),
+    "mk-unroll2": (_MK, [_const("kDenseSweepUnroll", 1, 2)]),
+    "mk-unroll4": (_MK, [_const("kDenseSweepUnroll", 1, 4)]),
+    "sweep-unroll1": (_SW, [_const("kUnroll", 4, 1)]),
+    "sweep-unroll2": (_SW, [_const("kUnroll", 4, 2)]),
+    "sweep-unroll8": (_SW, [_const("kUnroll", 4, 8)]),
+}
+
+
+def build_variant(label: str) -> tuple:
+    """Compile the variant's patched copy of its source; returns (library
+    path, ptxas's register and spill lines)."""
+    from tpurt_torch import _build
+
+    name, patches = VARIANTS[label]
+    with open(os.path.join(_build.CSRC, name + ".cu")) as f:
+        src = f.read()
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{label}: {old!r} is not once in {name}.cu")
+        src = src.replace(old, new)
+    out_dir = os.path.join(_build.BUILD_DIR, "variants", label)
+    os.makedirs(out_dir, exist_ok=True)
+    cu, lib = os.path.join(out_dir, name + ".cu"), os.path.join(out_dir, f"lib{name}.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", lib, cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {label}:\n{proc.stdout}{proc.stderr}")
+    return lib, _ptxas(proc.stdout + proc.stderr)
+
+
+def _ptxas(text: str) -> list:
+    return [line.split(":", 1)[-1].strip() for line in text.splitlines()
+            if "registers" in line or "spill" in line]
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib):
+    """The wrappers load ``lib`` in place of csrc/<name> inside the block
+    (``lib`` None: the shipped library)."""
+    from tpurt_torch import _build
+
+    shipped = _build.load(name)
+    _build._LIBS[name] = shipped if lib is None else lib
+    try:
+        yield
+    finally:
+        _build._LIBS[name] = shipped
+
+
+def workloads():
+    """[(name, source, run() -> result tensors, info() -> str)]."""
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render import plucker_fused as pf
+    from tpurt_torch.render.renderer import flat_batch_args
+    from tpurt_torch.scene.presets import bench_scene
+
+    out = []
+    bunny = cs.bunny_cfg(1920, 1080)
+    teapot = cs.teapot_cfg(1280, 720)
+    bunny_sc = cs.bunny_scene(bunny)
+    teapot_sc = bench_scene("teapot", teapot, device="cuda")
+    for name, (scene, cam), cfg, trips in (
+            ("bunny-1080p 16 trips", bunny_sc, bunny, 16),
+            ("bunny-1080p", bunny_sc, bunny, None),
+            ("teapot-720p-dense", teapot_sc, teapot, None)):
+        lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+        buf0 = mega_cuda.pack(lane)
+
+        def run(buf0=buf0, ctx=ctx, trips=trips):
+            buf = buf0.clone()
+            return (buf, *mega_cuda.launch(buf, ctx, trips))
+
+        def info(dense=ctx.dense is not None, r=buf0.shape[1]):
+            c = mega_cuda.launch_config(dense)
+            blocks = min(c["blocks_per_sm"] * c["sms"], -(-r // c["threads"]))
+            return (f"{c['threads']} threads x {c['blocks_per_sm']} blocks per SM, "
+                    f"{blocks} blocks")
+
+        out.append((name, _MK, run, info))
+    _scene, lo, ld, entry, table = cs.teapot_sweep_inputs()
+    out.append(("B2-alone", _SW, lambda: pf.sweep_entry_local(lo, ld, entry, table),
+                lambda: "128 threads"))
+    return out
+
+
+def main():
+    import torch
+
+    from tpurt_torch import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: torch.cuda.is_available() is false")
+    cs.CARD = cs.smi()
+    t0 = time.time()
+    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
+        list(pool.map(_build.build, (_MK, _SW)))
+        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    cs.log(f"built {len(built)} variants and the shipped pair in {time.time() - t0:.1f} s")
+    for name in (_MK, _SW):
+        for line in _ptxas(_build.build_log(name)):
+            cs.log(f"  ptxas shipped {name}: {line}")
+    for label, (_path, lines) in built.items():
+        for line in lines:
+            cs.log(f"  ptxas {label}: {line}")
+    libs = {label: ctypes.CDLL(path) for label, (path, _l) in built.items()}
+    libs["shipped"] = None
+    summary = {}
+    for cell, source, run, info in workloads():
+        labels = ["shipped"] + [v for v, (s, _p) in VARIANTS.items() if s == source]
+        for label in labels:  # warm-up, and each variant's launch
+            with swapped(source, libs[label]):
+                run()
+                cs.log(f"{cell} {label}: {info()}")
+        with swapped(source, None):
+            ref = run()
+        times = {label: [] for label in labels}
+        for label in labels + labels[::-1]:
+            with swapped(source, libs[label]):
+                res, ms = cs.cuda_ms(run)
+            times[label].extend(ms)
+            if not all(torch.equal(a, b) for a, b in zip(res, ref)):
+                raise AssertionError(f"{cell}: variant {label} changed the result")
+        for label in labels:
+            cs.log(f"{cell} {label}: ms {[round(t, 3) for t in times[label]]} "
+                   f"(best {min(times[label]):.3f}) | {cs.CARD}")
+            summary.setdefault(cell, {})[label] = min(times[label])
+    cs.log(f"kernel_variants wall {time.time() - t0:.1f} s")
+    print(json.dumps({"card": cs.CARD, "best_ms": summary}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain torch versions on
-the card: the megakernel (B1) and its dense instantiation, the dense
-sweep (B2) alone, and the exact sweep (B3) alone and in the modular
-engine. Marked ``cuda``: without a CUDA device every test skips (the
+the card: the megakernel (B1) and its dense instantiation — on their
+persistent grid too, with fewer lanes than a block, than the resident
+threads and more — the dense block sweep (B2) alone, and the exact sweep
+(B3) alone and in the modular engine. Marked ``cuda``: without a CUDA device every test skips (the
 decision is made in a fixture, at run time). On the GPU machine, which
 has no jax, run them without tests/conftest.py:
 
@@ -19,6 +20,7 @@ from tpurt_torch.config import RenderConfig
 from tpurt_torch.core.camera import Camera
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
+from tpurt_torch.render import megakernel as mk
 from tpurt_torch.render.megakernel import run_megakernel
 from tpurt_torch.render.renderer import flat_batch_args, render_frame
 from tpurt_torch.scene import procedural
@@ -80,6 +82,16 @@ def cuda_scene():
     return scene, cam
 
 
+@pytest.fixture(scope="module")
+def cuda_chain(cuda_scene):
+    """The 3-entry chain scene on the card and a camera that sees it."""
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cuda")
+    cam = Camera.create((0, 80, 220), pitch=-0.15, yaw=3.14159,
+                        fov_degrees=70, aspect_ratio=1.0, device="cuda")
+    return scene, cam
+
+
 @pytest.mark.parametrize("trips", [1, 4, 16])
 def test_kernel_lane_state_matches_plain(cuda_scene, trips):
     scene, cam = cuda_scene
@@ -114,14 +126,15 @@ def test_kernel_rejects_a_malformed_buffer(cuda_scene):
         mega_cuda.launch(buf[1:].contiguous(), ctx, 1)
 
 
-def test_kernel_matches_plain_on_a_chain_scene(cuda_scene):
+@pytest.mark.parametrize("dense", [False, True])
+def test_kernel_matches_plain_on_a_chain_scene(cuda_chain, dense):
     """Fused static BVH entry, two transformed instances (Glassy and
-    OneSided), chain skip and root expansion on three entries."""
-    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
-                        device="cuda")
-    cam = Camera.create((0, 80, 220), pitch=-0.15, yaw=3.14159,
-                        fov_degrees=70, aspect_ratio=1.0, device="cuda")
-    cfg = CFG.replace(rays_per_pixel=3, max_bounces=6, mega_tail_passes=3)
+    OneSided), chain skip and root expansion on three entries; in the
+    dense instantiation one block holds lanes on different entries, so
+    its block sweep stages several entries a trip."""
+    scene, cam = cuda_chain
+    cfg = CFG.replace(rays_per_pixel=3, max_bounces=6, mega_tail_passes=3,
+                      mega_dense=dense)
     args = flat_batch_args(scene, cam, cfg, 0)
     for trips in (1, 4, 16, None):
         st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
@@ -156,6 +169,73 @@ def test_dense_sweep_kernel_matches_plain(cuda_scene):
     tp, colp = plucker_fused.sweep_plain(lo, ld, entry, table)
     assert torch.equal(col, colp) and bool((col >= 0).any())
     assert torch.equal(t, tp)
+
+
+@pytest.mark.parametrize("n", [77, 12345])
+def test_block_sweep_on_mixed_entries(cuda_scene, n):
+    """The block sweep on the 3-entry chain scene: lanes of one block on
+    different entries (random in the first half, runs of 300 lanes on one
+    entry in the second, so some blocks skip an entry); ``n`` is a
+    multiple of neither the block (128) nor the column tile (256)."""
+    scene = chain_scene(SceneBuilder, Material, MaterialType, procedural,
+                        device="cuda")
+    table = plucker_fused.build_dense_table(scene)
+    o, d = _aimed_rays(table.rows[:table.count].cpu().numpy(), n, 5)
+    r = np.random.default_rng(6)
+    lane = np.arange(n)
+    entry = np.where(lane < n // 2, r.integers(0, 3, n), (lane // 300) % 3)
+    entry = torch.from_numpy(entry).cuda()
+    lo = V3(*(torch.from_numpy(o[:, i].copy()).cuda() for i in range(3)))
+    ld = V3(*(torch.from_numpy(d[:, i].copy()).cuda() for i in range(3)))
+    t, col = plucker_fused.sweep_entry_local(lo, ld, entry, table)
+    tp, colp = plucker_fused.sweep_plain(lo, ld, entry, table)
+    assert torch.equal(col, colp) and torch.equal(t, tp)
+    if n > 1000:
+        assert bool((col >= 0).any()) and bool((col < 0).any())
+
+
+@pytest.mark.parametrize("size", ["below_block", "below_resident",
+                                  "above_resident"])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("which", ["sphere", "chain"])
+def test_persistent_megakernel_matches_plain(request, which, dense, size):
+    """The persistent grid against the plain version (every lane its own
+    row of the torch loop), both instantiations, on the one-entry Cornell
+    sphere and the 3-entry chain scene: lane state and per-lane trips
+    after 1, 4 and 16 trips, and the segment row of the work count equal
+    to the segments each lane added."""
+    scene, cam = request.getfixturevalue(
+        {"sphere": "cuda_scene", "chain": "cuda_chain"}[which])
+    launch = mega_cuda.launch_config(dense)
+    n = {"below_block": launch["threads"] // 2 + 3,
+         "below_resident": launch["resident_lanes"] // 7 + 5,
+         "above_resident": launch["resident_lanes"] + 3 * launch["threads"] + 5,
+         }[size]
+    side = int(np.ceil(np.sqrt(n)))
+    cfg = CFG.replace(width=side, height=side, rays_per_batch=side * side,
+                      mega_dense=dense)
+    args = flat_batch_args(scene, cam, cfg, 0)
+    for key in ("ro0", "rd0", "pixel_index"):
+        args[key] = args[key][:n]
+    lane, ctx = mk.prepare(scene, **args)
+    assert (ctx.dense is not None) == dense and lane.done.shape[0] == n
+    buf0 = mega_cuda.pack(lane)
+    plain = lane
+    plain_trips = torch.zeros(n, dtype=torch.int32, device="cuda")
+    for k in range(1, 17):
+        plain_trips += (~plain.done).to(torch.int32)
+        plain = mk.run_plain(plain, ctx, 1)
+        if k not in (1, 4, 16):
+            continue
+        buf = buf0.clone()
+        trips, work = mega_cuda.launch(buf, ctx, k)
+        kern = mega_cuda.unpack(buf, ctx, lane.iters + k)
+        agree, _err = mega_cuda.compare_lanes(plain, kern)
+        assert agree >= 0.995, (k, agree)
+        assert float((trips == plain_trips).float().mean()) >= 0.995, k
+        assert torch.equal(work[2], (kern.segments - lane.segments).to(torch.int32))
+        if dense:  # no node rows: row 1 counts the entry sweeps
+            assert not bool(work[0].any())
 
 
 def test_dense_megakernel_matches_plain(cuda_scene):

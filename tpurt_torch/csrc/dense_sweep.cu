@@ -1,8 +1,9 @@
-// Kernel B2 launched on its own: one thread per ray, the sweep of
-// dense_sweep.cuh against the ray's chain entry. Bound with ctypes by
-// tpurt_torch/render/plucker_fused.py (sweep_entry_local); the header
-// says what it replaces and what bounds it. The megakernel's dense
-// instantiation runs the same function inside its lane loop.
+// Kernel B2 launched on its own: one thread per ray, kThreads rays a
+// block, the block sweep of dense_sweep.cuh against each ray's chain
+// entry. Bound with ctypes by tpurt_torch/render/plucker_fused.py
+// (sweep_entry_local); the header says what it replaces and what bounds
+// it. The megakernel's dense instantiation runs the same function inside
+// its lane loop.
 
 #include <cuda_runtime.h>
 
@@ -11,20 +12,30 @@
 namespace {
 
 constexpr int kThreads = 128;
+// Unroll factor of the sweep's column loop: the fastest of the variants
+// timed alone (kernel_variants.py; PERF.md).
+constexpr int kUnroll = 4;
 
 // lo, ld: (3, R) component-major local rays; entry: (R,) chain entries.
+// Threads past the last ray sweep nothing but take part in the staging.
 __global__ void __launch_bounds__(kThreads) dense_sweep_kernel(DenseTable tb,
                                                                const float* __restrict__ lo,
                                                                const float* __restrict__ ld,
                                                                const int* __restrict__ entry,
                                                                int n, float* __restrict__ t_out,
                                                                int* __restrict__ col_out) {
+  __shared__ SweepSmem<kThreads> sm;
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+  const bool mine = i < n;
   float t;
-  col_out[i] = dense_sweep(tb, entry[i], lo[i], lo[n + i], lo[2 * n + i], ld[i], ld[n + i],
-                           ld[2 * n + i], t);
-  t_out[i] = t;
+  const int col = block_sweep<kUnroll>(
+      tb, mine ? entry[i] : -1, mine ? lo[i] : 0.0f, mine ? lo[n + i] : 0.0f,
+      mine ? lo[2 * n + i] : 0.0f, mine ? ld[i] : 0.0f, mine ? ld[n + i] : 0.0f,
+      mine ? ld[2 * n + i] : 0.0f, t, sm);
+  if (mine) {
+    col_out[i] = col;
+    t_out[i] = t;
+  }
 }
 
 }  // namespace

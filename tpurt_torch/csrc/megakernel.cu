@@ -12,6 +12,15 @@
 // takes (node OR leaf, the materials it hits) instead of computing every
 // branch and selecting, and a retired lane costs nothing.
 //
+// Persistent lanes: the grid is as many blocks as stay resident on the
+// card, and each thread takes lane indices from a global queue (a
+// counter the wrapper zeroes; warp-aggregated atomicAdd). A thread whose
+// lane retires (done, or max_trips reached) stores it and takes the next
+// unstarted lane, so an SM's slots stay busy until the queue is empty
+// instead of waiting for a block's slowest lane (the bunny batch's
+// slowest lane runs ~9x the mean trips). A lane's evolution depends only
+// on its own words, so which thread runs it, and when, changes no bit.
+//
 // What bounds it on the card: divergent per-lane row loads (each trip
 // reads one 256-byte row at a data-dependent address; the bank, ~7 MB
 // for the 69k-triangle mesh, stays resident in the 50 MB L2) and
@@ -29,15 +38,23 @@
 // Lane state crosses the C boundary as one (n_fields, R) buffer of
 // 32-bit words; the field order is enum Field below, mirrored by
 // LANE_WORDS in render/mega_cuda.py (a CPU test holds the two equal).
+// Beside it the kernel writes each lane's trips and a (3, R) count of
+// its work in this launch: child-box tests in node rows, leaf rows (in
+// dense mode: entry sweeps), segment completions — from which the
+// caller computes the launch's operation count.
 //
 // The brute-force mode (RenderConfig.mega_dense) is a second
 // instantiation of the same kernel, megakernel<true>: its traversal step
-// resolves the lane's whole chain entry with kernel B2's sweep
+// resolves the lane's whole chain entry with kernel B2's block sweep
 // (dense_sweep.cuh) plus the exact Möller-Trumbore recompute of the
-// winner, where megakernel<false> steps one bank row. The choice is a
+// winner, where megakernel<false> steps one bank row. The block sweep
+// holds barriers, so in megakernel<true> the trip loop is block-uniform:
+// it runs while any thread of the block holds a live lane, and a thread
+// without one still helps stage the sweep's tiles. The choice is a
 // template parameter, made on the host at launch, so the BVH kernel's
-// code and registers are what they were without it.
+// code has no barriers.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -55,6 +72,18 @@ constexpr int kMatWidth = 11;
 constexpr float kEps = 1e-6f;
 constexpr float kGrow = 1.001f;
 constexpr float kTau = 6.28318530717958647692f;
+
+// Threads a block, and the least resident blocks per SM that
+// __launch_bounds__ asks of the register allocator, for each
+// instantiation, and the unroll factor of the block sweep's column loop
+// in megakernel<true>: the fastest of the variants timed on the bunny
+// and teapot batches (kernel_variants.py; PERF.md). Without a minimum
+// nvcc gives both instantiations over 150 registers and 3 blocks per SM.
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 9;
+constexpr int kDenseThreads = 256;
+constexpr int kDenseMinBlocks = 4;
+constexpr int kDenseSweepUnroll = 1;
 
 // One enumerator per 32-bit word of a lane, in buffer order. After
 // N_FIXED come 3*P quota accumulators (P > 1 only) and the S stack
@@ -289,6 +318,9 @@ struct Lane {
   int c_mesh;
   float c_dst;
   int sp;  // stack entries; stk[sp - 1] is the top
+  // This launch's work on the lane (not lane state): child-box tests,
+  // leaf rows (dense: entry sweeps), segment completions.
+  int n_box, n_leaf, n_seg;
   uint32_t stk[kMaxStack];
 };
 
@@ -327,6 +359,7 @@ __device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) 
   while (sp < s_depth && s.w(stack_base + sp) != kEmpty) ++sp;
   for (int k = 0; k < sp; ++k) L.stk[sp - 1 - k] = s.w(stack_base + k);
   L.sp = sp;
+  L.n_box = L.n_leaf = L.n_seg = 0;
 }
 
 __device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_depth) {
@@ -552,42 +585,42 @@ __device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisib
   L.bounces = bounces_new;
 }
 
-// The trip's traversal step — one bank row, or in dense mode the whole
-// chain entry — then the chain fold of a finished entry. Returns
-// in_chain.
-template <bool kDense>
-__device__ bool traverse(const Ctx& x, Lane& L) {
+// Next mesh: fold a finished entry (cur < 0) to world space and advance
+// the lane to the next entry. Returns in_chain.
+__device__ bool fold(const Ctx& x, Lane& L) {
+  const int E = x.c.e_count;
+  if (!(L.entry < E && L.cur < 0)) return false;
+  const float* cp = x.tb.chain + min(L.entry, E - 1) * kCpWidth;
+  const float scale_e = cp[12];
+  bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && L.lback) && scale_e > kEps;
+  if (lvalid) {
+    V point_w = rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp);
+    V n_w = normalize(rot_fwd(cp + 3, L.lnrm));
+    float dst = length(point_w - L.origin);
+    if (dst < L.w_dst) {
+      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
+      L.w_back = L.lback; L.w_mesh = L.lmesh;
+    }
+  }
+  L.entry += 1;
+  L.lt = INFINITY;
+  L.lnrm = v3(0.0f, 0.0f, 0.0f);
+  L.lback = false;
+  L.lmesh = -1;
+  return L.entry < E;
+}
+
+// The BVH trip's traversal step — one bank row — then the fold.
+__device__ bool traverse_rows(const Ctx& x, Lane& L) {
   const int E = x.c.e_count;
   const int ec = min(L.entry, E - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
-  const float scale_e = cp[12];
-  if (kDense && L.entry < E && L.cur >= 0) {
-    // Acceptance and t from the sweep; normal, backface and the cull
-    // verdict from the exact test on the winner (megakernel._dense_hit).
-    float t_sw;
-    const int col = dense_sweep(x.tb.dt, ec, L.lo.x, L.lo.y, L.lo.z, L.ld.x, L.ld.y,
-                                L.ld.z, t_sw);
-    L.lt = t_sw;
-    L.lmesh = -1;
-    if (col >= 0) {
-      const float* r = x.tb.dt.rows + 18 * (size_t)col;
-      const V pa = ld3(r);
-      float te;
-      V n;
-      bool bf;
-      if (mt(L.lo, L.ld, pa, ld3(r + 3) - pa, ld3(r + 6) - pa, ld3(r + 9), ld3(r + 12),
-             ld3(r + 15), x.tb.dt.cull[col] != 0.0f, te, n, bf)) {
-        L.lnrm = n;
-        L.lback = bf;
-        L.lmesh = x.tb.dt.owner[col];
-      }
-    }
-    L.cur = -1;
-  } else if (L.entry < E && L.cur >= 0) {
+  if (L.entry < E && L.cur >= 0) {
     const float* row = x.tb.rows + (size_t)L.cur * x.c.row_width;
-    float limit = minp(L.lt, L.w_dst / safe_scale(scale_e) * kGrow);
+    float limit = minp(L.lt, L.w_dst / safe_scale(cp[12]) * kGrow);
     bool pop;
     if (L.cur_leaf) {
+      ++L.n_leaf;
       int entry_mesh = x.chain_mesh()[ec];
       bool is_static = entry_mesh < 0;
       bool cull_mesh_e = cp[14] != 0.0f;
@@ -624,6 +657,7 @@ __device__ bool traverse(const Ctx& x, Lane& L) {
         int meta = __float_as_int(w[2]);
         int prio = fwd ? slot : arity - 1 - slot;
         if (meta == 0 || prio < L.cur_slot) continue;
+        ++L.n_box;
         uint32_t w0 = __float_as_uint(w[0]), w1 = __float_as_uint(w[1]);
         V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
                     (float)(int)((w0 >> 16) & 255u));
@@ -656,24 +690,32 @@ __device__ bool traverse(const Ctx& x, Lane& L) {
       }
     }
   }
-  // Next mesh: fold the finished entry to world space.
-  if (!(L.entry < E && L.cur < 0)) return false;
-  bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && L.lback) && scale_e > kEps;
-  if (lvalid) {
-    V point_w = rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp);
-    V n_w = normalize(rot_fwd(cp + 3, L.lnrm));
-    float dst = length(point_w - L.origin);
-    if (dst < L.w_dst) {
-      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
-      L.w_back = L.lback; L.w_mesh = L.lmesh;
+  return fold(x, L);
+}
+
+// The dense trip's traversal step for a lane whose entry the block
+// sweep resolved (winner ``col``, -1 on a miss, at ``t_sw``): acceptance
+// and t from the sweep; normal, backface and the cull verdict from the
+// exact test on the winner (megakernel._dense_hit). Then the fold.
+__device__ bool traverse_swept(const Ctx& x, Lane& L, int col, float t_sw) {
+  ++L.n_leaf;
+  L.lt = t_sw;
+  L.lmesh = -1;
+  if (col >= 0) {
+    const float* r = x.tb.dt.rows + 18 * (size_t)col;
+    const V pa = ld3(r);
+    float te;
+    V n;
+    bool bf;
+    if (mt(L.lo, L.ld, pa, ld3(r + 3) - pa, ld3(r + 6) - pa, ld3(r + 9), ld3(r + 12),
+           ld3(r + 15), x.tb.dt.cull[col] != 0.0f, te, n, bf)) {
+      L.lnrm = n;
+      L.lback = bf;
+      L.lmesh = x.tb.dt.owner[col];
     }
   }
-  L.entry += 1;
-  L.lt = INFINITY;
-  L.lnrm = v3(0.0f, 0.0f, 0.0f);
-  L.lback = false;
-  L.lmesh = -1;
-  return L.entry < E;
+  L.cur = -1;
+  return fold(x, L);
 }
 
 // Segment completion: shade -> accumulate/advance -> restart -> static
@@ -689,6 +731,7 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
   bool continuing = false, invisible = false;
   if (shade) {
     L.segments += 1;
+    ++L.n_seg;
     shade_hit(x, L, continuing, invisible);
     if (invisible) L.invis += 1;
     continuing = continuing && !(invisible && L.invis > c.invisible_budget);
@@ -777,27 +820,115 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
   if (do_expand && ok && cur_e < E && x.expand()[cur_e]) expand_root(x, L, cur_e);
 }
 
-template <bool kDense>
-__global__ void __launch_bounds__(128) megakernel(MkCfg c, Tables tb, uint32_t* state,
-                                                  int* trips_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.n_lanes) return;
-  const Ctx x{c, tb, Words{state, c.n_lanes, i}};
-  const int acc_words = c.p_count > 1 ? 3 * c.p_count : 0;
-  const int stack_base = N_FIXED + acc_words;
-  Lane L;
-  load_lane(L, x.s, stack_base, c.s_depth);
-  int trips = 0;
-  // One trip: traversal + fold, then tail_passes segment completions
-  // (megakernel._body_math). A retired lane stops; its state is final.
-  while (!L.done && trips < c.max_trips) {
-    const bool in_chain = c.e_count > 0 && traverse<kDense>(x, L);
-    tail(x, L, in_chain, c.expand_passes >= 1);
-    for (int p = 1; p < c.tail_passes; ++p) tail(x, L, false, p < c.expand_passes);
-    ++trips;
+// One loop trip after the traversal step: tail_passes segment
+// completions (megakernel._body_math).
+__device__ __forceinline__ void trip_tail(const Ctx& x, Lane& L, bool in_chain) {
+  tail(x, L, in_chain, x.c.expand_passes >= 1);
+  for (int p = 1; p < x.c.tail_passes; ++p) tail(x, L, false, p < x.c.expand_passes);
+}
+
+// The next unstarted lane index from the queue; the threads of a warp
+// that ask together share one atomicAdd.
+__device__ __forceinline__ int take_lane(int* queue) {
+  namespace cg = cooperative_groups;
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(queue, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
+struct Out {
+  uint32_t* state;
+  int* trips;  // (R,) trips each lane ran in this launch
+  int* work;   // (3, R) Lane::n_box, n_leaf, n_seg
+  int* queue;  // next unstarted lane index
+};
+
+// Stores a retired lane (its state is final for this launch).
+__device__ void retire(const Ctx& x, const Lane& L, int trips, const Out& o, int stack_base) {
+  const int i = x.s.i, n = x.c.n_lanes;
+  store_lane(L, x.s, stack_base, x.c.s_depth);
+  o.trips[i] = trips;
+  o.work[i] = L.n_box;
+  o.work[n + i] = L.n_leaf;
+  o.work[2 * n + i] = L.n_seg;
+}
+
+// Takes lanes from the queue until one needs a trip (retiring any that
+// need none); false when the queue is empty.
+__device__ bool take_live(Ctx& x, Lane& L, const Out& o, int stack_base) {
+  for (;;) {
+    const int i = take_lane(o.queue);
+    if (i >= x.c.n_lanes) return false;
+    x.s.i = i;
+    load_lane(L, x.s, stack_base, x.c.s_depth);
+    if (!L.done && x.c.max_trips > 0) return true;
+    retire(x, L, 0, o, stack_base);
   }
-  store_lane(L, x.s, stack_base, c.s_depth);
-  trips_out[i] = trips;
+}
+
+// Ends a trip of the dense megakernel's lane: a lane that is done or
+// at max_trips retires and the thread takes the next. Returns whether
+// the thread holds a live lane.
+__device__ __forceinline__ bool end_trip(Ctx& x, Lane& L, int& trips, const Out& o,
+                                         int stack_base) {
+  ++trips;
+  if (!L.done && trips < x.c.max_trips) return true;
+  retire(x, L, trips, o, stack_base);
+  trips = 0;
+  return take_live(x, L, o, stack_base);
+}
+
+// The BVH megakernel (kDense = false): each thread runs its lane's
+// trips to the end, then takes the next; no barriers. The dense one
+// (kDense = true): the loop is block-uniform around the block sweep,
+// which every thread joins. Before it, each thread runs its lane's trips
+// that need no sweep (the entry is finished or was skipped: fold and
+// tail only), taking new lanes as they retire, so that at the sweep
+// every live lane sweeps. A lane's trips are the same trips in the same
+// order whichever loop runs them.
+template <bool kDense>
+__global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
+                                  kDense ? kDenseMinBlocks : kMinBlocks)
+    megakernel(MkCfg c, Tables tb, Out o) {
+  Ctx x{c, tb, Words{o.state, c.n_lanes, 0}};
+  const int stack_base = N_FIXED + (c.p_count > 1 ? 3 * c.p_count : 0);
+  const int E = c.e_count;
+  Lane L;
+  if constexpr (!kDense) {
+    while (take_live(x, L, o, stack_base)) {
+      int trips = 0;
+      do {
+        const bool in_chain = E > 0 && traverse_rows(x, L);
+        trip_tail(x, L, in_chain);
+        ++trips;
+      } while (!L.done && trips < c.max_trips);
+      retire(x, L, trips, o, stack_base);
+    }
+  } else {
+    __shared__ SweepSmem<kDenseThreads> sm;
+    int trips = 0;
+    bool have = take_live(x, L, o, stack_base);
+    while (__syncthreads_or(have)) {
+      while (have && !(L.entry < E && L.cur >= 0)) {
+        const bool in_chain = E > 0 && fold(x, L);
+        trip_tail(x, L, in_chain);
+        have = end_trip(x, L, trips, o, stack_base);
+      }
+      // A thread that still holds a lane now needs a sweep.
+      if (E > 0) {
+        float t_sw;
+        const int col = block_sweep<kDenseSweepUnroll>(
+            tb.dt, have ? min(L.entry, E - 1) : -1, have ? L.lo.x : 0.0f, have ? L.lo.y : 0.0f,
+            have ? L.lo.z : 0.0f, have ? L.ld.x : 0.0f, have ? L.ld.y : 0.0f,
+            have ? L.ld.z : 0.0f, t_sw, sm);
+        if (have) {
+          trip_tail(x, L, traverse_swept(x, L, col, t_sw));
+          have = end_trip(x, L, trips, o, stack_base);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -808,24 +939,46 @@ extern "C" const char* tpurt_mk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The launch configuration of one instantiation on the current device:
+// threads a block, resident blocks per SM, SMs. Returns a cudaError_t.
+extern "C" int tpurt_mk_occupancy(int dense, int* threads, int* blocks_per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = dense ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      blocks_per_sm, megakernel<true>, kDenseThreads, 0)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
+                                                                megakernel<false>, kThreads, 0);
+  *threads = dense ? kDenseThreads : kThreads;
+  return (int)err;
+}
+
 // Launches the megakernel on ``stream`` — the dense instantiation when
-// ``dense`` is not null; returns cudaGetLastError().
+// ``dense`` is not null — as a persistent grid of resident blocks that
+// take lanes from ``queue`` (an int the caller zeroed); returns a
+// cudaError_t.
 extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
                                const float* mats, const float* srows, const float* roots_f,
                                const int* roots_i, const int* meta, const float* slot_rd,
-                               uint32_t* state, int* trips, const DenseTable* dense,
-                               void* stream) {
+                               uint32_t* state, int* trips, int* work, int* queue,
+                               const DenseTable* dense, void* stream) {
   Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd, DenseTable{}};
-  const int threads = 128;
-  const int blocks = (cfg->n_lanes + threads - 1) / threads;
-  if (blocks > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (dense) {
-      tb.dt = *dense;
-      megakernel<true><<<blocks, threads, 0, s>>>(*cfg, tb, state, trips);
-    } else {
-      megakernel<false><<<blocks, threads, 0, s>>>(*cfg, tb, state, trips);
-    }
+  if (cfg->n_lanes <= 0) return (int)cudaGetLastError();
+  int threads = 0, per_sm = 0, sms = 0;
+  int err = tpurt_mk_occupancy(dense != nullptr, &threads, &per_sm, &sms);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int needed = (cfg->n_lanes + threads - 1) / threads;
+  const int blocks = per_sm * sms < needed ? per_sm * sms : needed;
+  const Out o{state, trips, work, queue};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dense) {
+    tb.dt = *dense;
+    megakernel<true><<<blocks, threads, 0, s>>>(*cfg, tb, o);
+  } else {
+    megakernel<false><<<blocks, threads, 0, s>>>(*cfg, tb, o);
   }
   return (int)cudaGetLastError();
 }

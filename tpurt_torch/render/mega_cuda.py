@@ -4,8 +4,10 @@ The kernel replaces tpurt/render/mega_pallas.py:make_pallas_body (the
 fused Pallas loop body, ``pallas_call`` at mega_pallas.py:237) together
 with the XLA row gather that fed it (megakernel.py:2050-2074): one CUDA
 thread per lane runs the whole persistent lane loop with its lane state
-in registers, loading its own bank row each trip. The source's header
-says what bounds it on the card and why one thread per lane.
+in registers, loading its own bank row each trip. The grid is as many
+blocks as stay resident; a thread whose lane retires takes the next
+from a queue (a counter this wrapper zeroes). The source's header says
+what bounds it on the card and why one thread per lane.
 
 ``run`` is the one entry point. On a CUDA lane state it launches the
 kernel — one launch per call, counted in ``LAUNCHES`` — or raises; on a
@@ -204,8 +206,11 @@ def _lib():
     lib = _build.load("megakernel")
     if not getattr(lib, "_tpurt_ready", False):
         vp = ctypes.c_void_p
-        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 12
+        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 14
         lib.tpurt_mk_launch.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.tpurt_mk_occupancy.argtypes = [ctypes.c_int, ip, ip, ip]
+        lib.tpurt_mk_occupancy.restype = ctypes.c_int
         lib.tpurt_mk_fixed_words.argtypes = []
         lib.tpurt_mk_fixed_words.restype = ctypes.c_int
         lib.tpurt_mk_error_string.argtypes = [ctypes.c_int]
@@ -217,10 +222,26 @@ def _lib():
     return lib
 
 
-def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
-           ) -> torch.Tensor:
+def launch_config(dense: bool, device=None) -> dict:
+    """The persistent launch of one instantiation on ``device``: threads
+    a block, resident blocks per SM, SMs, and the resident lanes."""
+    lib = _lib()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.tpurt_mk_occupancy(int(dense), *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError("megakernel occupancy query failed: "
+                           + lib.tpurt_mk_error_string(err).decode())
+    threads, per_sm, sms = (v.value for v in vals)
+    return dict(threads=threads, blocks_per_sm=per_sm, sms=sms,
+                resident_lanes=threads * per_sm * sms)
+
+
+def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     """Run the kernel in place on a packed CUDA lane buffer; returns the
-    (R,) int32 trips each lane ran."""
+    (R,) int32 trips each lane ran and the (3, R) int32 work of each
+    lane in this launch: child-box tests in node rows, leaf rows (dense:
+    entry sweeps), segment completions."""
     global LAUNCHES, DENSE_LAUNCHES
     if buf.device.type != "cuda":
         raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
@@ -241,6 +262,8 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
     # same stream.
     tabs = _tables(ctx, dev)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
+    work = torch.empty((3, r), dtype=torch.int32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
     cfg = _Cfg(
         n_lanes=r, max_trips=2 ** 31 - 1 if max_trips is None else int(max_trips),
         e_count=ctx.e_count, s_depth=ctx.s_depth,
@@ -267,6 +290,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
             ctypes.byref(cfg), ptr(rows), ptr(tabs["chain"]), ptr(tabs["mats"]),
             ptr(tabs["srows"]), ptr(tabs["roots_f"]), ptr(tabs["roots_i"]),
             ptr(tabs["meta"]), ptr(tabs["slot_rd"]), ptr(buf), ptr(trips),
+            ptr(work), ptr(queue),
             None if dense is None else ctypes.c_void_p(ctypes.addressof(dense)),
             ctypes.c_void_p(stream),
         )
@@ -277,7 +301,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]
         LAUNCHES += 1
     else:
         DENSE_LAUNCHES += 1
-    return trips
+    return trips, work
 
 
 def run(lane: mk._Lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
@@ -287,6 +311,6 @@ def run(lane: mk._Lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane
     if lane.done.device.type == "cpu":
         return mk.run_plain(lane, ctx, max_iterations)
     buf = pack(lane)
-    trips = launch(buf, ctx, max_iterations)
+    trips, _work = launch(buf, ctx, max_iterations)
     iters = lane.iters + int(trips.max()) if trips.numel() else lane.iters
     return unpack(buf, ctx, iters)

@@ -20,6 +20,11 @@ Against tpurt the sweep is the fast-dense contract: u/v/t within about
 one ulp, so acceptance knife-edges may differ. Against the kernel it is
 bit for bit (``-fmad=false``, IEEE division).
 
+The kernel is a block sweep: it stages the det and u rows through
+shared memory from ``det_u``, a per-column repack of ``coeffs``, and
+drops before its division the pairs whose u cannot pass
+(``u_pretest_drops`` mirrors that test for the CPU tests).
+
 ``sweep_entry_local`` is the wrapper: the kernel for tensors on the card
 (counted in ``LAUNCHES``), the plain version for tensors on the CPU.
 """
@@ -48,6 +53,13 @@ K_ROWS = 10
 COL_CHUNK = 256
 #: Ray-column pairs per chunk of the plain version.
 SWEEP_PAIRS = 1 << 24
+#: Floats per column of the kernel-facing ``det_u`` array: det rows 0-2,
+#: u rows 0-5, then zeros to three 16-byte vectors.
+DET_U_WIDTH = 12
+#: The kernel's u pre-test constants (csrc/dense_sweep.cuh, where the
+#: argument for them is written out): 1 + 2^-20 and 2^-100.
+U_MARGIN = 1.0 + 2.0 ** -20
+U_TINY = 2.0 ** -100
 #: Kernel launches made by ``sweep_entry_local`` (where a launch is made).
 LAUNCHES = 0
 
@@ -58,6 +70,7 @@ class DenseTable(NamedTuple):
     entry -1)."""
 
     coeffs: torch.Tensor  # (4, K_ROWS, Tpad) f32: det/u/v/t rows
+    det_u: torch.Tensor  # (Tpad, DET_U_WIDTH) f32: the kernel's staged columns
     ids: torch.Tensor  # (Tpad,) int32 soup triangle id
     owner: torch.Tensor  # (Tpad,) int32 owner mesh id
     entry: torch.Tensor  # (Tpad,) int32 owning chain entry
@@ -102,14 +115,39 @@ def build_dense_table(scene: Scene) -> DenseTable:
         a[:t] = torch.as_tensor(vals, dtype=dtype, device=dev)
         return a
 
+    coeffs = torch.stack(component_rows(pa, e1, e2, ng)).contiguous()
     return DenseTable(
-        coeffs=torch.stack(component_rows(pa, e1, e2, ng)).contiguous(),
+        coeffs=coeffs, det_u=det_u_columns(coeffs),
         ids=pad(ids, -1, torch.int32), owner=pad(owner, 0, torch.int32),
         entry=pad(entry, -1, torch.int32), cull=pad(cull, 0.0, _F32),
         orient=orient.contiguous(), rows=rows,
         entry_range=torch.as_tensor(ranges, dtype=torch.int32,
                                     device=dev).reshape(-1, 2),
         count=t)
+
+
+def det_u_columns(coeffs: torch.Tensor) -> torch.Tensor:
+    """The kernel-facing repack of ``coeffs`` (4, K_ROWS, Tpad): per
+    column, contiguous, the det rows 0-2 and the u rows 0-5 every pair
+    reads, zero-padded to DET_U_WIDTH floats. Copies bits only."""
+    tpad = coeffs.shape[2]
+    out = torch.zeros((tpad, DET_U_WIDTH), dtype=_F32, device=coeffs.device)
+    out[:, 0:3] = coeffs[0, 0:3].T
+    out[:, 3:9] = coeffs[1, 0:6].T
+    return out
+
+
+def u_pretest_drops(det: torch.Tensor, u_num: torch.Tensor) -> torch.Tensor:
+    """The kernel's u pre-test (dense_sweep.cuh u_pretest_keeps, negated,
+    in the kernel's form): True where a pair with |det| >= EPSILON is
+    dropped before the division, because its exact u = (1 / det) * u_num
+    cannot pass 0 <= u <= 1. ``us`` is u_num with det's sign bit folded
+    in; the pair is kept where -(|det| U_TINY) < us <= |det| U_MARGIN."""
+    ad = det.abs()
+    sign = det.view(torch.int32) & torch.tensor(-(2 ** 31), dtype=torch.int32)
+    us = (u_num.view(torch.int32) ^ sign).view(_F32)
+    scale = lambda k: ad * torch.tensor(k, dtype=_F32, device=ad.device)
+    return ~((us <= scale(U_MARGIN)) & (us > -scale(U_TINY)))
 
 
 def _planes(lo: V3, ld: V3, c: torch.Tensor):
@@ -180,7 +218,8 @@ class _Dense(ctypes.Structure):
     """struct DenseTable of csrc/dense_sweep.cuh."""
 
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "coeffs", "ids", "owner", "cull", "orient", "rows", "entry_range")] + [
+        "coeffs", "det_u", "ids", "owner", "cull", "orient", "rows",
+        "entry_range")] + [
         ("tpad", ctypes.c_int), ("n_entries", ctypes.c_int)]
 
 
@@ -188,7 +227,8 @@ def check_table(table: DenseTable, device) -> _Dense:
     """The table as the kernels' struct, after checking it lies on
     ``device`` with the types and shapes they read."""
     tpad = table.ids.shape[0]
-    want = dict(coeffs=(_F32, (4, K_ROWS, tpad)), ids=(torch.int32, (tpad,)),
+    want = dict(coeffs=(_F32, (4, K_ROWS, tpad)),
+                det_u=(_F32, (tpad, DET_U_WIDTH)), ids=(torch.int32, (tpad,)),
                 owner=(torch.int32, (tpad,)), cull=(_F32, (tpad,)),
                 orient=(_F32, (tpad,)), rows=(_F32, (tpad, 18)),
                 entry_range=(torch.int32, (table.entry_range.shape[0], 2)))
@@ -199,7 +239,7 @@ def check_table(table: DenseTable, device) -> _Dense:
             raise ValueError(f"dense table {name}: expected a contiguous "
                              f"{dtype} {shape} tensor on {device}")
     return _Dense(*(ctypes.c_void_p(getattr(table, n).data_ptr())
-                    for n, _ in _Dense._fields_[:7]),
+                    for n, _ in _Dense._fields_[:8]),
                   tpad, table.entry_range.shape[0])
 
 
