@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive tpurt_torch's paths on one CUDA card and check them.
 
-    python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py                # from the repository root, one card
+    python3 chip_smoke.py --b3-public    # B3's parity launches and frames only
 
 Phases (each raises on failure, so any failure exits nonzero):
 
@@ -32,15 +33,27 @@ Phases (each raises on failure, so any failure exits nonzero):
 8. B2's path, small: teapot at 320x180 with the same knobs, the dense
    megakernel against its plain version as in phase 3.
 9. B3 alone at full width: the 307,200 camera rays of the 640x480 frame
-   in the sphere's local space against its 1,280 rows — rows equal on
-   every ray, t bit-identical — both timed.
+   in the sphere's local space against its 1,280 rows, read from the
+   scene's layout by range as the engine reads them — rows equal on
+   every ray, t bit-identical — timed on the device (``device_ms``) and
+   with the host around it; its counted bound, the share of det-passing
+   pairs the pre-test sends to the division, the loop's issued f32
+   operations against the unfused ceiling at the SM clock measured under
+   it. Then each of the parity frame's 18 launches as the engine makes
+   them (6 tiles of 65,536 rays; per tile the fused walls through their
+   id list, the OneSided front wall and the sphere by range), each equal
+   to the plain version and timed; their sum is B3's time per frame.
 10. B3's path at full size: the parity-640x480-1spp frame through
    engine="modular", dense_engine="pallas" (B3 launches counted), held
    against the megakernel's frame (<= 0.5% of pixels) and against
    dense_engine="exact" (identical), 3 frames timed.
 
 Each path's launch counts are set to 0 just before its counted
-``render_image`` and read just after. Times are printed beside the
+``render_image`` and read just after. ``--b3-public`` builds B3 alone,
+times the parity frame's launches through the public entry
+``mt_sweep.mt_sweep`` and then the parity scene's modular frames, calls
+every version of the port has, so the same script times an earlier
+tree's B3 path. Times are printed beside the
 card's name and power limit. The last two lines of standard output are
 the kernel table as JSON and {"ok": true, "device": {...}}. There is no
 CPU path: without a CUDA device the script raises.
@@ -60,6 +73,7 @@ MAX_FLIP = 0.005  # frames: <= 0.5% of pixels differ (knife-edge class)
 SEG_TOL = 0.005  # segment counts within 0.5%
 PEAK_F32 = 67e12  # H100 SXM f32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM bytes/s
+SPIN_CYCLES = 2_000_000  # device_ms's spin, ~1 ms: longer than a wrapper's host work
 # f32 operations of the megakernel's branches, read stage by stage off
 # csrc/megakernel.cu, for its per-lane work counts. Where a branch
 # leaves early on its data, only the stages that always run are counted,
@@ -567,19 +581,19 @@ def phase8():
     compare_backends("teapot-320x180-dense", scene, cam, cfg)
 
 
-def mt_sweep_ops(ro, rd, rows, count) -> float:
-    """f32 operations the exact sweep does on these inputs, stage by stage
-    as the kernel leaves a row early: every pair 21 (e1, e2, h = d x e2,
-    det, a compare); |det| >= eps 12 (reciprocal, s, u, 2 compares); u in
-    range 18 (q, v, u + v, 2 compares); v in range 8 (t, 2 compares). The
-    smooth normal of a closer culled candidate is not counted."""
+def mt_sweep_counts(ro, rd, rows, count) -> dict:
+    """How far the exact sweep's pairs of these inputs get, counted in
+    torch in the plain version's op order: all pairs, |det| >= eps, kept
+    by B3's u pre-test as well (plucker_fused.u_pretest_drops, the
+    kernel's test), u in range, v in range."""
     import torch
 
     from tpurt_torch.core import v3 as v3lib
     from tpurt_torch.core.v3 import V3
+    from tpurt_torch.render import plucker_fused as pf
     from tpurt_torch.render.intersect import _EPS, _tri_v3
 
-    ops = 0.0
+    n = dict(pairs=0.0, det=0.0, kept=0.0, u=0.0, v=0.0)
     tri = rows[:count][None]
     pa = _tri_v3(tri, 0)
     e1, e2 = _tri_v3(tri, 3) - pa, _tri_v3(tri, 6) - pa
@@ -590,18 +604,213 @@ def mt_sweep_ops(ro, rd, rows, count) -> float:
         det = v3lib.dot(e1, h)
         ok_det = torch.abs(det) >= _EPS
         s = o - pa
-        u = v3lib.dot(s, h) / det
+        u_num = v3lib.dot(s, h)
+        u = u_num / det
         ok_u = ok_det & (u >= 0.0) & (u <= 1.0)
         v = v3lib.dot(d, v3lib.cross(s, e1)) / det
         ok_v = ok_u & (v >= 0.0) & (u + v <= 1.0)
-        ops += (21.0 * det.numel() + 12.0 * float(ok_det.sum())
-                + 18.0 * float(ok_u.sum()) + 8.0 * float(ok_v.sum()))
-    return ops
+        n["pairs"] += float(det.numel())
+        n["det"] += float(ok_det.sum())
+        n["kept"] += float((ok_det & ~pf.u_pretest_drops(det, u_num)).sum())
+        n["u"] += float(ok_u.sum())
+        n["v"] += float(ok_v.sum())
+    return n
+
+
+def mt_sweep_ops(n: dict) -> float:
+    """f32 operations of the exact sweep on pairs counted by
+    ``mt_sweep_counts``, stage by stage as a pair leaves early (the count
+    B3's bound has always used, kept so that it stays comparable): every
+    pair 21 (e1, e2, h = d x e2, det, a compare); |det| >= eps 12
+    (reciprocal, s, u, 2 compares); u in range 18 (q, v, u + v, 2
+    compares); v in range 8 (t, 2 compares). The smooth normal of a closer culled candidate is not
+    counted."""
+    return 21.0 * n["pairs"] + 12.0 * n["det"] + 18.0 * n["u"] + 8.0 * n["v"]
+
+
+def mt_loop_ops(n: dict) -> float:
+    """f32 operations kernel B3's loop issues on the same pairs, unfused:
+    every pair 27 (h 9, det 5, s 3, u numerator 5, the det test, the
+    pre-test's 2 multiplies and 2 compares); kept by the pre-test 4
+    (reciprocal, u, 2 compares); u in range 18; v in range 8. The edges
+    come from the layout, and a kept pair's h, det, s and u numerator are
+    not counted twice."""
+    return 27.0 * n["pairs"] + 4.0 * n["kept"] + 18.0 * n["u"] + 8.0 * n["v"]
+
+
+def parity_b3_launches(scene, cam, cfg):
+    """B3's launches in one parity frame, built as the modular engine
+    builds them (render_tile_with_stats -> intersect_scene): per tile, at
+    full tile shape (an edge tile is cropped after it is rendered), the
+    fused identity pass in world space, then each other mesh in its local
+    space -> [dict(tile, what, ro, rd (R, 3), first, count, ids or None,
+    cull (count,) bool)]."""
+    import torch
+
+    from tpurt_torch.core import v3 as v3lib
+    from tpurt_torch.core.camera import make_ray, pixel_uv
+    from tpurt_torch.render.intersect import _cull_policy, local_rays
+    from tpurt_torch.render.renderer import _tile_pixel_coords
+    from tpurt_torch.scene.types import MaterialType
+
+    dev = scene.device
+    fused, separate = [], []
+    for i, (_first, count) in enumerate(scene.mesh_tri_ranges):
+        if (scene.mesh_identity[i] and count <= cfg.bruteforce_threshold
+                and scene.mesh_mat_types[i] != int(MaterialType.ONE_SIDED)):
+            fused.append(i)
+        else:
+            separate.append(i)
+    ranges = [scene.mesh_tri_ranges[i] for i in fused]
+    ids = torch.cat([torch.arange(f, f + n) for f, n in ranges]).to(dev)
+    fused_cull = torch.cat([torch.full((n,), _cull_policy(scene.mesh_mat_types[i]))
+                            for i, (_f, n) in zip(fused, ranges)]).to(dev)
+    rows = lambda v: v3lib.to_rows(v).contiguous()
+    ts = cfg.tile_size
+    tiles_x, tiles_y = cfg.tiles()
+    out = []
+    for ty in range(tiles_y):
+        for tx in range(tiles_x):
+            xs, ys = _tile_pixel_coords(ts, ts, tx * ts, ty * ts, dev)
+            ro, rd = make_ray(cam, pixel_uv(xs, ys, cfg.width, cfg.height))
+            o, d = v3lib.from_rows(ro), v3lib.from_rows(rd)
+            out.append(dict(tile=(tx, ty), what="fused walls", ro=rows(o),
+                            rd=rows(v3lib.normalize(d)), first=None,
+                            count=ids.shape[0], ids=ids, cull=fused_cull))
+            for i in separate:
+                first, count = scene.mesh_tri_ranges[i]
+                lo, ld = local_rays(scene, i, o, d)
+                cull = _cull_policy(scene.mesh_mat_types[i])
+                out.append(dict(tile=(tx, ty), what=f"mesh {i}", ro=rows(lo),
+                                rd=rows(ld), first=first, count=count, ids=None,
+                                cull=torch.full((count,), cull, device=dev)))
+    return out
+
+
+def device_ms(fn, reps: int = 5):
+    """(last result, [ms per call]) of the card's time for ``fn``'s work:
+    a spin kernel keeps the card busy while the host enqueues the start
+    event and ``fn``'s launches, so the events bracket the device's work
+    and not the host's Python around it."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return out, times
+
+
+def sm_clock_under(fn, seconds: float = 1.0) -> float:
+    """Median SM clock (MHz) that nvidia-smi reads while ``fn`` runs back
+    to back for about ``seconds``."""
+    import statistics
+    import threading
+
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, check=True)
+            samples.append(float(out.stdout.split()[0]))
+            time.sleep(0.05)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    t0 = time.time()
+    try:
+        while time.time() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        poller.join()
+    return statistics.median(samples)
+
+
+def time_b3_public(scene, launches, reps: int = 5) -> float:
+    """Each launch through the public entry ``mt_sweep.mt_sweep`` (its
+    rows gathered and padded beforehand, outside the timing), timed with
+    the host around it (``cuda_ms``) and on the device (``device_ms``);
+    logs every launch and returns the sum of best device times (ms)."""
+    from tpurt_torch.render import mt_sweep
+
+    total = host = 0.0
+    for ln in launches:
+        tri = (scene.tri_packed[ln["ids"]] if ln["ids"] is not None else
+               scene.tri_packed[ln["first"]:ln["first"] + ln["count"]])
+        rows, flags = mt_sweep.pad_tri_rows(tri, ln["cull"])
+        call = lambda: mt_sweep.mt_sweep(ln["ro"], ln["rd"], rows, flags, ln["count"])
+        call()  # warm-up
+        _out, h_ms = cuda_ms(call, reps)
+        _out, d_ms = device_ms(call, reps)
+        total += min(d_ms)
+        host += min(h_ms)
+        log(f"B3 public entry, tile {ln['tile']} {ln['what']}: {ln['ro'].shape[0]} "
+            f"rays x {ln['count']} rows, best of {reps}: device {min(d_ms):.4f} ms, "
+            f"with the host {min(h_ms):.4f} ms | {CARD}")
+    log(f"B3 public entry, parity frame: {len(launches)} launches, sums of best "
+        f"times: device {total:.4f} ms, with the host {host:.4f} ms | {CARD}")
+    return total
+
+
+def b3_public_main():
+    """``--b3-public``: build B3 alone, time the parity frame's launches
+    through the public entry, then the modular frames of the parity
+    scene (1 spp, 1 bounce and 2 spp, 4 bounces; a warm-up, best of 5)
+    through ``render_image``: the calls every version of the port has."""
+    from tpurt_torch import _build
+    from tpurt_torch.render.renderer import render_image
+    from tpurt_torch.scene.presets import bench_scene
+
+    _build.build_all(["mt_sweep"])
+    cfg = parity_cfg()
+    scene, cam = bench_scene("sphere", cfg, device="cuda")
+    time_b3_public(scene, parity_b3_launches(scene, cam, cfg))
+    for label, c in (("parity-640x480", cfg),
+                     ("640x480-2spp-4-bounces", cfg.replace(rays_per_pixel=2,
+                                                            max_bounces=4))):
+        render_image(scene, cam, c)  # warm-up
+        _img, ms = cuda_ms(lambda: render_image(scene, cam, c), reps=5)
+        log(f"{label} modular frame ms {[round(t, 3) for t in ms]} (best "
+            f"{min(ms):.3f}) | {CARD}")
+
+
+def b3_engine_call(scene, ln, plain: bool = False):
+    """One launch of ``parity_b3_launches`` as the engine makes it: the
+    scene's layout by range or through the fused id list."""
+    import torch
+
+    from tpurt_torch.render import mt_sweep
+
+    fn = mt_sweep.sweep_plain if plain else mt_sweep.sweep
+    lay = () if plain else (mt_sweep.scene_layout(scene),)
+    if ln["ids"] is None:
+        cull = bool(ln["cull"].all())  # one flag for the range, read before timing
+        return lambda: fn(ln["ro"], ln["rd"], *lay, scene.tri_packed, ln["count"],
+                          first=ln["first"], cull=cull)
+    ids32, flags = ln["ids"].to(torch.int32), ln["cull"].float()
+    return lambda: fn(ln["ro"], ln["rd"], *lay, scene.tri_packed, ln["count"],
+                      ids=ids32, cull_flags=flags)
 
 
 def phase9():
-    """B3 alone at full width: the parity frame's camera rays in the
-    sphere's local space against its rows."""
+    """B3 alone at full width (the parity frame's 307,200 camera rays in
+    the sphere's local space against its 1,280 rows, by range as the
+    engine reads them), then at each of the parity frame's launches;
+    every result equal to the plain version's."""
     import torch
 
     from tpurt_torch.core import v3 as v3lib
@@ -619,29 +828,60 @@ def phase9():
     first, count = scene.mesh_tri_ranges[mesh]
     lo, ld = local_rays(scene, mesh, v3lib.from_rows(ro), v3lib.from_rows(rd))
     lo, ld = v3lib.to_rows(lo).contiguous(), v3lib.to_rows(ld).contiguous()
-    rows, flags = mt_sweep.pad_tri_rows(
-        scene.tri_packed[first:first + count],
-        torch.ones(count, dtype=torch.bool, device="cuda"))
-    mt_sweep.mt_sweep(lo, ld, rows, flags, count)  # warm-up
-    (t, idx), k_ms = cuda_ms(
-        lambda: mt_sweep.mt_sweep(lo, ld, rows, flags, count), reps=5)
-    (tp, idxp), p_ms = cuda_ms(
-        lambda: mt_sweep.mt_sweep_plain(lo, ld, rows, flags, count), reps=2)
+    alone = dict(tile="all", what=f"mesh {mesh}", ro=lo, rd=ld, first=first,
+                 count=count, ids=None,
+                 cull=torch.ones(count, dtype=torch.bool, device="cuda"))
+    call = b3_engine_call(scene, alone)
+    call()  # warm-up
+    (t, idx), k_ms = device_ms(call)
+    _out, h_ms = cuda_ms(call, reps=5)
+    (tp, idxp), p_ms = cuda_ms(b3_engine_call(scene, alone, plain=True), reps=2)
     same_i = float((idx == idxp).float().mean())
     same_t = bool(torch.equal(t, tp))
     hit = idxp >= 0
     err = float((t - tp)[hit].abs().max()) if bool(hit.any()) else 0.0
-    log(f"B3 alone: {lo.shape[0]} rays x {count} rows, hit "
-        f"{float(hit.float().mean()):.4f}; rows equal on {same_i:.6%}, t "
-        f"bit-identical {same_t}; kernel ms {k_ms}, plain ms {p_ms} | {CARD}")
+    r = lo.shape[0]
+    launch = mt_sweep.launch_config(r)
+    log(f"B3 alone: {r} rays x {count} rows, hit {float(hit.float().mean()):.4f}; "
+        f"rows equal on {same_i:.6%}, t bit-identical {same_t}; kernel device ms "
+        f"{k_ms}, with the host {h_ms}, plain ms {p_ms}; launch {launch} | {CARD}")
     if same_i < 1.0 or not same_t:
         raise AssertionError("B3 kernel differs from its plain version")
-    ops = mt_sweep_ops(lo, ld, rows, count)
-    r = lo.shape[0]
-    nbytes = r * 6 * 4 + rows.numel() * 4 + flags.numel() * 4 + r * 8
+    n = mt_sweep_counts(lo, ld, scene.tri_packed[first:], count)
+    ops, loop_ops = mt_sweep_ops(n), mt_loop_ops(n)
+    nbytes = r * 6 * 4 + count * mt_sweep.MT_WIDTH * 4 + r * 8
     b_ms, b_by = bound(ops, nbytes)
-    log(f"B3 bound {b_ms:.3f} ms ({b_by}): {ops:.4g} ops "
-        f"({ops / (r * count):.2f} per pair), {nbytes} bytes")
+    log(f"B3 bound {b_ms:.3f} ms ({b_by}): {ops:.4g} ops ({ops / n['pairs']:.2f} "
+        f"per pair), {nbytes} bytes; the pre-test sends {n['kept'] / n['det']:.4%} "
+        f"of det-passing pairs to the division ({n['u'] / n['det']:.4%} pass u)")
+    mhz = sm_clock_under(call)
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    log(f"B3's loop issues {loop_ops:.4g} f32 ops ({loop_ops / n['pairs']:.2f} per "
+        f"pair), {loop_ops / (PEAK_F32 / 2) / (min(k_ms) * 1e-3):.2%} of the unfused "
+        f"ceiling ({PEAK_F32 / 2:.3g}/s) in {min(k_ms):.4f} ms; the SM clock under "
+        f"it {mhz:.0f} MHz, where {lanes} f32 lanes issue {lanes * mhz * 1e6:.4g}/s: "
+        f"{loop_ops / (lanes * mhz * 1e6) / (min(k_ms) * 1e-3):.2%} | {CARD}")
+    total = 0.0
+    launches = parity_b3_launches(scene, cam, cfg)
+    for ln in launches:
+        call = b3_engine_call(scene, ln)
+        call()  # warm-up
+        (t, idx), ms = device_ms(call)
+        tp, idxp = b3_engine_call(scene, ln, plain=True)()
+        if not (torch.equal(t, tp) and torch.equal(idx, idxp)):
+            raise AssertionError(f"B3 differs from its plain version at tile "
+                                 f"{ln['tile']} {ln['what']}")
+        total += min(ms)
+        rows = (scene.tri_packed[ln["ids"]] if ln["ids"] is not None
+                else scene.tri_packed[ln["first"]:])
+        n = mt_sweep_counts(ln["ro"], ln["rd"], rows, ln["count"])
+        log(f"B3 engine form, tile {ln['tile']} {ln['what']}: {ln['ro'].shape[0]} "
+            f"rays x {ln['count']} rows ({'id list' if ln['ids'] is not None else 'range'}, "
+            f"G {mt_sweep.launch_config(ln['ro'].shape[0])['groups']}), equal to the "
+            f"plain version, device best {min(ms):.4f} ms of 5; the pre-test sends "
+            f"{n['kept'] / n['pairs']:.4%} of its pairs to the division | {CARD}")
+    log(f"B3 per parity frame: {len(launches)} launches, sum of best device times "
+        f"{total:.4f} ms | {CARD}")
     return dict(name="mt_sweep (B3)", route="cuda",
                 source="tpurt_torch/csrc/mt_sweep.cu",
                 replaces="tpurt/render/pallas_kernels.py:156", launches=None,
@@ -652,6 +892,7 @@ def phase9():
 def phase10(b3):
     import numpy as np
 
+    from tpurt_torch.render.intersect import _partition
     from tpurt_torch.render.renderer import render_image
     from tpurt_torch.scene.presets import bench_scene
 
@@ -662,6 +903,13 @@ def phase10(b3):
     # construction. The lit check is the 4-bounce frame below.
     img, _stats, launches, _best = main_path(
         "parity-640x480-modular", scene, cam, cfg, "mt_sweep", min_lit=None)
+    # One launch a tile for the fused identity pass and one for each other
+    # mesh: every one of them counted.
+    tiles_x, tiles_y = cfg.tiles()
+    per_tile = 1 + len(_partition(scene, cfg.bruteforce_threshold)[1])
+    if launches != tiles_x * tiles_y * per_tile:
+        raise AssertionError(f"parity frame: {launches} B3 launches counted, "
+                             f"{tiles_x * tiles_y * per_tile} made")
     b3["launches"] = launches
     for label, c in (("parity-640x480", cfg),
                      ("640x480-2spp-4-bounces", cfg.replace(rays_per_pixel=2,
@@ -698,6 +946,10 @@ def main():
 
     t0 = time.time()
     CARD = smi()
+    if sys.argv[1:] == ["--b3-public"]:
+        log("card:", CARD)
+        b3_public_main()
+        return
     phase1()
     phase2()
     phase3()

@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""Time variants of the megakernel and the dense sweep against the
-shipped kernels on one CUDA card.
+"""Time variants of the megakernel, the dense sweep and the exact sweep
+against the shipped kernels on one CUDA card.
 
-    python3 kernel_variants.py     # from the repository root, one card
+    python3 kernel_variants.py                # every kernel, one card
+    python3 kernel_variants.py mt_sweep       # only csrc/mt_sweep.cu's
 
-A variant is a copy of csrc/megakernel.cu or csrc/dense_sweep.cu with
-one of its launch constants changed (threads a block, the least resident
-blocks per SM that ``__launch_bounds__`` asks for, the block sweep's
-unroll factor), or with the persistent grid replaced by one thread per
-lane ("grid": as many blocks as the lanes need, so that each thread runs
-one lane and no thread takes a second). Each is built with the package's
-own nvcc flags beside the shipped library and swapped in for it while it
-runs, so the wrappers (``mega_cuda.launch``, ``sweep_entry_local``) run
-it unchanged. Workloads, at full size:
+A variant is a copy of csrc/megakernel.cu, csrc/dense_sweep.cu or
+csrc/mt_sweep.cu with one of its launch constants changed (threads a
+block, the least resident blocks per SM that ``__launch_bounds__`` asks
+for, a sweep's unroll factor; B3's rays a thread, rows a stage and most
+threads a ray set), or with the persistent grid replaced by one thread
+per lane ("grid": as many blocks as the lanes need, so that each thread
+runs one lane and no thread takes a second). Each is built with the
+package's own nvcc flags beside the shipped library and swapped in for
+it while it runs, so the wrappers (``mega_cuda.launch``,
+``sweep_entry_local``, ``mt_sweep.sweep``) run it unchanged. Workloads,
+at full size:
 
 - bunny-1080p-plain's batch (262,144 lanes) through megakernel<false>:
   its first 16 trips, and to completion;
 - teapot-720p-bruteforce's batch (230,400 lanes) to completion through
   megakernel<true>;
 - B2 alone on the teapot's 230,400 primary rays x 6,144 columns
-  (chip_smoke.py's phase 6 inputs).
+  (chip_smoke.py's phase 6 inputs);
+- B3 on the parity frame's 307,200 camera rays x the sphere's 1,280
+  rows, and on one tile's 65,536 (chip_smoke.py's phase 9 inputs).
 
 The shipped build and its variants run in turns (in order, then in
-reverse), best of the two; every variant's results (lane words, trips,
+reverse), each timed on the card (``chip_smoke.device_ms``), best of the
+two; every variant's results (lane words, trips,
 work counts, columns and t) must equal the shipped build's word for
 word. ptxas's register and spill report and each megakernel variant's
 launch are printed, with every time beside the card's name and power
@@ -44,6 +50,7 @@ import chip_smoke as cs
 
 _MK = "megakernel"
 _SW = "dense_sweep"
+_MT = "mt_sweep"
 _GRID = ("const int blocks = per_sm * sms < needed ? per_sm * sms : needed;",
          "const int blocks = needed;")
 
@@ -52,9 +59,14 @@ def _const(name: str, old: int, new: int):
     return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
 
 
+
+
 #: label -> (source, [(text, replacement), ...]); the shipped constants
 #: are kThreads 128 x kMinBlocks 9, kDenseThreads 256 x kDenseMinBlocks
-#: 4, kDenseSweepUnroll 1 (megakernel.cu) and kUnroll 4 (dense_sweep.cu).
+#: 4, kDenseSweepUnroll 1 (megakernel.cu), kUnroll 4 (dense_sweep.cu) and
+#: kThreads 128, kRays 4, kChunk 256, kMaxGroup 4, kUnroll 2, kMinBlocks 7,
+#: kWaves 4 (mt_sweep.cu); "b3-dettest-first" puts B3's det test back
+#: beside the pre-test, before the branch.
 VARIANTS = {
     "grid": (_MK, [_GRID]),
     "b1-min8": (_MK, [_const("kMinBlocks", 9, 8)]),
@@ -70,6 +82,23 @@ VARIANTS = {
     "sweep-unroll1": (_SW, [_const("kUnroll", 4, 1)]),
     "sweep-unroll2": (_SW, [_const("kUnroll", 4, 2)]),
     "sweep-unroll8": (_SW, [_const("kUnroll", 4, 8)]),
+    "b3-t64": (_MT, [_const("kThreads", 128, 64)]),
+    "b3-t256": (_MT, [_const("kThreads", 128, 256), _const("kMinBlocks", 7, 3)]),
+    "b3-r2": (_MT, [_const("kRays", 4, 2)]),
+    "b3-r3": (_MT, [_const("kRays", 4, 3)]),
+    "b3-r8": (_MT, [_const("kRays", 4, 8), _const("kMinBlocks", 7, 1)]),
+    "b3-chunk128": (_MT, [_const("kChunk", 256, 128)]),
+    "b3-chunk512": (_MT, [_const("kChunk", 256, 512), _const("kMinBlocks", 7, 4)]),
+    "b3-unroll1": (_MT, [_const("kUnroll", 2, 1)]),
+    "b3-min1": (_MT, [_const("kMinBlocks", 7, 1)]),
+    "b3-min8": (_MT, [_const("kMinBlocks", 7, 8)]),
+    "b3-waves1": (_MT, [_const("kWaves", 4, 1)]),
+    "b3-waves2": (_MT, [_const("kWaves", 4, 2)]),
+    "b3-g2": (_MT, [_const("kMaxGroup", 4, 2)]),
+    "b3-g8": (_MT, [_const("kMaxGroup", 4, 8)]),
+    "b3-dettest-first": (_MT, [(
+        "keep[r] = u_pretest_keeps(det, dot(sub(o[r], pa), h));",
+        "keep[r] = (fabsf(det) >= kEps) & u_pretest_keeps(det, dot(sub(o[r], pa), h));")]),
 }
 
 
@@ -116,8 +145,46 @@ def swapped(name: str, lib):
         _build._LIBS[name] = shipped
 
 
-def workloads():
-    """[(name, source, run() -> result tensors, info() -> str)]."""
+def b3_workloads():
+    """B3's workloads: the sphere's rows against the parity frame's
+    camera rays, all of them and one tile's (chip_smoke.py phase 9)."""
+    import torch
+
+    from tpurt_torch.core import v3 as v3lib
+    from tpurt_torch.core.camera import make_ray, pixel_uv
+    from tpurt_torch.render import mt_sweep
+    from tpurt_torch.render.intersect import local_rays
+    from tpurt_torch.scene.presets import bench_scene
+
+    cfg = cs.parity_cfg()
+    scene, cam = bench_scene("sphere", cfg, device="cuda")
+    mesh = scene.num_meshes - 1
+    first, count = scene.mesh_tri_ranges[mesh]
+    pix = torch.arange(cfg.width * cfg.height, device="cuda")
+    ro, rd = make_ray(cam, pixel_uv(pix % cfg.width, pix // cfg.width,
+                                    cfg.width, cfg.height))
+    lo, ld = local_rays(scene, mesh, v3lib.from_rows(ro), v3lib.from_rows(rd))
+    lo, ld = v3lib.to_rows(lo).contiguous(), v3lib.to_rows(ld).contiguous()
+    tile = next(ln for ln in cs.parity_b3_launches(scene, cam, cfg)
+                if ln["what"] == f"mesh {mesh}")
+    out = []
+    for name, ln in (("B3-alone", dict(ro=lo, rd=ld)), ("B3-tile", tile)):
+        ln = dict(ln, first=first, count=count, ids=None,
+                  cull=torch.ones(count, dtype=torch.bool, device="cuda"))
+
+        def info(n=ln["ro"].shape[0]):
+            c = mt_sweep.launch_config(n)
+            return (f"{n} rays: {c['threads']} threads x {c['rays_per_thread']} rays, "
+                    f"G {c['groups']}, {c['blocks']} blocks, {c['resident_threads']} "
+                    f"resident threads")
+
+        out.append((name, _MT, cs.b3_engine_call(scene, ln), info))
+    return out
+
+
+def workloads(sources):
+    """[(name, source, run() -> result tensors, info() -> str)] of the
+    kernels in ``sources``."""
     from tpurt_torch.render import mega_cuda
     from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render import plucker_fused as pf
@@ -125,31 +192,35 @@ def workloads():
     from tpurt_torch.scene.presets import bench_scene
 
     out = []
-    bunny = cs.bunny_cfg(1920, 1080)
-    teapot = cs.teapot_cfg(1280, 720)
-    bunny_sc = cs.bunny_scene(bunny)
-    teapot_sc = bench_scene("teapot", teapot, device="cuda")
-    for name, (scene, cam), cfg, trips in (
-            ("bunny-1080p 16 trips", bunny_sc, bunny, 16),
-            ("bunny-1080p", bunny_sc, bunny, None),
-            ("teapot-720p-dense", teapot_sc, teapot, None)):
-        lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
-        buf0 = mega_cuda.pack(lane)
+    if _MK in sources:
+        bunny = cs.bunny_cfg(1920, 1080)
+        teapot = cs.teapot_cfg(1280, 720)
+        bunny_sc = cs.bunny_scene(bunny)
+        teapot_sc = bench_scene("teapot", teapot, device="cuda")
+        for name, (scene, cam), cfg, trips in (
+                ("bunny-1080p 16 trips", bunny_sc, bunny, 16),
+                ("bunny-1080p", bunny_sc, bunny, None),
+                ("teapot-720p-dense", teapot_sc, teapot, None)):
+            lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+            buf0 = mega_cuda.pack(lane)
 
-        def run(buf0=buf0, ctx=ctx, trips=trips):
-            buf = buf0.clone()
-            return (buf, *mega_cuda.launch(buf, ctx, trips))
+            def run(buf0=buf0, ctx=ctx, trips=trips):
+                buf = buf0.clone()
+                return (buf, *mega_cuda.launch(buf, ctx, trips))
 
-        def info(dense=ctx.dense is not None, r=buf0.shape[1]):
-            c = mega_cuda.launch_config(dense)
-            blocks = min(c["blocks_per_sm"] * c["sms"], -(-r // c["threads"]))
-            return (f"{c['threads']} threads x {c['blocks_per_sm']} blocks per SM, "
-                    f"{blocks} blocks")
+            def info(dense=ctx.dense is not None, r=buf0.shape[1]):
+                c = mega_cuda.launch_config(dense)
+                blocks = min(c["blocks_per_sm"] * c["sms"], -(-r // c["threads"]))
+                return (f"{c['threads']} threads x {c['blocks_per_sm']} blocks per SM, "
+                        f"{blocks} blocks")
 
-        out.append((name, _MK, run, info))
-    _scene, lo, ld, entry, table = cs.teapot_sweep_inputs()
-    out.append(("B2-alone", _SW, lambda: pf.sweep_entry_local(lo, ld, entry, table),
-                lambda: "128 threads"))
+            out.append((name, _MK, run, info))
+    if _SW in sources:
+        _scene, lo, ld, entry, table = cs.teapot_sweep_inputs()
+        out.append(("B2-alone", _SW, lambda: pf.sweep_entry_local(lo, ld, entry, table),
+                    lambda: "128 threads"))
+    if _MT in sources:
+        out += b3_workloads()
     return out
 
 
@@ -160,13 +231,16 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: torch.cuda.is_available() is false")
+    sources = tuple(sys.argv[1:]) or (_MK, _SW, _MT)
+    variants = [v for v, (src, _p) in VARIANTS.items() if src in sources]
     cs.CARD = cs.smi()
     t0 = time.time()
-    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:
-        list(pool.map(_build.build, (_MK, _SW)))
-        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
-    cs.log(f"built {len(built)} variants and the shipped pair in {time.time() - t0:.1f} s")
-    for name in (_MK, _SW):
+    with ThreadPoolExecutor(len(variants) + len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+        built = dict(zip(variants, pool.map(build_variant, variants)))
+    cs.log(f"built {len(built)} variants and the shipped {', '.join(sources)} in "
+           f"{time.time() - t0:.1f} s")
+    for name in sources:
         for line in _ptxas(_build.build_log(name)):
             cs.log(f"  ptxas shipped {name}: {line}")
     for label, (_path, lines) in built.items():
@@ -175,7 +249,7 @@ def main():
     libs = {label: ctypes.CDLL(path) for label, (path, _l) in built.items()}
     libs["shipped"] = None
     summary = {}
-    for cell, source, run, info in workloads():
+    for cell, source, run, info in workloads(sources):
         labels = ["shipped"] + [v for v, (s, _p) in VARIANTS.items() if s == source]
         for label in labels:  # warm-up, and each variant's launch
             with swapped(source, libs[label]):
@@ -186,7 +260,7 @@ def main():
         times = {label: [] for label in labels}
         for label in labels + labels[::-1]:
             with swapped(source, libs[label]):
-                res, ms = cs.cuda_ms(run)
+                res, ms = cs.device_ms(run, reps=1)
             times[label].extend(ms)
             if not all(torch.equal(a, b) for a, b in zip(res, ref)):
                 raise AssertionError(f"{cell}: variant {label} changed the result")

@@ -12,6 +12,8 @@ The module imports no jax, so it also hosts the chain scene the CPU
 tests build with both packages' builders.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -72,6 +74,26 @@ def chain_scene(builder_cls, material_cls, mt, proc, device=None):
                                   emission_strength=10.0)
     return b.freeze() if device is None else b.freeze(device)
 
+
+def shared_geometry_scene(device):
+    """Two identity instances of one icosphere's triangles, Solid (culls
+    backfaces) and Glassy (does not), a light above them, and a camera
+    inside the spheres looking up, so that it sees their backfaces."""
+    b = SceneBuilder()
+    pos, nrm = procedural.icosphere(2, radius=40.0)
+    solid = b.add_triangles(pos, nrm)
+    solid.material = Material(type=MaterialType.SOLID, color=(0.8, 0.7, 0.6))
+    b.add_mesh(solid)
+    b.add_mesh(dataclasses.replace(
+        solid, material=Material(type=MaterialType.GLASSY, ior=1.5,
+                                 color=(0.9, 0.9, 1.0))))
+    light = b.add_quad((-30, 60, -30), (30, 60, -30), (30, 60, 30), (-30, 60, 30),
+                       (0, -1, 0), (0, 0, 0))
+    light.material = Material(type=MaterialType.SOLID, color=(1, 1, 1),
+                              emission_color=(1, 1, 0.9), emission_strength=10.0)
+    cam = Camera.create((0, 0, 0), pitch=1.2, yaw=0.0, fov_degrees=100,
+                        aspect_ratio=1.0, device=device)
+    return b.freeze(device), cam
 
 
 @pytest.fixture(scope="module")
@@ -272,9 +294,109 @@ def test_mt_sweep_kernel_matches_plain(cuda_scene):
     assert torch.equal(t, tp)
 
 
-def test_modular_kernel_frame_equals_exact(cuda_scene):
-    scene, cam = cuda_scene
-    cfg = CFG.replace(engine="modular", tile_size=32)
+def _b3_table(seed):
+    """(T, 18) rows of icosphere(4) (5,120 triangles), in an order that
+    repeats rows at random distances: equal rows give equal t, so the
+    first minimum decides between them."""
+    pos, nrm = procedural.icosphere(4, radius=50.0)
+    base = np.concatenate([pos.reshape(-1, 9), nrm.reshape(-1, 9)], 1).astype(np.float32)
+    r = np.random.default_rng(seed)
+    pick = np.where(r.random(len(base)) < 0.3, r.integers(0, len(base), len(base)),
+                    np.arange(len(base)))
+    return torch.from_numpy(base[pick]).cuda()
+
+
+B3_RAYS = ["1", "31", "below_block", "below_resident", "65536", "307200",
+           "G2", "G1"]
+B3_ROWS = [1, 2, 255, 256, 257, 1280, 4096]
+
+
+def _first_rays_at(group: int) -> int:
+    """The smallest power of two of rays for which the G rule picks
+    ``group`` threads a ray set."""
+    n = 1
+    while mt_sweep.launch_config(n)["groups"] != group:
+        n *= 2
+        assert n < 1 << 26, group
+    return n
+
+
+def _b3_rays(size: str) -> int:
+    c = mt_sweep.launch_config(1)
+    per_block = c["threads"] * c["rays_per_thread"] // c["groups"]
+    if size.startswith("G"):
+        return _first_rays_at(int(size[1:]))
+    return {"below_block": per_block // 2 + 3,
+            "below_resident": c["resident_threads"] // 3 + 7}.get(size) or int(size)
+
+
+def test_mt_sweep_rule_chooses_every_group():
+    """Over ray counts from 1 to 16 x the resident threads, the G rule
+    picks every power of two up to its largest, fewer threads a ray set
+    as rays grow; the forms test below runs each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c = mt_sweep.launch_config(1)
+    n, seen = 1, []
+    while n <= 16 * c["resident_threads"]:
+        seen.append(mt_sweep.launch_config(n)["groups"])
+        n *= 2
+    assert seen == sorted(seen, reverse=True) and seen[0] == c["groups"], seen
+    assert set(seen) == {1 << i for i in range(c["groups"].bit_length())}, seen
+    assert {mt_sweep.launch_config(_b3_rays(s))["groups"] for s in B3_RAYS} == set(seen)
+
+
+@pytest.mark.parametrize("size", B3_RAYS)
+def test_mt_sweep_forms_match_plain(cuda_scene, size):
+    """Kernel B3 against its plain version in every row and bit of t, at
+    ray counts below a block, below the resident threads, at a tile and a
+    frame, and where the G rule chooses each G, over 1 to 4,096 rows:
+    the public entry (range, per-row flags, mixed), the range form with
+    one flag (all culled, none) and the id-list form (ids repeat; all,
+    none or mixed flags)."""
+    n = _b3_rays(size)
+    table = _b3_table(7)
+    lay = mt_sweep.mt_layout(table)
+    r = np.random.default_rng(n)
+    rows = B3_ROWS[:5] if size.startswith("G") else B3_ROWS  # their plain sweeps are long
+    for j, count in enumerate(rows):
+        first = int(r.integers(0, table.shape[0] - count + 1))
+        o, d = _aimed_rays(table[first:first + count].cpu().numpy(), n, j, spread=150.0)
+        ro, rd = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+        cull = torch.from_numpy(r.random(count) < 0.5).cuda()
+        p_rows, flags = mt_sweep.pad_tri_rows(table[first:first + count], cull)
+        got = mt_sweep.mt_sweep(ro, rd, p_rows, flags, count)
+        want = mt_sweep.mt_sweep_plain(ro, rd, p_rows, flags, count)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), ("public", count)
+        whole = bool(j % 2)
+        got = mt_sweep.sweep(ro, rd, lay, table, count, first=first, cull=whole)
+        want = mt_sweep.sweep_plain(ro, rd, table, count, first=first, cull=whole)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), ("range", count)
+        ids = torch.from_numpy(r.integers(0, table.shape[0], count).astype(np.int32)).cuda()
+        flags = [cull, torch.zeros_like(cull), torch.ones_like(cull)][j % 3].float()
+        got = mt_sweep.sweep(ro, rd, lay, table, count, ids=ids, cull_flags=flags)
+        want = mt_sweep.sweep_plain(ro, rd, table, count, ids=ids, cull_flags=flags)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), ("ids", count)
+        if n >= 65536 and count >= 256:
+            assert bool((got[1] >= 0).any()) and bool((got[1] < 0).any())
+
+
+def test_mt_sweep_raises_on_what_it_cannot_serve(cuda_scene):
+    table = _b3_table(1)
+    lay = mt_sweep.mt_layout(table)
+    ro = torch.zeros((4, 3), device="cuda")
+    with pytest.raises(ValueError, match="tri_mt"):
+        mt_sweep.sweep(ro, ro, lay[:, :9], table, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        mt_sweep.sweep(ro, ro, lay.view(-1)[1:1 + 12 * 100].view(100, 12),
+                       table[:100].contiguous(), 4)
+    with pytest.raises(ValueError, match="ids"):
+        mt_sweep.sweep(ro, ro, lay, table, 4, ids=torch.zeros(4, device="cuda"))
+    with pytest.raises(ValueError, match="outside"):
+        mt_sweep.sweep(ro, ro, lay, table, 4, first=table.shape[0] - 2)
+
+
+def _modular_frames_equal(scene, cam, cfg):
     before = mt_sweep.LAUNCHES
     sk, se = {}, {}
     kern = render_frame(scene, cam, cfg.replace(dense_engine="pallas"), stats=sk)
@@ -282,3 +404,25 @@ def test_modular_kernel_frame_equals_exact(cuda_scene):
     exact = render_frame(scene, cam, cfg.replace(dense_engine="exact"), stats=se)
     np.testing.assert_array_equal(kern, exact)
     assert sk["segments"] == se["segments"]
+
+
+def test_modular_kernel_frame_equals_exact(cuda_scene):
+    scene, cam = cuda_scene
+    _modular_frames_equal(scene, cam, CFG.replace(engine="modular", tile_size=32))
+
+
+def test_modular_kernel_frame_equals_exact_on_the_chain_scene(cuda_chain):
+    """The fused identity pass (id-list form) and two transformed
+    instances, Glassy and OneSided (range form), through kernel B3."""
+    scene, cam = cuda_chain
+    _modular_frames_equal(scene, cam, CFG.replace(engine="modular", tile_size=32,
+                                                  max_bounces=4))
+
+
+def test_modular_kernel_frame_equals_exact_with_shared_geometry(cuda_scene):
+    """One triangle range in two fused instances with different cull
+    policies (Solid and Glassy): B3's flags come per listed row, not per
+    triangle."""
+    scene, cam = shared_geometry_scene("cuda")
+    _modular_frames_equal(scene, cam, CFG.replace(engine="modular", tile_size=32,
+                                                  max_bounces=4))

@@ -4,13 +4,14 @@
   copy of the det rows 0-2 and u rows 0-5 of ``coeffs``, column by
   column, zero-padded (chain scene: three entries, padded columns).
 * ``u_pretest_drops``, the torch mirror of the kernel's pre-test
-  (csrc/dense_sweep.cuh), never drops a pair that the exact test
+  (csrc/sweep_common.cuh), never drops a pair that the exact test
   (f = 1 / det, u = f * u_num, 0 <= u <= 1, in f32) accepts: about 10^6
   random pairs and the adversarial ones (u_num = ±0, subnormal u_num,
   |u_num| = |det| (1 ± k ulp) for k <= 4, |det| at EPSILON and at 1e6,
   huge and infinite det, both signs). It does drop nearly every pair the
   exact test rejects, so the division it saves is real.
-* The kernel source carries the mirror's constants.
+* The kernel sources carry the mirror's constants (csrc/sweep_common.cuh,
+  which B2 and B3 include).
 
 The kernel itself is held bitwise against the plain sweep on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -170,10 +171,12 @@ def test_u_pretest_on_the_chain_scene_sweep(chain_table):
 
 
 def test_kernel_source_carries_the_mirrors_constants():
-    src = open(os.path.join(os.path.dirname(plucker_fused.__file__), "..",
-                            "csrc", "dense_sweep.cuh")).read()
-    margin = re.search(r"kUMargin = 1\.0f \+ 0x1p(-?\d+)f;", src).group(1)
-    tiny = re.search(r"kUTiny = 0x1p(-?\d+)f;", src).group(1)
+    csrc = os.path.join(os.path.dirname(plucker_fused.__file__), "..", "csrc")
+    common = open(os.path.join(csrc, "sweep_common.cuh")).read()
+    src = open(os.path.join(csrc, "dense_sweep.cuh")).read()
+    assert '#include "sweep_common.cuh"' in src
+    margin = re.search(r"kUMargin = 1\.0f \+ 0x1p(-?\d+)f;", common).group(1)
+    tiny = re.search(r"kUTiny = 0x1p(-?\d+)f;", common).group(1)
     assert plucker_fused.U_MARGIN == 1.0 + 2.0 ** int(margin)
     assert plucker_fused.U_TINY == 2.0 ** int(tiny)
     assert re.search(r"kSweepTile = (\d+);", src).group(1) == "256"

@@ -25,9 +25,10 @@
 //    with cp.async so the next tile loads while this one is swept; every
 //    thread reads a column with three broadcast shared loads instead of
 //    nine scalar loads from L1/L2;
-//  - a pre-test on u_num and det drops a pair whose exact u is certain
-//    to fail before the IEEE division (a multi-instruction sequence
-//    without fast math), so only the ~0.5% of pairs that may pass divide;
+//  - a pre-test on u_num and det (sweep_common.cuh, shared with kernel
+//    B3) drops a pair whose exact u is certain to fail before the IEEE
+//    division (a multi-instruction sequence without fast math), so only
+//    the ~0.5% of pairs that may pass divide;
 //  - the v and t rows, cull and orient are read from global memory by
 //    those survivors only;
 //  - the block compacts the rays of the entry it sweeps into its first
@@ -46,6 +47,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sweep_common.cuh"
 
 // The table; mirrored by plucker_fused._Dense (ctypes).
 struct DenseTable {
@@ -75,17 +78,7 @@ struct SweepSmem {
 
 namespace dense_detail {
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+using namespace sweep_common;
 
 // Every thread of the block copies its share of columns [c0, c0 + n)
 // into ``dst`` and commits the group (an empty one when n == 0).
@@ -93,40 +86,6 @@ __device__ __forceinline__ void stage(const DenseTable& tb, float4* dst, int c0,
   const float4* src = reinterpret_cast<const float4*>(tb.det_u) + 3 * (size_t)c0;
   for (int q = threadIdx.x; q < 3 * n; q += blockDim.x) cp_async16(dst + q, src + q);
   cp_async_commit();
-}
-
-// The u pre-test: true drops the pair before the division, only where
-// the exact u = RN(RN(1/det) * u_num) cannot pass 0 <= u <= 1. Here
-// |det| >= 1e-6 (the det test passed) and det is finite or infinite.
-// RN(1/det) is within 2^-22 of 1/det relatively, even where it is
-// subnormal (|det| <= FLT_MAX < 2^128 puts the worst case, an absolute
-// error of 2^-150, at relative 2^-22), and it is 0 only for det = ±inf.
-//  (a) |u_num| > RN(|det| * M), M = 1 + 2^-20. Then |u_num| >
-//      |det| M (1 - 2^-24) (the product is normal, or +inf and the test
-//      fails), so |f u_num| > M (1 - 2^-24)(1 - 2^-22) > 1 + 2^-21,
-//      which rounds to at least 1 + 2^-23: |u| > 1, so u > 1 or u < -1.
-//      An infinite det makes the right side infinite: never dropped.
-//  (b) u_num and det of opposite signs and |u_num| >= |det| * 2^-100
-//      (exact: |det| >= 2^-20, so the product is normal). For a finite
-//      det, |f u_num| >= 2^-100 (1 - 2^-22), far above 2^-150, the
-//      largest magnitude that rounds to zero: u is strictly negative,
-//      never -0 (which would pass u >= 0). For det = ±inf only
-//      |u_num| = inf qualifies, and then u = 0 * inf is NaN.
-// In the kernel both are two compares of us, u_num with det's sign bit
-// folded in (its sign bit is set exactly where the signs differ): (a)
-// is us > |det| M or us < -|det| M, (b) is us <= -(|det| 2^-100), which
-// contains the second half of (a). So the pair is kept exactly where
-// -(|det| 2^-100) < us <= |det| M; a NaN u_num fails both compares and
-// is dropped, rightly: its exact u is NaN and fails. Mirrored by
-// plucker_fused.u_pretest_drops, which a CPU test holds against the
-// exact test.
-constexpr float kUMargin = 1.0f + 0x1p-20f;
-constexpr float kUTiny = 0x1p-100f;
-
-__device__ __forceinline__ bool u_pretest_keeps(float det, float u_num) {
-  const float ad = fabsf(det);
-  const float us = __uint_as_float(__float_as_uint(u_num) ^ (__float_as_uint(det) & 0x80000000u));
-  return (us <= ad * kUMargin) & (us > -(ad * kUTiny));
 }
 
 // One thread's sweep of staged columns first, first + stride, ... < n

@@ -20,6 +20,9 @@ the Plücker form of render/plucker.py; "pallas", render/mt_sweep.py —
 kernel B3 for rays on the card, its plain version (the exact sweep) for
 rays on the CPU. Eager torch does not fuse the (rays, triangles)
 broadcast as XLA does, so the exact sweep works in chunks of pairs.
+The kernel reads the scene's own triangle layout, by range for one mesh
+or through the fused pass's id list (``fused_set``); both, and the
+per-mesh policy tables, are made once per scene and kept in its cache.
 
 Hits keep tpurt's (R, 3) row layout at this module's boundary; the
 arithmetic inside runs on V3 component triples in the same association
@@ -169,27 +172,11 @@ def _empty_best(ro: V3) -> LocalBest:
                      tri=torch.full((r,), -1, dtype=torch.int64, device=dev))
 
 
-def _pallas_sweep_ids(scene: Scene, ro: V3, rd: V3, ids: torch.Tensor,
-                      cull: torch.Tensor, best: LocalBest) -> LocalBest:
-    """The mt_sweep wrapper (kernel B3 on the card, its plain version on
-    the CPU) over global triangle ids, folded into ``best`` with the
-    exact sweep's first-minimum semantics."""
-    from tpurt_torch.render import mt_sweep
-
-    rows, flags = mt_sweep.pad_tri_rows(scene.tri_packed[ids], cull)
-    t, j = mt_sweep.mt_sweep(v3lib.to_rows(ro), v3lib.to_rows(rd), rows,
-                             flags, ids.shape[0])
-    tri = torch.where(j >= 0, ids[torch.clamp_min(j, 0).long()], -1)
-    return _fold(best, t, tri)
-
-
 def _sweep_ids(scene: Scene, ro: V3, rd: V3, ids: torch.Tensor,
                cull: torch.Tensor, dense_engine: str) -> LocalBest:
     """Closest hit over triangles ``ids`` (ascending) with per-triangle
     cull flags, by ``dense_engine``."""
     best = _empty_best(ro)
-    if dense_engine == "pallas":
-        return _pallas_sweep_ids(scene, ro, rd, ids, cull, best)
     if dense_engine == "plucker":
         from tpurt_torch.render.plucker import build_plucker_table, plucker_sweep
 
@@ -206,19 +193,34 @@ def _sweep_ids(scene: Scene, ro: V3, rd: V3, ids: torch.Tensor,
 
 def _bruteforce_range(scene: Scene, ro: V3, rd: V3, first: int, count: int,
                       cull: bool, dense_engine: str = "exact") -> LocalBest:
+    """Brute force over one mesh's triangles ``first`` .. ``first + count
+    - 1`` with one cull policy — a transformed or OneSided mesh's pass."""
+    if dense_engine == "pallas":
+        from tpurt_torch.render import mt_sweep
+
+        t, j = mt_sweep.sweep(v3lib.to_rows(ro), v3lib.to_rows(rd),
+                              mt_sweep.scene_layout(scene), scene.tri_packed,
+                              count, first=first, cull=cull)
+        return LocalBest(t=t, tri=torch.where(j >= 0, j.long() + first, -1))
     ids = torch.arange(first, first + count, device=ro.x.device)
     flags = torch.full((count,), bool(cull), device=ro.x.device)
     return _sweep_ids(scene, ro, rd, ids, flags, dense_engine)
 
 
-def _bruteforce_indices(scene: Scene, ro: V3, rd: V3, tri_idx: np.ndarray,
-                        cull_flags: np.ndarray, dense_engine: str = "exact"
-                        ) -> LocalBest:
-    """Brute force over a static triangle index list with per-triangle
-    cull flags — the fused static-mesh pass."""
-    dev = ro.x.device
-    return _sweep_ids(scene, ro, rd, torch.as_tensor(tri_idx, device=dev),
-                      torch.as_tensor(cull_flags, device=dev), dense_engine)
+def _bruteforce_fused(scene: Scene, ro: V3, rd: V3, fused: FusedSet,
+                      dense_engine: str = "exact") -> LocalBest:
+    """Brute force over the fused static meshes' triangles, each with its
+    owner's cull policy — the fused identity pass."""
+    if dense_engine == "pallas":
+        from tpurt_torch.render import mt_sweep
+
+        t, j = mt_sweep.sweep(v3lib.to_rows(ro), v3lib.to_rows(rd),
+                              mt_sweep.scene_layout(scene), scene.tri_packed,
+                              fused.ids.shape[0], ids=fused.ids32,
+                              cull_flags=fused.cull_f32)
+        return LocalBest(t=t, tri=torch.where(
+            j >= 0, fused.ids[torch.clamp_min(j, 0).long()], -1))
+    return _sweep_ids(scene, ro, rd, fused.ids, fused.cull, dense_engine)
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +317,71 @@ def _cull_policy(mt: int) -> bool:
                       int(MaterialType.ONE_SIDED))
 
 
-def _mesh_cull(scene: Scene, mesh: torch.Tensor) -> torch.Tensor:
-    """Per-lane cull policy of mesh ids (a table lookup)."""
-    table = torch.tensor([_cull_policy(int(m)) for m in scene.mesh_mat_types],
-                         dtype=torch.bool, device=mesh.device)
-    return table[mesh.long()]
+class FusedSet(NamedTuple):
+    """The triangles of the fused identity pass on the scene's device,
+    mesh by mesh, made once per scene and threshold (``fused_set``)."""
+
+    ids: torch.Tensor  # (N,) int64 global triangle ids
+    ids32: torch.Tensor  # (N,) int32, kernel B3's id list
+    owner: torch.Tensor  # (N,) int64 owning mesh
+    cull: torch.Tensor  # (N,) bool, the owner's cull policy
+    cull_f32: torch.Tensor  # (N,) f32 0/1, kernel B3's flags
+    sorted_ids: torch.Tensor  # (N,) int64 ids ascending (a stable sort)
+    order: torch.Tensor  # (N,) int64 their positions in ``ids``
+
+
+def _partition(scene: Scene, bruteforce_threshold: int):
+    """(fused mesh ids, separate mesh ids): identity-transform small
+    meshes sweep together in world space; OneSided meshes keep per-mesh
+    closest-hit semantics (their backface rejection follows the mesh's
+    own query, Trace.cl:466-471)."""
+    fused, separate = [], []
+    for i, (_first, count) in enumerate(scene.mesh_tri_ranges):
+        if (scene.mesh_identity[i] and count <= bruteforce_threshold
+                and scene.mesh_mat_types[i] != int(MaterialType.ONE_SIDED)):
+            fused.append(i)
+        else:
+            separate.append(i)
+    return fused, separate
+
+
+def fused_set(scene: Scene, bruteforce_threshold: int):
+    """The fused identity pass's ``FusedSet`` (None when it has no
+    triangles), made on first use and kept in the scene's cache."""
+    key = ("fused_set", bruteforce_threshold)
+    if key not in scene.cache:
+        fused, _separate = _partition(scene, bruteforce_threshold)
+        ranges = [scene.mesh_tri_ranges[i] for i in fused]
+        n = sum(c for _f, c in ranges)
+        fs = None
+        if n:
+            ids = np.concatenate([np.arange(f, f + c) for f, c in ranges])
+            owner = np.concatenate([np.full(c, i, np.int64)
+                                    for i, (_f, c) in zip(fused, ranges)])
+            cull = np.array([_cull_policy(scene.mesh_mat_types[i]) for i in owner],
+                            bool)
+            order = np.argsort(ids, kind="stable")
+            dev = scene.device
+            t = lambda a, dtype: torch.as_tensor(a, dtype=dtype, device=dev)
+            fs = FusedSet(ids=t(ids, torch.int64), ids32=t(ids, torch.int32),
+                          owner=t(owner, torch.int64), cull=t(cull, torch.bool),
+                          cull_f32=t(cull, _F32),
+                          sorted_ids=t(ids[order], torch.int64),
+                          order=t(order, torch.int64))
+        scene.cache[key] = fs
+    return scene.cache[key]
+
+
+def _mesh_tables(scene: Scene):
+    """(cull policy, OneSided) per mesh, (K,) bool on the scene's device,
+    made on first use and kept in the scene's cache."""
+    if "mesh_tables" not in scene.cache:
+        mts = [int(m) for m in scene.mesh_mat_types]
+        scene.cache["mesh_tables"] = tuple(
+            torch.tensor(v, dtype=torch.bool, device=scene.device) for v in (
+                [_cull_policy(m) for m in mts],
+                [m == int(MaterialType.ONE_SIDED) for m in mts]))
+    return scene.cache["mesh_tables"]
 
 
 def intersect_scene(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -337,25 +399,10 @@ def intersect_scene(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         mesh_idx=torch.full((r,), -1, dtype=torch.int32, device=dev),
     )
     o, d = v3lib.from_rows(ro), v3lib.from_rows(rd)
-    # Identity-transform small meshes sweep together in world space;
-    # OneSided meshes keep per-mesh closest-hit semantics (their backface
-    # rejection follows the mesh's own query, Trace.cl:466-471).
-    fused, separate = [], []
-    for i, (_first, count) in enumerate(scene.mesh_tri_ranges):
-        if (scene.mesh_identity[i] and count <= bruteforce_threshold
-                and scene.mesh_mat_types[i] != int(MaterialType.ONE_SIDED)):
-            fused.append(i)
-        else:
-            separate.append(i)
-    if fused:
-        ranges = [scene.mesh_tri_ranges[i] for i in fused]
-        tri_idx = np.concatenate([np.arange(f, f + n) for f, n in ranges])
-        owner = np.concatenate([np.full(n, i, np.int64)
-                                for i, (_f, n) in zip(fused, ranges)])
-        if len(tri_idx):
-            best = _fused_identity_pass(scene, o, d, tri_idx, owner, best,
-                                        dense_engine)
-    for i in separate:
+    fs = fused_set(scene, bruteforce_threshold)
+    if fs is not None:
+        best = _fused_identity_pass(scene, o, d, fs, best, dense_engine)
+    for i in _partition(scene, bruteforce_threshold)[1]:
         best = _transformed_mesh_pass(scene, o, d, i, bruteforce_threshold,
                                       best, dense_engine)
     return best
@@ -380,37 +427,23 @@ def _closer(best: Hit, closer, dst, point: V3, normal: V3, backface, mesh):
     )
 
 
-def _fused_identity_pass(scene: Scene, ro: V3, rd: V3, tri_idx: np.ndarray,
-                         owner: np.ndarray, best: Hit,
-                         dense_engine: str = "exact") -> Hit:
-    dev = ro.x.device
-    cull_flags = np.array([_cull_policy(scene.mesh_mat_types[i]) for i in owner],
-                          bool)
+def _fused_identity_pass(scene: Scene, ro: V3, rd: V3, fs: FusedSet,
+                         best: Hit, dense_engine: str = "exact") -> Hit:
     # WorldToLocalRay with an identity transform still renormalises the
     # direction (Trace.cl:130); kept so distances match exactly.
     ld = v3lib.normalize(rd)
-    lb = _bruteforce_indices(scene, ro, ld, tri_idx, cull_flags, dense_engine)
-    owner_t = torch.as_tensor(owner, device=dev)
-    win_owner = torch.where(lb.tri >= 0,
-                            owner_t[_searchsorted_map(tri_idx, lb.tri)], 0)
-    valid, point, n, backface = _finalize_local(
-        scene, ro, ld, lb, _mesh_cull(scene, win_owner))
-    one_sided = torch.tensor(
-        [m == int(MaterialType.ONE_SIDED) for m in scene.mesh_mat_types],
-        dtype=torch.bool, device=dev)[win_owner]
-    valid &= ~(one_sided & backface)  # Trace.cl:468-471
+    lb = _bruteforce_fused(scene, ro, ld, fs, dense_engine)
+    # A winning global triangle id -> its row in the fused list -> owner.
+    pos = torch.searchsorted(fs.sorted_ids, torch.clamp_min(lb.tri, 0))
+    pos = torch.clamp(pos, 0, fs.ids.shape[0] - 1)
+    win_owner = torch.where(lb.tri >= 0, fs.owner[fs.order[pos]], 0)
+    mesh_cull, mesh_one_sided = _mesh_tables(scene)
+    valid, point, n, backface = _finalize_local(scene, ro, ld, lb,
+                                                mesh_cull[win_owner])
+    valid &= ~(mesh_one_sided[win_owner] & backface)  # Trace.cl:468-471
     dst = v3lib.length(point - ro)
     return _closer(best, valid & (dst < best.dst), dst, point,
                    v3lib.normalize(n), backface, win_owner)
-
-
-def _searchsorted_map(tri_idx: np.ndarray, tri: torch.Tensor) -> torch.Tensor:
-    """A winning global triangle id -> its row in the fused index list."""
-    order = np.argsort(tri_idx, kind="stable")
-    sorted_idx = torch.as_tensor(tri_idx[order], device=tri.device)
-    pos = torch.searchsorted(sorted_idx, torch.clamp_min(tri, 0))
-    pos = torch.clamp(pos, 0, len(tri_idx) - 1)
-    return torch.as_tensor(order, device=tri.device)[pos]
 
 
 def _rotate(m, v: V3) -> V3:

@@ -56,7 +56,7 @@ SWEEP_PAIRS = 1 << 24
 #: Floats per column of the kernel-facing ``det_u`` array: det rows 0-2,
 #: u rows 0-5, then zeros to three 16-byte vectors.
 DET_U_WIDTH = 12
-#: The kernel's u pre-test constants (csrc/dense_sweep.cuh, where the
+#: The kernels' u pre-test constants (csrc/sweep_common.cuh, where the
 #: argument for them is written out): 1 + 2^-20 and 2^-100.
 U_MARGIN = 1.0 + 2.0 ** -20
 U_TINY = 2.0 ** -100
@@ -138,11 +138,12 @@ def det_u_columns(coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def u_pretest_drops(det: torch.Tensor, u_num: torch.Tensor) -> torch.Tensor:
-    """The kernel's u pre-test (dense_sweep.cuh u_pretest_keeps, negated,
-    in the kernel's form): True where a pair with |det| >= EPSILON is
-    dropped before the division, because its exact u = (1 / det) * u_num
-    cannot pass 0 <= u <= 1. ``us`` is u_num with det's sign bit folded
-    in; the pair is kept where -(|det| U_TINY) < us <= |det| U_MARGIN."""
+    """The kernels' u pre-test (sweep_common.cuh u_pretest_keeps, shared by
+    B2 and B3, negated, in the kernel's form): True where a pair with
+    |det| >= EPSILON is dropped before the division, because its exact
+    u = (1 / det) * u_num cannot pass 0 <= u <= 1. ``us`` is u_num with
+    det's sign bit folded in; the pair is kept where -(|det| U_TINY) <
+    us <= |det| U_MARGIN."""
     ad = det.abs()
     sign = det.view(torch.int32) & torch.tensor(-(2 ** 31), dtype=torch.int32)
     us = (u_num.view(torch.int32) ^ sign).view(_F32)

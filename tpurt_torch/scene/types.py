@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -129,6 +130,14 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.mega_rows.device
+
+    @functools.cached_property
+    def cache(self) -> dict:
+        """Arrays derived from this scene's fields on first use and kept
+        with it (kernel B3's triangle layout, the modular engine's index
+        lists). Not a field: ``to`` and ``dataclasses.replace`` give a
+        scene that starts with an empty cache."""
+        return {}
 
     def to(self, device) -> "Scene":
         """The same scene with every tensor on ``device``."""
