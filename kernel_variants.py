@@ -147,30 +147,19 @@ def swapped(name: str, lib):
 
 def b3_workloads():
     """B3's workloads: the sphere's rows against the parity frame's
-    camera rays, all of them and one tile's (chip_smoke.py phase 9)."""
-    import torch
-
-    from tpurt_torch.core import v3 as v3lib
-    from tpurt_torch.core.camera import make_ray, pixel_uv
+    camera rays, all of them and the first tile's as the engine launches
+    them (chip_smoke.py phase 9), culling backfaces in both."""
     from tpurt_torch.render import mt_sweep
-    from tpurt_torch.render.intersect import local_rays
     from tpurt_torch.scene.presets import bench_scene
 
     cfg = cs.parity_cfg()
     scene, cam = bench_scene("sphere", cfg, device="cuda")
-    mesh = scene.num_meshes - 1
-    first, count = scene.mesh_tri_ranges[mesh]
-    pix = torch.arange(cfg.width * cfg.height, device="cuda")
-    ro, rd = make_ray(cam, pixel_uv(pix % cfg.width, pix // cfg.width,
-                                    cfg.width, cfg.height))
-    lo, ld = local_rays(scene, mesh, v3lib.from_rows(ro), v3lib.from_rows(rd))
-    lo, ld = v3lib.to_rows(lo).contiguous(), v3lib.to_rows(ld).contiguous()
-    tile = next(ln for ln in cs.parity_b3_launches(scene, cam, cfg)
-                if ln["what"] == f"mesh {mesh}")
+    lo, ld, first, count = cs.b3_alone_rays(scene, cam, cfg)
+    tile = next(ln for ln in cs.record_b3_launches(scene, cam, cfg)
+                if ln["ids"] is None and ln["first"] == first)
     out = []
     for name, ln in (("B3-alone", dict(ro=lo, rd=ld)), ("B3-tile", tile)):
-        ln = dict(ln, first=first, count=count, ids=None,
-                  cull=torch.ones(count, dtype=torch.bool, device="cuda"))
+        ln = dict(ln, first=first, count=count, ids=None, cull_flags=None, cull=True)
 
         def info(n=ln["ro"].shape[0]):
             c = mt_sweep.launch_config(n)

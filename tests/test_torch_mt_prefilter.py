@@ -86,14 +86,14 @@ def test_fused_set_flags_follow_each_owner(chain):
     want_ids = np.concatenate([np.arange(f, f + n) for f, n in
                                (chain.mesh_tri_ranges[i] for i in fused)])
     np.testing.assert_array_equal(fs.ids.numpy(), want_ids)
-    assert fs.ids32.dtype == torch.int32 and torch.equal(fs.ids32.long(), fs.ids)
+    assert fs.ids.dtype == torch.int32 and fs.cull.dtype == torch.float32
     for i in fused:
         first, n = chain.mesh_tri_ranges[i]
         rows = (fs.ids >= first) & (fs.ids < first + n)
         assert bool((fs.owner[rows] == i).all())
-        assert bool((fs.cull[rows] == _cull_policy(chain.mesh_mat_types[i])).all())
-    assert torch.equal(fs.cull_f32, fs.cull.float())
-    assert torch.equal(fs.sorted_ids, fs.ids[fs.order])
+        assert bool((fs.cull[rows] == float(_cull_policy(chain.mesh_mat_types[i]))).all())
+    # Each position's first listing of its id (distinct ids: itself).
+    assert torch.equal(fs.first, torch.arange(fs.ids.shape[0]))
     # Kept per scene and threshold; none when no mesh is fused.
     assert fused_set(chain, 4096) is fs
     assert fused_set(chain, 0) is None
@@ -108,6 +108,9 @@ def test_shared_geometry_gives_one_triangle_two_flags():
     assert torch.equal(fs.ids[solid], fs.ids[glassy])
     assert bool(fs.cull[solid].all()) and not bool(fs.cull[glassy].any())
     assert int(solid.sum()) == n and bool((fs.ids[solid] == first + torch.arange(n)).all())
+    # A win on either copy maps to the first listing, as tpurt's id map does.
+    assert torch.equal(fs.first[glassy], torch.nonzero(solid)[:, 0])
+    assert torch.equal(fs.first[solid], torch.nonzero(solid)[:, 0])
 
 
 def _mt_terms(o, d, pa, pb, pc):

@@ -159,12 +159,6 @@ def exact_sweep(ro: V3, rd: V3, rows: torch.Tensor, cull: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _fold(best: LocalBest, t: torch.Tensor, tri: torch.Tensor) -> LocalBest:
-    closer = (tri >= 0) & (t < best.t)
-    return LocalBest(t=torch.where(closer, t, best.t),
-                     tri=torch.where(closer, tri, best.tri))
-
-
 def _empty_best(ro: V3) -> LocalBest:
     r = ro.x.shape[0]
     dev = ro.x.device
@@ -174,21 +168,23 @@ def _empty_best(ro: V3) -> LocalBest:
 
 def _sweep_ids(scene: Scene, ro: V3, rd: V3, ids: torch.Tensor,
                cull: torch.Tensor, dense_engine: str) -> LocalBest:
-    """Closest hit over triangles ``ids`` (ascending) with per-triangle
-    cull flags, by ``dense_engine``."""
-    best = _empty_best(ro)
+    """Closest hit over triangles ``ids`` with per-row cull flags (a row
+    culls where its flag is nonzero), by ``dense_engine``; ``tri`` is the
+    winning position in ``ids``."""
+    cull = cull != 0
     if dense_engine == "plucker":
         from tpurt_torch.render.plucker import build_plucker_table, plucker_sweep
 
+        best = _empty_best(ro)
         table = build_plucker_table(
             scene.tri_pos_a[ids], scene.tri_pos_b[ids], scene.tri_pos_c[ids],
-            cull=cull, tri_id=ids, na=scene.tri_nrm_a[ids],
-            nb=scene.tri_nrm_b[ids], nc=scene.tri_nrm_c[ids])
-        t, tri = plucker_sweep(v3lib.to_rows(ro), v3lib.to_rows(rd), table,
+            cull=cull, tri_id=torch.arange(ids.shape[0], device=ids.device),
+            na=scene.tri_nrm_a[ids], nb=scene.tri_nrm_b[ids], nc=scene.tri_nrm_c[ids])
+        t, pos = plucker_sweep(v3lib.to_rows(ro), v3lib.to_rows(rd), table,
                                best.t, best.tri)
-        return LocalBest(t=t, tri=tri)
+        return LocalBest(t=t, tri=pos)
     t, col = exact_sweep(ro, rd, scene.tri_packed[ids], cull)
-    return _fold(best, t, torch.where(col >= 0, ids[torch.clamp_min(col, 0)], -1))
+    return LocalBest(t=t, tri=col)
 
 
 def _bruteforce_range(scene: Scene, ro: V3, rd: V3, first: int, count: int,
@@ -204,22 +200,23 @@ def _bruteforce_range(scene: Scene, ro: V3, rd: V3, first: int, count: int,
         return LocalBest(t=t, tri=torch.where(j >= 0, j.long() + first, -1))
     ids = torch.arange(first, first + count, device=ro.x.device)
     flags = torch.full((count,), bool(cull), device=ro.x.device)
-    return _sweep_ids(scene, ro, rd, ids, flags, dense_engine)
+    lb = _sweep_ids(scene, ro, rd, ids, flags, dense_engine)
+    return lb._replace(tri=torch.where(lb.tri >= 0, lb.tri + first, -1))
 
 
 def _bruteforce_fused(scene: Scene, ro: V3, rd: V3, fused: FusedSet,
                       dense_engine: str = "exact") -> LocalBest:
     """Brute force over the fused static meshes' triangles, each with its
-    owner's cull policy — the fused identity pass."""
+    owner's cull policy — the fused identity pass; ``tri`` is the
+    winning position in ``fused.ids``."""
     if dense_engine == "pallas":
         from tpurt_torch.render import mt_sweep
 
         t, j = mt_sweep.sweep(v3lib.to_rows(ro), v3lib.to_rows(rd),
                               mt_sweep.scene_layout(scene), scene.tri_packed,
-                              fused.ids.shape[0], ids=fused.ids32,
-                              cull_flags=fused.cull_f32)
-        return LocalBest(t=t, tri=torch.where(
-            j >= 0, fused.ids[torch.clamp_min(j, 0).long()], -1))
+                              fused.ids.shape[0], ids=fused.ids,
+                              cull_flags=fused.cull)
+        return LocalBest(t=t, tri=j.long())
     return _sweep_ids(scene, ro, rd, fused.ids, fused.cull, dense_engine)
 
 
@@ -321,13 +318,10 @@ class FusedSet(NamedTuple):
     """The triangles of the fused identity pass on the scene's device,
     mesh by mesh, made once per scene and threshold (``fused_set``)."""
 
-    ids: torch.Tensor  # (N,) int64 global triangle ids
-    ids32: torch.Tensor  # (N,) int32, kernel B3's id list
+    ids: torch.Tensor  # (N,) int32 global triangle ids, kernel B3's id list
     owner: torch.Tensor  # (N,) int64 owning mesh
-    cull: torch.Tensor  # (N,) bool, the owner's cull policy
-    cull_f32: torch.Tensor  # (N,) f32 0/1, kernel B3's flags
-    sorted_ids: torch.Tensor  # (N,) int64 ids ascending (a stable sort)
-    order: torch.Tensor  # (N,) int64 their positions in ``ids``
+    cull: torch.Tensor  # (N,) f32 1 where the owner culls backfaces, B3's flags
+    first: torch.Tensor  # (N,) int64 the first position listing the same id
 
 
 def _partition(scene: Scene, bruteforce_threshold: int):
@@ -358,16 +352,13 @@ def fused_set(scene: Scene, bruteforce_threshold: int):
             ids = np.concatenate([np.arange(f, f + c) for f, c in ranges])
             owner = np.concatenate([np.full(c, i, np.int64)
                                     for i, (_f, c) in zip(fused, ranges)])
-            cull = np.array([_cull_policy(scene.mesh_mat_types[i]) for i in owner],
-                            bool)
-            order = np.argsort(ids, kind="stable")
+            cull = np.array([_cull_policy(scene.mesh_mat_types[i]) for i in owner])
+            uniq, first = np.unique(ids, return_index=True)
             dev = scene.device
             t = lambda a, dtype: torch.as_tensor(a, dtype=dtype, device=dev)
-            fs = FusedSet(ids=t(ids, torch.int64), ids32=t(ids, torch.int32),
-                          owner=t(owner, torch.int64), cull=t(cull, torch.bool),
-                          cull_f32=t(cull, _F32),
-                          sorted_ids=t(ids[order], torch.int64),
-                          order=t(order, torch.int64))
+            fs = FusedSet(ids=t(ids, torch.int32), owner=t(owner, torch.int64),
+                          cull=t(cull, _F32),
+                          first=t(first[np.searchsorted(uniq, ids)], torch.int64))
         scene.cache[key] = fs
     return scene.cache[key]
 
@@ -433,10 +424,13 @@ def _fused_identity_pass(scene: Scene, ro: V3, rd: V3, fs: FusedSet,
     # direction (Trace.cl:130); kept so distances match exactly.
     ld = v3lib.normalize(rd)
     lb = _bruteforce_fused(scene, ro, ld, fs, dense_engine)
-    # A winning global triangle id -> its row in the fused list -> owner.
-    pos = torch.searchsorted(fs.sorted_ids, torch.clamp_min(lb.tri, 0))
-    pos = torch.clamp(pos, 0, fs.ids.shape[0] - 1)
-    win_owner = torch.where(lb.tri >= 0, fs.owner[fs.order[pos]], 0)
+    # The winner's owner is that of the first position listing its id, as
+    # tpurt maps a winning id back to the list (instances may share one
+    # triangle range).
+    hit = lb.tri >= 0
+    k = torch.clamp_min(lb.tri, 0)
+    win_owner = torch.where(hit, fs.owner[fs.first[k]], 0)
+    lb = lb._replace(tri=torch.where(hit, fs.ids[k].long(), -1))
     mesh_cull, mesh_one_sided = _mesh_tables(scene)
     valid, point, n, backface = _finalize_local(scene, ro, ld, lb,
                                                 mesh_cull[win_owner])
