@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # from the repository root, one card
     python3 chip_smoke.py --b3-public    # B3's parity launches and frames only
+    python3 chip_smoke.py --b1-public    # B1's headline batch only
 
 Phases (each raises on failure, so any failure exits nonzero):
 
@@ -13,8 +14,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    megakernel against its plain torch version on the card: lane state
    after 1, 4 and 16 trips (integer fields equal on >= 99.5% of lanes),
    the whole frame (<= 0.5% of pixels differ), segments within 0.5%.
-4. B1, the same on the 69,120-triangle bunny at 480x270, 8 spp,
-   4 bounces, P=8, tail 5.
+4. B1, the same on the 69,120-triangle bunny at 480x270, 4 bounces,
+   P=8, tail 5, and 2 spp (the headline's 8 cut to 2: at 8 spp its plain
+   frame took ~235 s on an H100).
 5. B1's path at full size, bunny-1080p-plain: 16 trips of the 262,144-
    lane batch through kernel and plain version (compared, timed), the
    kernel to completion (its persistent launch: resident blocks, lanes
@@ -50,9 +52,30 @@ Phases (each raises on failure, so any failure exits nonzero):
    engine="modular", dense_engine="pallas" (B3 launches counted), held
    against the megakernel's frame (<= 0.5% of pixels) and against
    dense_engine="exact" (identical), 3 frames timed.
+11. B1's TLAS instantiation, small: tpurt's K = 12 instance grid
+   (tests/test_many_meshes.py) at 160x90, 2 spp, 3 bounces, P=2, tail 2,
+   against the plain version as in phase 3; then its frame against the
+   same geometry frozen as an unrolled chain (MEGA_TLAS_THRESHOLD
+   raised) and against engine="modular", with the pixels that differ
+   counted (0 expected).
+12. B1's TLAS path at full size, grid-64-720p-tlas (probe r74's 230k-lane
+   leg, scripts/probe_r74.py): 64 icosphere(1) instances on the grid in
+   the Cornell box, 1280x720, 4 spp, 4 bounces, P=4, tail 3, one launch
+   of 230,400 lanes: as phase 5 (16 trips through both backends, the
+   kernel to completion with instance enters and exits in its counted
+   bound, ``render_image`` with its launches counted, 3 frames timed).
+13. B1's bf16 instantiation (MEGA_BF16_BOUNDS): the bunny at phase 4's
+   knobs (2 spp) and the K = 12 grid against the plain version as in phase 3,
+   each bf16 frame against the u8 frame (equal segments, pixels that
+   differ counted), and the bunny-1080p batch's 16 trips in u8 and bf16
+   in turns.
 
 Each path's launch counts are set to 0 just before its counted
-``render_image`` and read just after. ``--b3-public`` builds B3 alone
+``render_image`` and read just after. ``--b1-public`` builds B1 alone
+and times the bunny-1080p batch through ``mega_cuda.launch`` on the
+device (16 trips, then to completion), calls every version of the port
+has, so the same script times an earlier tree's headline kernel.
+``--b3-public`` builds B3 alone
 and times it through the public entry ``mt_sweep.mt_sweep`` on phase
 9's full-width rays and on the parity frame's launches (rebuilt from
 calls every version of the port has), then the parity scene's modular
@@ -86,6 +109,19 @@ SPIN_CYCLES = 2_000_000  # device_ms's spin, ~1 ms: longer than a wrapper's host
 #: the node's grid (6 mul, 6 add), the slab test (6 sub, 6 mul, 6
 #: NaN-guarded min/max at 3 each, 4 min/max, a max and 2 compares).
 BOX_OPS = 55
+#: The same test on a bf16 node row: the bounds are bits (shift and
+#: mask), so only the slab test's 37 operations remain.
+BOX_OPS_BF16 = 37
+#: An instance enter: origin - pos (3 sub), two rotations (9 mul, 6 add
+#: each), 6 divisions by the scale, the normalisation (3 mul, 2 add, a
+#: square root, a reciprocal, 3 mul), 3 reciprocals, the pretest's limit
+#: (a division, a multiply) and slab test (37), the scale test.
+INST_ENTER_OPS = 92
+#: An instance exit: the world ray recomputed as the chain enter does it
+#: (3 sub, 30 for the two rotations, 6 divisions, 10 to normalise, 3
+#: reciprocals). The fold of a hit, which not every exit makes, is not
+#: counted.
+INST_EXIT_OPS = 52
 #: One triangle of a leaf row up to its det test: e1, e2 (6 sub),
 #: h = ld x e2 (6 mul, 3 sub), det (3 mul, 2 add), a compare.
 MT_DET_OPS = 21
@@ -296,8 +332,13 @@ def parity_cfg():
                         dense_engine="pallas")
 
 
+def small_bunny_cfg():
+    """Phases 4 and 13: the bunny's knobs at 480x270 and 2 spp."""
+    return bunny_cfg(480, 270).replace(rays_per_pixel=2)
+
+
 def phase4():
-    cfg = bunny_cfg(480, 270)
+    cfg = small_bunny_cfg()
     t0 = time.time()
     scene, cam = bunny_scene(cfg)
     log(f"bunny scene: {scene.num_triangles} triangles, bank "
@@ -351,7 +392,8 @@ def time_trips(scene, cam, cfg, k: int, label: str):
         buf = buf0.clone()
         (trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
         full.extend(ms)
-    launch = mega_cuda.launch_config(ctx.dense is not None)
+    launch = mega_cuda.launch_config(ctx.dense is not None, tlas=ctx.tlas,
+                                     bf16=ctx.bf16)
     blocks = min(launch["blocks_per_sm"] * launch["sms"],
                  -(-r // launch["threads"]))
     log(f"{label} persistent launch: {blocks} blocks x {launch['threads']} "
@@ -423,15 +465,19 @@ def megakernel_bound(scene, tt, work, label: str):
 
     ctx = tt["ctx"]
     words = len(mega_cuda.LANE_WORDS) + ctx.s_depth + (
-        3 * ctx.p_count if ctx.p_count > 1 else 0)
+        3 * ctx.p_count if ctx.p_count > 1 else 0) + (
+        len(mega_cuda.TLAS_WORDS) if ctx.tlas else 0)
     nbytes = scene.mega_rows.numel() * 4 + 2 * words * 4 * tt["lanes"]
-    boxes, leaves, segs = work
-    ops = (boxes * BOX_OPS + leaves * ctx.leaf_tris * MT_DET_OPS
-           + segs * SHADE_OPS)
+    boxes, leaves, segs, enters, exits = (list(work) + [0, 0])[:5]
+    box_ops = BOX_OPS_BF16 if ctx.bf16 else BOX_OPS
+    ops = (boxes * box_ops + leaves * ctx.leaf_tris * MT_DET_OPS
+           + segs * SHADE_OPS + enters * INST_ENTER_OPS + exits * INST_EXIT_OPS)
     b_ms, b_by = bound(ops, nbytes)
     log(f"B1 bound, {label}: {b_ms:.3f} ms ({b_by}): {boxes} box tests x "
-        f"{BOX_OPS} + {leaves} leaf rows x {ctx.leaf_tris} x {MT_DET_OPS} + "
-        f"{segs} segments x {SHADE_OPS} = {ops:.4g} ops, {nbytes} bytes")
+        f"{box_ops} + {leaves} leaf rows x {ctx.leaf_tris} x {MT_DET_OPS} + "
+        f"{segs} segments x {SHADE_OPS} + {enters} instance enters x "
+        f"{INST_ENTER_OPS} + {exits} exits x {INST_EXIT_OPS} = {ops:.4g} ops, "
+        f"{nbytes} bytes")
     return b_ms, b_by
 
 
@@ -567,7 +613,7 @@ def phase7(b2):
     # every column) at the primary sweep's operations per pair, plus the
     # shading tails.
     cols = tt["ctx"].dense.count
-    _boxes, sweeps, segs = tt["work"]
+    _boxes, sweeps, segs = tt["work"][:3]
     f_ms, f_by = bound(sweeps * cols * b2["ops_per_pair"] + segs * SHADE_OPS, 0)
     log(f"teapot-720p-bruteforce: dense kernel to completion {tt['full_ms']:.3f} "
         f"ms against its bound {f_ms:.3f} ms ({f_by}: {sweeps} sweeps x {cols} "
@@ -795,6 +841,59 @@ def time_b3_public(scene, launches, what: str, reps: int = 5) -> float:
     return total
 
 
+def sass_summary(lib: str) -> dict:
+    """{kernel entry: (instructions, sha1 of its opcode sequence)} of a
+    built library, from ``cuobjdump -sass``: two builds whose opcode
+    sequences hash alike run the same instructions, whatever registers
+    and parameter offsets they use."""
+    import hashlib
+    import re
+
+    from tpurt_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    ops, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            ops[fn] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and m:
+            ops[fn].append(m.group(1))
+    return {f: (len(o), hashlib.sha1(" ".join(o).encode()).hexdigest()[:12])
+            for f, o in ops.items()}
+
+
+def b1_public_main():
+    """``--b1-public``: the bunny-1080p batch through B1's public entry,
+    16 trips and to completion, best of 5 and of 3 on the device; the
+    SASS of each megakernel instantiation (``sass_summary``)."""
+    from tpurt_torch import _build
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render.renderer import flat_batch_args
+
+    _build.build_all(["megakernel", "tpurt_native"])
+    for fn, (n, digest) in sass_summary(_build.lib_path("megakernel")).items():
+        log(f"B1 SASS {fn}: {n} instructions, opcode sequence {digest}")
+    cfg = bunny_cfg(1920, 1080)
+    scene, cam = bunny_scene(cfg)
+    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    buf0 = mega_cuda.pack(lane)
+    for trips, reps in ((16, 5), (None, 3)):
+        mega_cuda.launch(buf0.clone(), ctx, trips)  # warm-up
+        bufs = [buf0.clone() for _ in range(reps)]
+        it = iter(bufs)
+        _out, ms = device_ms(lambda: mega_cuda.launch(next(it), ctx, trips), reps)
+        log(f"B1 public entry, bunny-1080p batch, "
+            f"{'16 trips' if trips else 'to completion'}: device ms "
+            f"{[round(t, 3) for t in ms]} (best {min(ms):.3f}) | {CARD}")
+
+
 def b3_public_main():
     """``--b3-public``: build B3 alone, time it through the public entry
     on the parity frame's rays in the sphere's space (as phase 9 does by
@@ -993,6 +1092,153 @@ def phase10(b3):
     return b3
 
 
+def grid_camera(width, height, device="cuda"):
+    """scripts/probe_r74.py's camera on the instance grid."""
+    import math
+
+    from tpurt_torch.core.camera import Camera
+
+    return Camera.create(position=(0.0, 150.0, 380.0), pitch=-0.1, yaw=math.pi,
+                         roll=0.0, fov_degrees=90.0, aspect_ratio=width / height,
+                         device=device)
+
+
+def grid_cfg(width, height, **kw):
+    from tpurt_torch.config import RenderConfig
+
+    # probe r74's knobs (scripts/probe_r74.py:74-78), unpacked.
+    return RenderConfig(width=width, height=height, rays_per_pixel=4,
+                        max_bounces=4, tile_size=256, seed_mode="reference",
+                        pixels_per_lane=4, mega_tail_passes=3,
+                        compaction_threshold=0, **kw)
+
+
+def frames_differ(name, scene, cam, cfg, other_scene, other_cfg, what):
+    """A frame of ``scene`` against one of ``other_scene`` (the same
+    geometry in another regime, or another engine): the pixels that
+    differ, counted; segments where both are megakernel frames."""
+    from tpurt_torch.render.renderer import render_frame
+
+    sa, sb = {}, {}
+    a = render_frame(scene, cam, cfg, stats=sa)
+    b = render_frame(other_scene, cam, other_cfg, stats=sb)
+    frac = mostly_bitwise(a, b, f"{name}: {what}")
+    n = int((a != b).any(axis=-1).sum())
+    mega = other_cfg.engine == "mega"
+    segs = f"; segments {sa['segments']} and {sb['segments']}" if mega else ""
+    log(f"{name}: against {what}, {n} of {a.shape[0] * a.shape[1]} pixels differ "
+        f"({frac:.4%}){segs}")
+    if mega and abs(sa["segments"] - sb["segments"]) > SEG_TOL * sb["segments"]:
+        raise AssertionError(f"{name}: segments {sa['segments']} vs {sb['segments']}")
+    return n
+
+
+def phase11():
+    """B1's TLAS instantiation on tpurt's K = 12 grid, small."""
+    import tpurt_torch.config as config
+    from tpurt_torch.scene.presets import grid_scene
+
+    cfg = grid_cfg(160, 90, rays_per_batch=4096).replace(
+        rays_per_pixel=2, max_bounces=3, pixels_per_lane=2, mega_tail_passes=2)
+    cam = grid_camera(160, 90)
+    scene = grid_scene(12, device="cuda")
+    if not scene.mega_tlas:
+        raise AssertionError("the K = 12 grid did not freeze into the TLAS regime")
+    compare_backends("grid-12-160x90-tlas", scene, cam, cfg)
+    old = config.MEGA_TLAS_THRESHOLD
+    config.MEGA_TLAS_THRESHOLD = 10_000
+    try:
+        unrolled = grid_scene(12, device="cuda")
+    finally:
+        config.MEGA_TLAS_THRESHOLD = old
+    frames_differ("grid-12-160x90-tlas", scene, cam, cfg, unrolled, cfg,
+                  f"the unrolled chain ({len(unrolled.mega_chain)} entries)")
+    frames_differ("grid-12-160x90-tlas", scene, cam, cfg, scene,
+                  cfg.replace(engine="modular"), "engine='modular'")
+
+
+def phase12():
+    """grid-64-720p-tlas at full width through B1's TLAS instantiation."""
+    from tpurt_torch.scene.presets import PROBE_MATERIAL, grid_scene
+
+    cfg = grid_cfg(1280, 720, rays_per_batch=230400)
+    cam = grid_camera(1280, 720)
+    t0 = time.time()
+    scene = grid_scene(64, subdivisions=1, materials=(PROBE_MATERIAL,), device="cuda")
+    log(f"grid-64 scene: {scene.num_meshes} meshes, {scene.num_triangles} "
+        f"triangles, bank {tuple(scene.mega_rows.shape)}, chain {scene.mega_chain}, "
+        f"stack {2 * scene.mega_stack_depth}, built in {time.time() - t0:.1f} s")
+    if not scene.mega_tlas:
+        raise AssertionError("grid-64 did not freeze into the TLAS regime")
+    tt = time_trips(scene, cam, cfg, 16, "grid-64-720p-tlas")
+    # The camera sees the grid from outside the Cornell box (through its
+    # one-sided front wall) and most instances sit above its ceiling: the
+    # frame is ~2.5% lit by construction (2.46% at 160x90 on the CPU).
+    _img, _stats, launches, _best = main_path(
+        "grid-64-720p-tlas", scene, cam, cfg, "megakernel", min_lit=0.02)
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], "grid-64, 16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], "grid-64, whole batch")
+    log(f"B1 TLAS whole batch: {tt['full_ms']:.3f} ms against its bound "
+        f"{f_ms:.3f} ms | {CARD}")
+    return dict(name="megakernel (B1), TLAS instantiation", route="cuda",
+                source="tpurt_torch/csrc/megakernel.cu",
+                replaces="tpurt/render/mega_pallas.py:237", launches=launches,
+                max_abs_err=tt["err"], ms=tt["ms"], plain_ms=tt["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase13(bunny_u8):
+    """B1's bf16 instantiation: the bunny and the K = 12 grid against the
+    plain version and against their u8 frames; the bunny-1080p batch's
+    16 trips in both formats, in turns."""
+    import tpurt_torch.config as config
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render.renderer import flat_batch_args
+    from tpurt_torch.scene.presets import grid_scene
+
+    old = config.MEGA_BF16_BOUNDS
+    config.MEGA_BF16_BOUNDS = True
+    try:
+        bunny_bf, _cam = bunny_scene(small_bunny_cfg())
+        grid_bf = grid_scene(12, device="cuda")
+    finally:
+        config.MEGA_BF16_BOUNDS = old
+    grid_u8 = grid_scene(12, device="cuda")
+    for scene in (bunny_bf, grid_bf):
+        if scene.mega_bounds_fmt != "bf16":
+            raise AssertionError("MEGA_BF16_BOUNDS did not give a bf16 bank")
+    cfg = small_bunny_cfg()
+    cam = camera_for(cfg)
+    compare_backends("bunny-480x270-bf16", bunny_bf, cam, cfg)
+    frames_differ("bunny-480x270-bf16", bunny_bf, cam, cfg, bunny_u8, cfg,
+                  "the u8 bank")
+    gcfg = grid_cfg(160, 90, rays_per_batch=4096).replace(
+        rays_per_pixel=2, max_bounces=3, pixels_per_lane=2, mega_tail_passes=2)
+    gcam = grid_camera(160, 90)
+    compare_backends("grid-12-160x90-bf16", grid_bf, gcam, gcfg)
+    frames_differ("grid-12-160x90-bf16", grid_bf, gcam, gcfg, grid_u8, gcfg,
+                  "the u8 bank")
+    # The bunny-1080p batch's first 16 trips in both formats, in turns.
+    big = bunny_cfg(1920, 1080)
+    bcam = camera_for(big)
+    runs = {}
+    for label, scene in (("u8", bunny_u8), ("bf16", bunny_bf)):
+        lane, ctx = mk.prepare(scene, **flat_batch_args(scene, bcam, big, 0))
+        runs[label] = (mega_cuda.pack(lane), ctx)
+        mega_cuda.launch(runs[label][0].clone(), ctx, 16)  # warm-up
+    times, boxes = {}, {}
+    for label in ("u8", "bf16", "bf16", "u8"):
+        buf0, ctx = runs[label]
+        buf = buf0.clone()
+        (_trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, 16))
+        times.setdefault(label, []).extend(ms)
+        boxes[label] = int(work[0].long().sum())
+    log(f"bunny-1080p batch, 16 trips: u8 ms {times['u8']}, bf16 ms {times['bf16']}; "
+        f"box tests u8 {boxes['u8']}, bf16 {boxes['bf16']} | {CARD}")
+    return dict(u8_ms=min(times["u8"]), bf16_ms=min(times["bf16"]))
+
+
 def main():
     global CARD
     import torch
@@ -1004,6 +1250,10 @@ def main():
 
     t0 = time.time()
     CARD = smi()
+    if sys.argv[1:] == ["--b1-public"]:
+        log("card:", CARD)
+        b1_public_main()
+        return
     if sys.argv[1:] == ["--b3-public"]:
         log("card:", CARD)
         b3_public_main()
@@ -1011,10 +1261,14 @@ def main():
     phase1()
     phase2()
     phase3()
-    b1 = phase5(phase4())
+    bunny = phase4()
+    b1 = phase5(bunny)
     b2 = phase7(phase6())
     phase8()
     b3 = phase10(phase9())
+    phase11()
+    b1_tlas = phase12()
+    phase13(bunny)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1022,7 +1276,7 @@ def main():
     # B3 also gives its device time (``device_ms``) beside ``ms``, which
     # for every kernel is CUDA events around the call, the host included.
     print(json.dumps({"kernels": [{k: b[k] for k in keys + ("device_ms",) if k in b}
-                                  for b in (b1, b2, b3)]}))
+                                  for b in (b1, b1_tlas, b2, b3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain torch versions on
 the card: the megakernel (B1) and its dense instantiation — on their
 persistent grid too, with fewer lanes than a block, than the resident
-threads and more — the dense block sweep (B2) alone, and the exact sweep
-(B3) alone and in the modular engine. Marked ``cuda``: without a CUDA device every test skips (the
+threads and more — B1's TLAS and bf16 instantiations on tpurt's K = 12
+instance grid and a bf16 Cornell sphere, the dense block sweep (B2)
+alone, and the exact sweep (B3) alone and in the modular engine. Marked ``cuda``: without a CUDA device every test skips (the
 decision is made in a fixture, at run time). On the GPU machine, which
 has no jax, run them without tests/conftest.py:
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpurt_torch.config as config
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.core.camera import Camera
 from tpurt_torch.core.v3 import V3
@@ -27,7 +29,7 @@ from tpurt_torch.render.megakernel import run_megakernel
 from tpurt_torch.render.renderer import flat_batch_args, render_frame
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder
-from tpurt_torch.scene.presets import cornell_sphere_scene
+from tpurt_torch.scene.presets import cornell_sphere_scene, grid_scene
 from tpurt_torch.scene.types import MaterialType
 
 pytestmark = pytest.mark.cuda
@@ -163,6 +165,59 @@ def test_kernel_matches_plain_on_a_chain_scene(cuda_chain, dense):
                              return_state=True, **args) for b in ("plain", "cuda")]
         agree, _err = mega_cuda.compare_lanes(*st)
         assert agree >= 0.995, (trips, agree)
+
+
+def _regime_scene(which):
+    """tpurt's K = 12 instance grid (TLAS) with u8 or bf16 node bounds,
+    or the Cornell sphere with bf16 bounds (an unrolled chain whose root
+    expands), on the card, and a camera that sees it."""
+    old = config.MEGA_BF16_BOUNDS
+    config.MEGA_BF16_BOUNDS = which.endswith("bf16")
+    try:
+        if which.startswith("grid"):
+            scene = grid_scene(12, device="cuda")
+            cam = Camera.create((0, 150, 250), yaw=3.14, fov_degrees=90,
+                                aspect_ratio=1.0, device="cuda")
+            return scene, cam
+        scene, cam, _ = cornell_sphere_scene(2, CFG, device="cuda")
+        return scene, cam
+    finally:
+        config.MEGA_BF16_BOUNDS = old
+
+
+@pytest.mark.parametrize("which", ["grid", "grid-bf16", "cornell-bf16"])
+def test_kernel_matches_plain_in_the_tlas_and_bf16_instantiations(cuda_scene,
+                                                                  which):
+    """Lane state after 1, 4, 16 trips and to the end, and the frame, of
+    B1's TLAS and bf16 instantiations against the plain version; the TLAS
+    batch enters and exits instances, counted in the work rows."""
+    scene, cam = _regime_scene(which)
+    assert scene.mega_tlas == which.startswith("grid")
+    assert scene.mega_bounds_fmt == ("bf16" if which.endswith("bf16") else "u8")
+    cfg = CFG.replace(mega_tail_passes=3)
+    args = flat_batch_args(scene, cam, cfg, 0)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree >= 0.995, (trips, agree)
+    lane, ctx = mk.prepare(scene, **args)
+    _trips, work = mega_cuda.launch(mega_cuda.pack(lane), ctx, None)
+    assert work.shape[0] == (5 if scene.mega_tlas else 3)
+    if scene.mega_tlas:
+        assert int(work[3].sum()) > 0 and int(work[4].sum()) > 0
+    sk, sp = {}, {}
+    kern = render_frame(scene, cam, cfg.replace(mega_body="pallas"), stats=sk)
+    plain = render_frame(scene, cam, cfg.replace(mega_body="xla"), stats=sp)
+    assert np.isfinite(kern).all() and kern.max() > 0.0
+    assert (kern != plain).any(axis=-1).mean() <= 0.005
+    assert abs(sk["segments"] - sp["segments"]) <= 0.005 * sp["segments"]
+
+
+def test_tlas_scene_refuses_the_dense_mode(cuda_scene):
+    scene, cam = _regime_scene("grid")
+    with pytest.raises(ValueError, match="TLAS"):
+        render_frame(scene, cam, CFG.replace(mega_dense=True))
 
 
 def _aimed_rays(rows, n, seed, spread=60.0):

@@ -145,12 +145,18 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version(quota_states):
 
 
 def test_lane_layout_matches_kernel_enum():
+    """LANE_WORDS is the kernel's enum Field and TLAS_WORDS its enum
+    TlasField, which starts where Field ends."""
     src = open(mk.__file__.replace("render/megakernel.py",
                                    "csrc/megakernel.cu")).read()
-    body = re.search(r"enum Field : int \{(.*?)N_FIXED", src, re.S).group(1)
-    names = [n.strip() for n in body.split(",") if n.strip()]
+    enum = lambda pat: [n.strip().split(" = ")[0] for n in
+                        re.search(pat, src, re.S).group(1).split(",")
+                        if n.strip()]
     want = [w.upper().replace(".", "_") for w in mega_cuda.LANE_WORDS]
-    assert names == want
+    assert enum(r"enum Field : int \{(.*?)N_FIXED") == want
+    assert re.search(r"IN_INST = N_FIXED", src)
+    assert enum(r"enum TlasField : int \{(.*?)N_TLAS_END") == [
+        w.upper() for w in mega_cuda.TLAS_WORDS]
 
 
 def test_static_only_scene_matches_oracle():

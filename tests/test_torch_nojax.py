@@ -2,7 +2,8 @@
 jax`` and ``import tpurt`` both fail (the GPU machine has no jax, and the
 port keeps its own copy of everything it reads from tpurt), the package
 imports, builds the Cornell-sphere scene and renders 8x8 on the CPU
-through both engines; and no module of the port, nor chip_smoke.py,
+through both engines, and renders a 9-instance grid in the TLAS regime
+with bf16 node bounds; and no module of the port, nor chip_smoke.py,
 imports jax, flax or any module of tpurt."""
 
 import os
@@ -28,6 +29,13 @@ for engine in ("mega", "modular"):
                                                dense_engine="pallas"))
     assert img.shape == (8, 8, 3) and str(img.dtype) == "uint8", img.shape
     assert (img > 0).any()
+import tpurt_torch.config as config
+from tpurt_torch.scene.presets import grid_scene
+config.MEGA_BF16_BOUNDS = True
+grid = grid_scene(9, device="cpu")
+assert grid.mega_tlas and grid.mega_bounds_fmt == "bf16"
+img = render_image(grid, cam, cfg.replace(rays_per_pixel=1, max_bounces=2))
+assert img.shape == (8, 8, 3) and str(img.dtype) == "uint8", img.shape
 print("rendered", sorted(m for m in sys.modules
                          if m == "tpurt" or m.startswith("tpurt.")))
 """

@@ -2,13 +2,17 @@
 static stage, the packed materials, the chain, its parameter table and
 the root-expansion tables are bit-identical (compared as uint32), and a
 tpurt Scene carried across with ``scene.from_arrays`` renders the same
-tables."""
+tables — on the Cornell sphere, the chain scene, and tpurt's K = 12
+instance grid in the TLAS regime with u8 and with bf16 node bounds
+(instance rows, TLAS nodes, union box and material slots included)."""
 
 import numpy as np
 import pytest
 import torch
 
 from test_torch_cuda import chain_scene, knot_obj_text
+import tpurt.config as t_config
+from test_many_meshes import _grid_scene
 from tpurt.config import RenderConfig
 from tpurt.render.megakernel import _chain_params as t_chain_params
 from tpurt.render.shading import pack_materials as t_pack
@@ -17,13 +21,14 @@ from tpurt.scene.builder import Material as TMaterial
 from tpurt.scene.builder import SceneBuilder as TBuilder
 from tpurt.scene.presets import cornell_sphere_scene as t_cornell
 from tpurt.scene.types import MaterialType as TMT
+import tpurt_torch.config as config
 from tpurt_torch import scene as port_scene
 from tpurt_torch.render.megakernel import _chain_params
 from tpurt_torch.render.shading import pack_materials
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder
 from tpurt_torch.scene.obj import parse_obj
-from tpurt_torch.scene.presets import cornell_sphere_scene
+from tpurt_torch.scene.presets import cornell_sphere_scene, grid_scene
 from tpurt_torch.scene.types import ARRAY_FIELDS, STATIC_FIELDS, MaterialType
 
 
@@ -37,12 +42,19 @@ def _scenes(which):
         cfg = RenderConfig(object_path="sphere1.obj")
         return (cornell_sphere_scene(1, cfg, device="cpu")[0],
                 t_cornell(1, cfg)[0])
+    if which.startswith("grid"):  # tests/test_many_meshes.py's K = 12 grid
+        old = config.MEGA_BF16_BOUNDS, t_config.MEGA_BF16_BOUNDS
+        config.MEGA_BF16_BOUNDS = t_config.MEGA_BF16_BOUNDS = which == "grid-bf16"
+        try:
+            return grid_scene(12, device="cpu"), _grid_scene(12)[0]
+        finally:
+            config.MEGA_BF16_BOUNDS, t_config.MEGA_BF16_BOUNDS = old
     return (chain_scene(SceneBuilder, Material, MaterialType, procedural,
                         device="cpu"),
             chain_scene(TBuilder, TMaterial, TMT, t_proc))
 
 
-@pytest.fixture(scope="module", params=["cornell", "chain"])
+@pytest.fixture(scope="module", params=["cornell", "chain", "grid", "grid-bf16"])
 def scenes(request):
     return _scenes(request.param)
 
@@ -56,7 +68,8 @@ def test_banks_and_static_stage_bit_equal(scenes):
     for f in ("mega_chain", "mega_chain_members", "mega_stack_depth",
               "mega_static_cull", "mega_static_onesided", "mega_static_owner",
               "mesh_tri_ranges", "mesh_mat_types", "mesh_identity",
-              "mega_leaf_tris", "mega_arity", "mega_bounds_fmt", "mega_tlas"):
+              "mega_leaf_tris", "mega_arity", "mega_bounds_fmt", "mega_tlas",
+              "mega_tlas_bounds", "mesh_mat_slot", "mat_slot_rep"):
         assert getattr(mine, f) == getattr(theirs, f), f
     assert mine.mega_rows.shape[1] == 64  # the shipped a8/l3/W64 layout
 
@@ -102,16 +115,25 @@ def test_obj_parse_matches_tpurt():
 
 
 def test_scene_to_device_and_unported_regimes():
+    """A scene moves between devices, and what used to be refused now
+    freezes: more instanced meshes than MEGA_TLAS_THRESHOLD go into the
+    TLAS regime, and ``from_arrays`` carries a TLAS scene across."""
     scene, _ = _scenes("cornell")
     moved = scene.to("cpu")
     assert moved.device.type == "cpu" and moved.mega_chain == scene.mega_chain
-    with pytest.raises(NotImplementedError, match="TLAS"):
-        port_scene.from_arrays({}, {"mega_tlas": True}, device="cpu")
     b = SceneBuilder()
     pos, nrm = procedural.icosphere(0, radius=5.0)
     for i in range(9):  # more instanced meshes than MEGA_TLAS_THRESHOLD
         h = b.add_triangles(pos, nrm)
         h.pos = (10.0 * (i + 1), 0.0, 0.0)
         b.add_mesh(h)
-    with pytest.raises(NotImplementedError, match="TLAS"):
-        b.freeze("cpu")
+    tlas = b.freeze("cpu")
+    assert tlas.mega_tlas and tlas.mega_chain[-1][0] == -2
+    assert len(tlas.mega_tlas_bounds) == 6 and tlas.mat_slot_rep == (0,)
+    carried = port_scene.from_arrays(
+        {f: getattr(tlas, f).numpy() for f in ARRAY_FIELDS},
+        {f: getattr(tlas, f) for f in STATIC_FIELDS}, device="cpu")
+    assert carried.mega_tlas and carried.mega_chain == tlas.mega_chain
+    assert carried.mega_tlas_bounds == tlas.mega_tlas_bounds
+    assert torch.equal(carried.mega_rows.view(torch.int32),
+                       tlas.mega_rows.view(torch.int32))

@@ -31,7 +31,7 @@ IOR_AIR = 1.0
 SELECT_GATHER_THRESHOLD = 64
 
 #: Instanced-mesh count above which freeze routes meshes through a
-#: top-level BVH of instance rows (not ported yet: ROADMAP A.2).
+#: top-level BVH of instance rows (the TLAS regime).
 MEGA_TLAS_THRESHOLD = 8
 
 #: Chain entries the enter step advances past in place when their root
@@ -53,7 +53,7 @@ MEGA_LEAF_TRIS = 3
 #: Children per megakernel node row (read at freeze; <= 63).
 MEGA_NODE_ARITY = 8
 
-#: bf16 node-row child bounds instead of u8 (not ported yet: ROADMAP A.2).
+#: bf16 node-row child bounds instead of u8 (read at freeze).
 MEGA_BF16_BOUNDS = False
 
 

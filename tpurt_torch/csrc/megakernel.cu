@@ -44,15 +44,34 @@
 // caller computes the launch's operation count.
 //
 // The brute-force mode (RenderConfig.mega_dense) is a second
-// instantiation of the same kernel, megakernel<true>: its traversal step
-// resolves the lane's whole chain entry with kernel B2's block sweep
+// instantiation of the same kernel, megakernel<true, ...>: its traversal
+// step resolves the lane's whole chain entry with kernel B2's block sweep
 // (dense_sweep.cuh) plus the exact Möller-Trumbore recompute of the
-// winner, where megakernel<false> steps one bank row. The block sweep
-// holds barriers, so in megakernel<true> the trip loop is block-uniform:
+// winner, where megakernel<false, ...> steps one bank row. The block sweep
+// holds barriers, so in the dense kernel the trip loop is block-uniform:
 // it runs while any thread of the block holds a live lane, and a thread
 // without one still helps stage the sweep's tiles. The choice is a
 // template parameter, made on the host at launch, so the BVH kernel's
 // code has no barriers.
+//
+// Two more template parameters give the BVH kernel tpurt's other bank
+// regimes (its _body_math with ``tlas`` and ``bounds_fmt``), each
+// compiled only where a scene needs it, so the u8 unrolled-chain kernel
+// runs the code it ran before them:
+//   kBf16  node rows hold absolute bf16 child bounds, two to a word as
+//          f32 top halves (4 words a slot): decoded by shift and mask,
+//          no grid arithmetic.
+//   kTlas  the many-instance regime: the instanced meshes are instance
+//          rows under a top-level BVH in the bank, reached through one
+//          chain entry. A node slot whose meta carries kITag targets an
+//          instance row; a trip on one either enters it (the baked
+//          transform gives the local ray, the root pretest may skip it,
+//          else an exit marker -- a resolved kITag entry naming the row --
+//          goes on the stack and the lane descends to the mesh root) or,
+//          when the marker pops, exits it (the instance's best hit folds
+//          to world space, and the world ray is recomputed with the
+//          enter step's exact operations). Six lane words after N_FIXED
+//          (enum TlasField) carry the instance frame.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -65,6 +84,8 @@ namespace {
 constexpr int kMaxStack = 64;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr uint32_t kTag = 0x80000000u;
+constexpr uint32_t kITag = 1u << 28;  // TLAS: an instance-row target
+constexpr uint32_t kMetaT = kITag - 1u;  // meta target bits
 constexpr int kSlotBits = 6;
 constexpr uint32_t kSlotMask = (1u << kSlotBits) - 1u;
 constexpr int kCpWidth = 21;
@@ -104,6 +125,15 @@ enum Field : int {
   C_NORMAL_X, C_NORMAL_Y, C_NORMAL_Z, C_BACK, C_MESH, C_DST,
   N_FIXED
 };
+// The TLAS instantiation's lane words, after N_FIXED (TLAS_WORDS in
+// render/mega_cuda.py).
+enum TlasField : int {
+  IN_INST = N_FIXED, CUR_INST, INST_MESH, INST_SCALE, INST_CULL, INST_OS,
+  N_TLAS_END
+};
+// Where the quota accumulators start.
+template <bool kTlas>
+constexpr int kAccBase = kTlas ? N_TLAS_END : N_FIXED;
 
 }  // namespace
 
@@ -115,6 +145,7 @@ struct MkCfg {
   int use_cache, p_count, pixel_stride, width, height;
   int tail_passes, expand_passes, n_skip, leaf_tris, arity, row_width;
   int frame_index, sample_offset;
+  int tlas, bf16;  // the instantiation (launch only; the kernel is compiled for it)
 };
 
 namespace {
@@ -317,10 +348,16 @@ struct Lane {
   bool c_back;
   int c_mesh;
   float c_dst;
+  // TLAS regime (kTlas only): inside an instance; cur is an instance
+  // row; the instance's owner mesh, scale, cull policy and OneSided flag.
+  bool in_inst, cur_inst, inst_cull, inst_os;
+  int inst_mesh;
+  float inst_scale;
   int sp;  // stack entries; stk[sp - 1] is the top
   // This launch's work on the lane (not lane state): child-box tests,
-  // leaf rows (dense: entry sweeps), segment completions.
-  int n_box, n_leaf, n_seg;
+  // leaf rows (dense: entry sweeps), segment completions, instance
+  // enters and exits.
+  int n_box, n_leaf, n_seg, n_enter, n_exit;
   uint32_t stk[kMaxStack];
 };
 
@@ -335,6 +372,7 @@ struct Words {
   __device__ void put(int f, V a) const { put(f, a.x); put(f + 1, a.y); put(f + 2, a.z); }
 };
 
+template <bool kTlas>
 __device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) {
   L.ro0 = s.v(RO0_X); L.rd0 = s.v(RD0_X);
   L.pix = s.w(PIX); L.pixno = (int)s.w(PIXNO); L.sample = (int)s.w(SAMPLE);
@@ -353,15 +391,21 @@ __device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) 
   L.c_set = s.w(C_SET) != 0; L.c_valid = s.w(C_VALID) != 0;
   L.c_point = s.v(C_POINT_X); L.c_normal = s.v(C_NORMAL_X);
   L.c_back = s.w(C_BACK) != 0; L.c_mesh = (int)s.w(C_MESH); L.c_dst = s.f(C_DST);
+  if constexpr (kTlas) {
+    L.in_inst = s.w(IN_INST) != 0; L.cur_inst = s.w(CUR_INST) != 0;
+    L.inst_mesh = (int)s.w(INST_MESH); L.inst_scale = s.f(INST_SCALE);
+    L.inst_cull = s.w(INST_CULL) != 0; L.inst_os = s.w(INST_OS) != 0;
+  }
   // Slot k of the buffer is the k-th entry from the top; the entries
   // are contiguous from slot 0 (pushes and pops shift the whole stack).
   int sp = 0;
   while (sp < s_depth && s.w(stack_base + sp) != kEmpty) ++sp;
   for (int k = 0; k < sp; ++k) L.stk[sp - 1 - k] = s.w(stack_base + k);
   L.sp = sp;
-  L.n_box = L.n_leaf = L.n_seg = 0;
+  L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = 0;
 }
 
+template <bool kTlas>
 __device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_depth) {
   s.put(RO0_X, L.ro0); s.put(RD0_X, L.rd0);
   s.w(PIX) = L.pix; s.w(PIXNO) = (uint32_t)L.pixno; s.w(SAMPLE) = (uint32_t)L.sample;
@@ -380,6 +424,11 @@ __device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_
   s.w(C_SET) = L.c_set; s.w(C_VALID) = L.c_valid;
   s.put(C_POINT_X, L.c_point); s.put(C_NORMAL_X, L.c_normal);
   s.w(C_BACK) = L.c_back; s.w(C_MESH) = (uint32_t)L.c_mesh; s.put(C_DST, L.c_dst);
+  if constexpr (kTlas) {
+    s.w(IN_INST) = L.in_inst; s.w(CUR_INST) = L.cur_inst;
+    s.w(INST_MESH) = (uint32_t)L.inst_mesh; s.put(INST_SCALE, L.inst_scale);
+    s.w(INST_CULL) = L.inst_cull; s.w(INST_OS) = L.inst_os;
+  }
   for (int k = 0; k < s_depth; ++k)
     s.w(stack_base + k) = k < L.sp ? L.stk[L.sp - 1 - k] : kEmpty;
 }
@@ -586,12 +635,19 @@ __device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisib
 }
 
 // Next mesh: fold a finished entry (cur < 0) to world space and advance
-// the lane to the next entry. Returns in_chain.
-__device__ bool fold(const Ctx& x, Lane& L) {
+// the lane to the next entry. The scale is that of the lane's frame at
+// the start of the trip: the entry's, or in the TLAS regime the
+// instance's where the lane was inside one (``in_inst``, ``inst_scale``
+// as they were then). Returns in_chain.
+template <bool kTlas>
+__device__ bool fold(const Ctx& x, Lane& L, bool in_inst, float inst_scale) {
   const int E = x.c.e_count;
   if (!(L.entry < E && L.cur < 0)) return false;
   const float* cp = x.tb.chain + min(L.entry, E - 1) * kCpWidth;
-  const float scale_e = cp[12];
+  float scale_e = cp[12];
+  if constexpr (kTlas) {
+    if (in_inst) scale_e = inst_scale;
+  }
   bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && L.lback) && scale_e > kEps;
   if (lvalid) {
     V point_w = rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp);
@@ -610,16 +666,80 @@ __device__ bool fold(const Ctx& x, Lane& L) {
   return L.entry < E;
 }
 
+// A trip on an instance row (kTlas; megakernel._instance_step): enter
+// it or, when its exit marker brought the lane back, exit it. Returns
+// whether the lane pops its stack.
+__device__ bool instance_step(const Ctx& x, Lane& L, const float* row) {
+  const float scale = row[12];
+  const float safe = safe_scale(scale);
+  if (!L.in_inst) {
+    ++L.n_enter;
+    // WorldToLocalRay with the baked transform, in enter()'s op order,
+    // then the root pretest; a degenerate scale skips the instance.
+    V lo = rot_t(row + 3, L.origin - ld3(row)) / safe;
+    V ld = normalize(rot_t(row + 3, L.direction) / safe);
+    V lid = v3(1.0f / ld.x, 1.0f / ld.y, 1.0f / ld.z);
+    if (!(aabb(lo, lid, ld3(row + 16), ld3(row + 19), L.w_dst / safe * kGrow) &&
+          scale > kEps))
+      return true;
+    push(L, kTag | kITag | ((uint32_t)L.cur << 1), x.c.s_depth);  // the exit marker
+    const int root = __float_as_int(row[15]), flags = __float_as_int(row[13]);
+    L.cur = (int)((uint32_t)root & kMetaT) >> 1;
+    L.cur_leaf = (root & 1) == 1;
+    L.cur_slot = 0;
+    L.cur_inst = false;
+    L.in_inst = true;
+    L.inst_mesh = __float_as_int(row[14]);
+    L.inst_scale = scale;
+    L.inst_cull = (flags & 2) != 0;
+    L.inst_os = (flags & 1) != 0;
+    L.lo = lo; L.ld = ld; L.lid = lid;
+    return false;
+  }
+  ++L.n_exit;
+  // LocalToWorldHit of the instance's best, in fold()'s op order.
+  if (L.lmesh >= 0 && !(L.inst_os && L.lback)) {
+    V point_w = rot_fwd(row + 3, (L.lo + L.ld * L.lt) * scale) + ld3(row);
+    V n_w = normalize(rot_fwd(row + 3, L.lnrm));
+    float dst = length(point_w - L.origin);
+    if (dst < L.w_dst) {
+      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
+      L.w_back = L.lback; L.w_mesh = L.lmesh;
+    }
+  }
+  L.in_inst = false;
+  int root;
+  bool leaf;
+  enter(x, L.entry, L.origin, L.direction, L.lo, L.ld, L.lid, root, leaf);
+  L.lt = INFINITY;
+  L.lnrm = v3(0.0f, 0.0f, 0.0f);
+  L.lback = false;
+  L.lmesh = -1;
+  return true;
+}
+
 // The BVH trip's traversal step — one bank row — then the fold.
+template <bool kTlas, bool kBf16>
 __device__ bool traverse_rows(const Ctx& x, Lane& L) {
   const int E = x.c.e_count;
   const int ec = min(L.entry, E - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
+  // The frame at the start of the trip (an instance step may change it).
+  bool in_inst = false;
+  float inst_scale = 1.0f;
+  if constexpr (kTlas) {
+    in_inst = L.in_inst;
+    inst_scale = L.inst_scale;
+  }
   if (L.entry < E && L.cur >= 0) {
     const float* row = x.tb.rows + (size_t)L.cur * x.c.row_width;
-    float limit = minp(L.lt, L.w_dst / safe_scale(cp[12]) * kGrow);
+    float limit = minp(L.lt, L.w_dst / safe_scale(in_inst ? inst_scale : cp[12]) * kGrow);
     bool pop;
-    if (L.cur_leaf) {
+    bool inst_row = false;
+    if constexpr (kTlas) inst_row = L.cur_inst;
+    if (inst_row) {
+      pop = instance_step(x, L, row);
+    } else if (L.cur_leaf) {
       ++L.n_leaf;
       int entry_mesh = x.chain_mesh()[ec];
       bool is_static = entry_mesh < 0;
@@ -630,6 +750,9 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
         bool cull = cull_mesh_e;
         if (is_static)
           cull = (aux >= 0 && aux < x.c.num_meshes) ? x.mesh_cull()[aux] != 0 : true;
+        if constexpr (kTlas) {
+          if (in_inst) cull = L.inst_cull;
+        }
         V pa = ld3(t);
         float tt;
         V n;
@@ -637,14 +760,16 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
         if (mt(L.lo, L.ld, pa, ld3(t + 3) - pa, ld3(t + 6) - pa, ld3(t + 9), ld3(t + 12),
                ld3(t + 15), cull, tt, n, bf) &&
             tt < L.lt) {
-          L.lt = tt; L.lnrm = n; L.lback = bf; L.lmesh = is_static ? aux : entry_mesh;
+          L.lt = tt; L.lnrm = n; L.lback = bf;
+          L.lmesh = in_inst ? L.inst_mesh : (is_static ? aux : entry_mesh);
         }
       }
       pop = true;
     } else {
-      // Node row: arity u8-quantised children on the node's grid,
-      // visited in direction-signed priority order; cur_slot floors the
-      // priority of a resumed node.
+      // Node row: arity children, visited in direction-signed priority
+      // order; cur_slot floors the priority of a resumed node. u8: child
+      // boxes quantised on the node's grid, 3 words a slot; bf16:
+      // absolute bounds, 4 words a slot.
       const int arity = x.c.arity;
       V go = ld3(row), gs = ld3(row + 3);
       int axis = __float_as_int(row[6]);
@@ -653,17 +778,28 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
       TwoBest b;
       b.init(arity);
       for (int slot = 0; slot < arity; ++slot) {
-        const float* w = row + 7 + 3 * slot;
-        int meta = __float_as_int(w[2]);
+        const float* w = row + 7 + (kBf16 ? 4 : 3) * slot;
+        int meta = __float_as_int(w[kBf16 ? 3 : 2]);
         int prio = fwd ? slot : arity - 1 - slot;
         if (meta == 0 || prio < L.cur_slot) continue;
         ++L.n_box;
         uint32_t w0 = __float_as_uint(w[0]), w1 = __float_as_uint(w[1]);
-        V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
-                    (float)(int)((w0 >> 16) & 255u));
-        V q_hi = v3((float)(int)((w0 >> 24) & 255u), (float)(int)(w1 & 255u),
-                    (float)(int)((w1 >> 8) & 255u));
-        if (aabb(L.lo, L.lid, go + q_lo * gs, go + q_hi * gs, limit)) b.add(prio, meta);
+        V bmin, bmax;
+        if constexpr (kBf16) {
+          uint32_t w2 = __float_as_uint(w[2]);
+          bmin = v3(__uint_as_float(w0 << 16), __uint_as_float(w0 & 0xFFFF0000u),
+                    __uint_as_float(w1 << 16));
+          bmax = v3(__uint_as_float(w1 & 0xFFFF0000u), __uint_as_float(w2 << 16),
+                    __uint_as_float(w2 & 0xFFFF0000u));
+        } else {
+          V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
+                      (float)(int)((w0 >> 16) & 255u));
+          V q_hi = v3((float)(int)((w0 >> 24) & 255u), (float)(int)(w1 & 255u),
+                      (float)(int)((w1 >> 8) & 255u));
+          bmin = go + q_lo * gs;
+          bmax = go + q_hi * gs;
+        }
+        if (aabb(L.lo, L.lid, bmin, bmax, limit)) b.add(prio, meta);
       }
       pop = b.best_prio >= arity;
       if (!pop) {
@@ -672,7 +808,12 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
         if (b.hits >= 3)
           push(L, ((uint32_t)L.cur << kSlotBits) | (uint32_t)(b.second_prio + 1), x.c.s_depth);
         if (b.hits >= 2) push(L, kTag | (uint32_t)b.second_meta, x.c.s_depth);
-        L.cur = b.first_meta >> 1;
+        if constexpr (kTlas) {
+          L.cur = (int)((uint32_t)b.first_meta & kMetaT) >> 1;
+          L.cur_inst = ((uint32_t)b.first_meta & kITag) != 0;
+        } else {
+          L.cur = b.first_meta >> 1;
+        }
         L.cur_leaf = (b.first_meta & 1) == 1;
         L.cur_slot = 0;
       }
@@ -680,17 +821,23 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
     if (pop) {
       if (L.sp == 0) {
         L.cur = -1;
+        if constexpr (kTlas) L.cur_inst = false;
       } else {
         uint32_t top = L.stk[--L.sp];
         bool resolved = (top & kTag) != 0;
         uint32_t meta = top & 0x7FFFFFFFu;
-        L.cur = resolved ? (int)(meta >> 1) : (int)(top >> kSlotBits);
+        if constexpr (kTlas) {
+          L.cur = resolved ? (int)((meta & kMetaT) >> 1) : (int)(top >> kSlotBits);
+          L.cur_inst = resolved && (meta & kITag) != 0;
+        } else {
+          L.cur = resolved ? (int)(meta >> 1) : (int)(top >> kSlotBits);
+        }
         L.cur_slot = resolved ? 0 : (int)(top & kSlotMask);
         L.cur_leaf = resolved && (meta & 1u) == 1u;
       }
     }
   }
-  return fold(x, L);
+  return fold<kTlas>(x, L, in_inst, inst_scale);
 }
 
 // The dense trip's traversal step for a lane whose entry the block
@@ -715,11 +862,12 @@ __device__ bool traverse_swept(const Ctx& x, Lane& L, int col, float t_sw) {
     }
   }
   L.cur = -1;
-  return fold(x, L);
+  return fold<false>(x, L, false, 1.0f);
 }
 
 // Segment completion: shade -> accumulate/advance -> restart -> static
 // stage -> chain enter (pretest, chain skip, root expansion).
+template <bool kTlas>
 __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
   const MkCfg& c = x.c;
   const int E = c.e_count;
@@ -747,7 +895,7 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
     bool last_pix = L.pixno >= c.p_count - 1;
     retire = last_pix;
     advance = !last_pix;
-    x.s.put(N_FIXED + 3 * L.pixno, L.acc);  // bank into the quota slot
+    x.s.put(kAccBase<kTlas> + 3 * L.pixno, L.acc);  // bank into the quota slot
     L.acc = zero;
     L.sample = 0;
     if (advance) {
@@ -789,6 +937,12 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
     L.w_normal = L.c_normal; L.w_back = L.c_back; L.w_mesh = L.c_mesh;
   }
   if (E == 0 || !(entering_in || restart)) return;
+  if constexpr (kTlas) {
+    // An entering lane starts at the entry's root (a node row) in the
+    // world frame.
+    L.cur_inst = false;
+    L.in_inst = false;
+  }
 
   // Enter the chain at L.entry; a failed pretest advances the entry in
   // place (chain skip), up to n_skip further entries.
@@ -822,9 +976,10 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
 
 // One loop trip after the traversal step: tail_passes segment
 // completions (megakernel._body_math).
+template <bool kTlas>
 __device__ __forceinline__ void trip_tail(const Ctx& x, Lane& L, bool in_chain) {
-  tail(x, L, in_chain, x.c.expand_passes >= 1);
-  for (int p = 1; p < x.c.tail_passes; ++p) tail(x, L, false, p < x.c.expand_passes);
+  tail<kTlas>(x, L, in_chain, x.c.expand_passes >= 1);
+  for (int p = 1; p < x.c.tail_passes; ++p) tail<kTlas>(x, L, false, p < x.c.expand_passes);
 }
 
 // The next unstarted lane index from the queue; the threads of a warp
@@ -840,30 +995,36 @@ __device__ __forceinline__ int take_lane(int* queue) {
 struct Out {
   uint32_t* state;
   int* trips;  // (R,) trips each lane ran in this launch
-  int* work;   // (3, R) Lane::n_box, n_leaf, n_seg
+  int* work;   // (3, R) Lane::n_box, n_leaf, n_seg; TLAS: (5, R), + n_enter, n_exit
   int* queue;  // next unstarted lane index
 };
 
 // Stores a retired lane (its state is final for this launch).
+template <bool kTlas>
 __device__ void retire(const Ctx& x, const Lane& L, int trips, const Out& o, int stack_base) {
   const int i = x.s.i, n = x.c.n_lanes;
-  store_lane(L, x.s, stack_base, x.c.s_depth);
+  store_lane<kTlas>(L, x.s, stack_base, x.c.s_depth);
   o.trips[i] = trips;
   o.work[i] = L.n_box;
   o.work[n + i] = L.n_leaf;
   o.work[2 * n + i] = L.n_seg;
+  if constexpr (kTlas) {
+    o.work[3 * n + i] = L.n_enter;
+    o.work[4 * n + i] = L.n_exit;
+  }
 }
 
 // Takes lanes from the queue until one needs a trip (retiring any that
 // need none); false when the queue is empty.
+template <bool kTlas>
 __device__ bool take_live(Ctx& x, Lane& L, const Out& o, int stack_base) {
   for (;;) {
     const int i = take_lane(o.queue);
     if (i >= x.c.n_lanes) return false;
     x.s.i = i;
-    load_lane(L, x.s, stack_base, x.c.s_depth);
+    load_lane<kTlas>(L, x.s, stack_base, x.c.s_depth);
     if (!L.done && x.c.max_trips > 0) return true;
-    retire(x, L, 0, o, stack_base);
+    retire<kTlas>(x, L, 0, o, stack_base);
   }
 }
 
@@ -874,45 +1035,47 @@ __device__ __forceinline__ bool end_trip(Ctx& x, Lane& L, int& trips, const Out&
                                          int stack_base) {
   ++trips;
   if (!L.done && trips < x.c.max_trips) return true;
-  retire(x, L, trips, o, stack_base);
+  retire<false>(x, L, trips, o, stack_base);
   trips = 0;
-  return take_live(x, L, o, stack_base);
+  return take_live<false>(x, L, o, stack_base);
 }
 
 // The BVH megakernel (kDense = false): each thread runs its lane's
 // trips to the end, then takes the next; no barriers. The dense one
-// (kDense = true): the loop is block-uniform around the block sweep,
-// which every thread joins. Before it, each thread runs its lane's trips
-// that need no sweep (the entry is finished or was skipped: fold and
-// tail only), taking new lanes as they retire, so that at the sweep
-// every live lane sweeps. A lane's trips are the same trips in the same
-// order whichever loop runs them.
-template <bool kDense>
+// (kDense = true, unrolled chain and u8 only: it reads no node row): the
+// loop is block-uniform around the block sweep, which every thread
+// joins. Before it, each thread runs its lane's trips that need no sweep
+// (the entry is finished or was skipped: fold and tail only), taking new
+// lanes as they retire, so that at the sweep every live lane sweeps. A
+// lane's trips are the same trips in the same order whichever loop runs
+// them.
+template <bool kDense, bool kTlas, bool kBf16>
 __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
                                   kDense ? kDenseMinBlocks : kMinBlocks)
     megakernel(MkCfg c, Tables tb, Out o) {
+  static_assert(!(kDense && (kTlas || kBf16)), "the dense kernel walks no rows");
   Ctx x{c, tb, Words{o.state, c.n_lanes, 0}};
-  const int stack_base = N_FIXED + (c.p_count > 1 ? 3 * c.p_count : 0);
+  const int stack_base = kAccBase<kTlas> + (c.p_count > 1 ? 3 * c.p_count : 0);
   const int E = c.e_count;
   Lane L;
   if constexpr (!kDense) {
-    while (take_live(x, L, o, stack_base)) {
+    while (take_live<kTlas>(x, L, o, stack_base)) {
       int trips = 0;
       do {
-        const bool in_chain = E > 0 && traverse_rows(x, L);
-        trip_tail(x, L, in_chain);
+        const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
+        trip_tail<kTlas>(x, L, in_chain);
         ++trips;
       } while (!L.done && trips < c.max_trips);
-      retire(x, L, trips, o, stack_base);
+      retire<kTlas>(x, L, trips, o, stack_base);
     }
   } else {
     __shared__ SweepSmem<kDenseThreads> sm;
     int trips = 0;
-    bool have = take_live(x, L, o, stack_base);
+    bool have = take_live<false>(x, L, o, stack_base);
     while (__syncthreads_or(have)) {
       while (have && !(L.entry < E && L.cur >= 0)) {
-        const bool in_chain = E > 0 && fold(x, L);
-        trip_tail(x, L, in_chain);
+        const bool in_chain = E > 0 && fold<false>(x, L, false, 1.0f);
+        trip_tail<false>(x, L, in_chain);
         have = end_trip(x, L, trips, o, stack_base);
       }
       // A thread that still holds a lane now needs a sweep.
@@ -923,7 +1086,7 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
             have ? L.lo.z : 0.0f, have ? L.ld.x : 0.0f, have ? L.ld.y : 0.0f,
             have ? L.ld.z : 0.0f, t_sw, sm);
         if (have) {
-          trip_tail(x, L, traverse_swept(x, L, col, t_sw));
+          trip_tail<false>(x, L, traverse_swept(x, L, col, t_sw));
           have = end_trip(x, L, trips, o, stack_base);
         }
       }
@@ -933,32 +1096,55 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
 
 }  // namespace
 
-extern "C" int tpurt_mk_fixed_words() { return N_FIXED; }
+// The lane words before the quota accumulators: enum Field and the TLAS
+// instantiation's enum TlasField.
+extern "C" int tpurt_mk_fixed_words() { return N_TLAS_END; }
 
 extern "C" const char* tpurt_mk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+namespace {
+
+using KernelFn = void (*)(MkCfg, Tables, Out);
+
+// The instantiation for ``variant`` = dense | tlas << 1 | bf16 << 2
+// (mega_cuda._variant), its threads a block, or null if there is none.
+KernelFn kernel_for(int variant, int* threads) {
+  *threads = kThreads;
+  switch (variant) {
+    case 0: return megakernel<false, false, false>;
+    case 2: return megakernel<false, true, false>;
+    case 4: return megakernel<false, false, true>;
+    case 6: return megakernel<false, true, true>;
+    case 1:
+    case 5:  // the dense kernel reads no node row: bounds format moot
+      *threads = kDenseThreads;
+      return megakernel<true, false, false>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
 // The launch configuration of one instantiation on the current device:
 // threads a block, resident blocks per SM, SMs. Returns a cudaError_t.
-extern "C" int tpurt_mk_occupancy(int dense, int* threads, int* blocks_per_sm, int* sms) {
+extern "C" int tpurt_mk_occupancy(int variant, int* threads, int* blocks_per_sm, int* sms) {
+  KernelFn fn = kernel_for(variant, threads);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = dense ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      blocks_per_sm, megakernel<true>, kDenseThreads, 0)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
-                                                                megakernel<false>, kThreads, 0);
-  *threads = dense ? kDenseThreads : kThreads;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads, 0);
   return (int)err;
 }
 
 // Launches the megakernel on ``stream`` — the dense instantiation when
-// ``dense`` is not null — as a persistent grid of resident blocks that
-// take lanes from ``queue`` (an int the caller zeroed); returns a
-// cudaError_t.
+// ``dense`` is not null, else the one cfg->tlas and cfg->bf16 name — as
+// a persistent grid of resident blocks that take lanes from ``queue``
+// (an int the caller zeroed); returns a cudaError_t.
 extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
                                const float* mats, const float* srows, const float* roots_f,
                                const int* roots_i, const int* meta, const float* slot_rd,
@@ -966,19 +1152,20 @@ extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float*
                                const DenseTable* dense, void* stream) {
   Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd, DenseTable{}};
   if (cfg->n_lanes <= 0) return (int)cudaGetLastError();
+  const int variant = (dense != nullptr) | (cfg->tlas != 0) << 1 | (cfg->bf16 != 0) << 2;
   int threads = 0, per_sm = 0, sms = 0;
-  int err = tpurt_mk_occupancy(dense != nullptr, &threads, &per_sm, &sms);
+  int err = tpurt_mk_occupancy(variant, &threads, &per_sm, &sms);
   if (err != 0) return err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int needed = (cfg->n_lanes + threads - 1) / threads;
   const int blocks = per_sm * sms < needed ? per_sm * sms : needed;
-  const Out o{state, trips, work, queue};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dense) {
-    tb.dt = *dense;
-    megakernel<true><<<blocks, threads, 0, s>>>(*cfg, tb, o);
-  } else {
-    megakernel<false><<<blocks, threads, 0, s>>>(*cfg, tb, o);
-  }
+  Out o{state, trips, work, queue};
+  if (dense) tb.dt = *dense;
+  MkCfg c = *cfg;
+  void* args[] = {&c, &tb, &o};
+  const cudaError_t launched =
+      cudaLaunchKernel((const void*)kernel_for(variant, &threads), dim3(blocks),
+                       dim3(threads), args, 0, (cudaStream_t)stream);
+  if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }

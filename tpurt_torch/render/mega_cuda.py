@@ -16,13 +16,15 @@ CPU lane state it runs the kernel's plain version,
 A brute-force context (``ctx.dense`` set, RenderConfig.mega_dense)
 launches the kernel's dense instantiation, whose traversal step is
 kernel B2's sweep (render/plucker_fused.py); those launches are counted
-in ``DENSE_LAUNCHES``.
+in ``DENSE_LAUNCHES``. A TLAS scene (``ctx.tlas``) and a bf16 bank
+(``ctx.bf16``) launch the instantiations compiled for them; their
+launches count in ``LAUNCHES``.
 
 The lane state crosses the C boundary as one contiguous (n_words, R)
 int32 buffer: ``LANE_WORDS`` (the kernel's ``enum Field``, word for
-word), then 3*P quota accumulators when P > 1, then the S stack slots
-top first. Bools travel as 0/1 words, u32 fields as their bits, floats
-by bit view.
+word), then in the TLAS regime ``TLAS_WORDS`` (``enum TlasField``), then
+3*P quota accumulators when P > 1, then the S stack slots top first.
+Bools travel as 0/1 words, u32 fields as their bits, floats by bit view.
 """
 
 from __future__ import annotations
@@ -62,6 +64,14 @@ LANE_WORDS: List[str] = [
     w for name, kind in _FIELDS
     for w in ([f"{name}.{c}" for c in "xyz"] if kind == "v" else [name])
 ]
+#: The TLAS regime's lane fields, one word each, after LANE_WORDS.
+_TLAS_FIELDS = [("in_inst", "b"), ("cur_inst", "b"), ("inst_mesh", "i"),
+                ("inst_scale", "f"), ("inst_cull", "b"), ("inst_os", "b")]
+TLAS_WORDS: List[str] = [name for name, _kind in _TLAS_FIELDS]
+#: Rows of the per-lane work count a launch returns: the first three, and
+#: in the TLAS regime all five.
+WORK_ROWS = ("box tests", "leaf rows", "segments", "instance enters",
+             "instance exits")
 _CACHE_FIELDS = ("c_set", "c_valid", "c_point", "c_normal", "c_back",
                  "c_mesh", "c_dst")
 
@@ -74,7 +84,7 @@ class _Cfg(ctypes.Structure):
         "n_static", "max_bounces", "rays_per_pixel", "seed_reference",
         "invisible_budget", "use_cache", "p_count", "pixel_stride", "width",
         "height", "tail_passes", "expand_passes", "n_skip", "leaf_tris",
-        "arity", "row_width", "frame_index", "sample_offset",
+        "arity", "row_width", "frame_index", "sample_offset", "tlas", "bf16",
     )]
 
 
@@ -111,6 +121,8 @@ def pack(lane: mk._Lane) -> torch.Tensor:
             rows.extend(_word(c, "f") for c in val)
         else:
             rows.append(_word(val, kind))
+    if lane.in_inst is not None:
+        rows.extend(_word(getattr(lane, n), kind) for n, kind in _TLAS_FIELDS)
     for acc in lane.accs:
         rows.extend(_word(c, "f") for c in acc)
     rows.extend(_word(s, "u") for s in lane.stack)
@@ -126,6 +138,10 @@ def unpack(buf: torch.Tensor, ctx: mk._Ctx, iters: int) -> mk._Lane:
             vals[name] = V3(*(_unword(buf[k + j], "f") for j in range(3)))
             k += 3
         else:
+            vals[name] = _unword(buf[k], kind)
+            k += 1
+    if ctx.tlas:
+        for name, kind in _TLAS_FIELDS:
             vals[name] = _unword(buf[k], kind)
             k += 1
     accs = []
@@ -146,7 +162,7 @@ def compare_lanes(a: mk._Lane, b: mk._Lane):
     lanes where both are finite)."""
     same = torch.ones_like(a.done)
     floats = []
-    for name, kind in _FIELDS:
+    for name, kind in _FIELDS + _TLAS_FIELDS:
         va, vb = getattr(a, name), getattr(b, name)
         if va is None:
             continue
@@ -215,20 +231,27 @@ def _lib():
         lib.tpurt_mk_fixed_words.restype = ctypes.c_int
         lib.tpurt_mk_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_mk_error_string.restype = ctypes.c_char_p
-        if lib.tpurt_mk_fixed_words() != len(LANE_WORDS):
-            raise RuntimeError(
-                "csrc/megakernel.cu enum Field and LANE_WORDS disagree")
+        if lib.tpurt_mk_fixed_words() != len(LANE_WORDS) + len(TLAS_WORDS):
+            raise RuntimeError("csrc/megakernel.cu enum Field / TlasField and "
+                               "LANE_WORDS / TLAS_WORDS disagree")
         lib._tpurt_ready = True
     return lib
 
 
-def launch_config(dense: bool, device=None) -> dict:
+def _variant(dense: bool, tlas: bool, bf16: bool) -> int:
+    """The kernel's instantiation as the C interface names it."""
+    return int(dense) | int(tlas) << 1 | int(bf16) << 2
+
+
+def launch_config(dense: bool, device=None, tlas: bool = False,
+                  bf16: bool = False) -> dict:
     """The persistent launch of one instantiation on ``device``: threads
     a block, resident blocks per SM, SMs, and the resident lanes."""
     lib = _lib()
     vals = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
-        err = lib.tpurt_mk_occupancy(int(dense), *(ctypes.byref(v) for v in vals))
+        err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16),
+                                     *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError("megakernel occupancy query failed: "
                            + lib.tpurt_mk_error_string(err).decode())
@@ -240,8 +263,9 @@ def launch_config(dense: bool, device=None) -> dict:
 def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     """Run the kernel in place on a packed CUDA lane buffer; returns the
     (R,) int32 trips each lane ran and the (3, R) int32 work of each
-    lane in this launch: child-box tests in node rows, leaf rows (dense:
-    entry sweeps), segment completions."""
+    lane in this launch (``WORK_ROWS``): child-box tests in node rows,
+    leaf rows (dense: entry sweeps), segment completions; in the TLAS
+    regime (5, R), with instance enters and exits."""
     global LAUNCHES, DENSE_LAUNCHES
     if buf.device.type != "cuda":
         raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
@@ -249,7 +273,8 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         raise ValueError("lane buffer must be a contiguous (n_words, R) int32 tensor")
     r = buf.shape[1]
     acc_words = 3 * ctx.p_count if ctx.p_count > 1 else 0
-    if buf.shape[0] != len(LANE_WORDS) + acc_words + ctx.s_depth:
+    tlas_words = len(TLAS_WORDS) if ctx.tlas else 0
+    if buf.shape[0] != len(LANE_WORDS) + tlas_words + acc_words + ctx.s_depth:
         raise ValueError(f"lane buffer has {buf.shape[0]} words per lane")
     if ctx.s_depth > _MAX_STACK:
         raise ValueError(f"stack depth {ctx.s_depth} exceeds {_MAX_STACK}")
@@ -262,7 +287,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     # same stream.
     tabs = _tables(ctx, dev)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
-    work = torch.empty((3, r), dtype=torch.int32, device=dev)
+    work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     cfg = _Cfg(
         n_lanes=r, max_trips=2 ** 31 - 1 if max_trips is None else int(max_trips),
@@ -276,6 +301,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         expand_passes=ctx.expand_passes, n_skip=ctx.n_skip,
         leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=rows.shape[1],
         frame_index=ctx.frame_index, sample_offset=ctx.sample_offset,
+        tlas=int(ctx.tlas), bf16=int(ctx.bf16),
     )
     dense = None
     if ctx.dense is not None:

@@ -1,6 +1,7 @@
 """Persistent-lane megakernel integrator: the plain PyTorch version, the
 lane state both backends share, and ``run_megakernel`` (port of
-tpurt/render/megakernel.py, unrolled-chain regime with u8 bounds).
+tpurt/render/megakernel.py: the unrolled chain and the many-instance
+(TLAS) regime, u8 and bf16 node bounds).
 
 Each lane owns its whole task — pixel quota, sample loop, bounce loop,
 mesh chain, BVH cursor — as a state machine, and one loop trip advances
@@ -12,8 +13,16 @@ accumulate/advance -> restart -> inline static stage -> chain enter with
 root pretest, chain skip and root expansion. ``_body_math`` below is
 that trip as tensor ops over (R,) lanes — the same transcription as
 tpurt's ``_body_math``, op for op and in the same association order,
-minus the regimes not ported yet (TLAS, bf16 bounds, jitter, list
-quotas, cross-frame packs).
+minus the regimes not ported yet (jitter, list quotas, cross-frame
+packs).
+
+In the TLAS regime (``Scene.mega_tlas``) the instanced meshes are
+instance rows under a top-level BVH reached through one ``-2`` chain
+entry: a traversal step on an instance row enters it (the instance's
+transform and root pretest, pushing an exit marker) or, once the marker
+pops, exits it (the fold of the instance's best hit to world space and
+the return to the world ray). Six lane fields (``in_inst`` ...
+``inst_os``) carry the instance frame; they are None otherwise.
 
 The brute-force mode (``dense=True``, RenderConfig.mega_dense) replaces
 the traversal step: each trip resolves a lane's whole chain entry with
@@ -52,7 +61,7 @@ from tpurt_torch.core.vecmath import euler_rotation
 from tpurt_torch.render.intersect import mt_core as _mt_core
 from tpurt_torch.render.intersect import mt_rows
 from tpurt_torch.render.shading import pack_materials, shade_hit_soa
-from tpurt_torch.scene.builder import MEGA_SLOT_BITS
+from tpurt_torch.scene.builder import MEGA_ITAG, MEGA_SLOT_BITS
 from tpurt_torch.scene.types import MaterialType, Scene
 
 _F32 = torch.float32
@@ -65,6 +74,12 @@ _EMPTY = 0xFFFFFFFF  # empty stack slot
 #: clear = a (row << SLOT_BITS | slot) parent resume.
 _TAG = 0x80000000
 _SLOT_MASK = (1 << MEGA_SLOT_BITS) - 1
+#: TLAS regime: meta bit 28 marks an instance-row target in child slots
+#: and resolved stack entries; on a resolved entry popped inside an
+#: instance it is the exit marker. Targets stay below 2^27.
+_ITAG = MEGA_ITAG
+_META_T = MEGA_ITAG - 1  # meta target bits: target << 1 | is_leaf
+_HI16 = 0xFFFF0000  # bf16 bounds: the top half of a word
 
 # Packed chain-parameter table columns (tpurt's (E, 21) layout).
 _CP_POS = 0  # 3 columns
@@ -120,6 +135,13 @@ class _Lane(NamedTuple):
     c_back: Optional[torch.Tensor] = None
     c_mesh: Optional[torch.Tensor] = None
     c_dst: Optional[torch.Tensor] = None
+    # TLAS regime only (None otherwise)
+    in_inst: Optional[torch.Tensor] = None  # (R,) bool inside an instance
+    cur_inst: Optional[torch.Tensor] = None  # (R,) bool cur is an instance row
+    inst_mesh: Optional[torch.Tensor] = None  # (R,) i32 owner, set at enter
+    inst_scale: Optional[torch.Tensor] = None  # (R,) f32 (1.0 outside)
+    inst_cull: Optional[torch.Tensor] = None  # (R,) bool backface-cull policy
+    inst_os: Optional[torch.Tensor] = None  # (R,) bool OneSided at exit
 
 
 class _ChainParams(NamedTuple):
@@ -172,6 +194,11 @@ class _Ctx(NamedTuple):
     leaf_tris: int
     arity: int
     dense: Optional["DenseTable"] = None  # the brute-force sweep's table
+    tlas: bool = False  # the many-instance regime (Scene.mega_tlas)
+    bf16: bool = False  # bf16 node-row child bounds
+    # (mesh -> slot, slot -> representative mesh) as (K,) and (U,) i32
+    # tensors: the shade fetch's material slots (TLAS regime).
+    mat_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _cull_policy(mt: int) -> bool:
@@ -190,6 +217,12 @@ def _chain_params(scene: Scene) -> _ChainParams:
     qmin = scene.mesh_qmin.cpu().numpy()
     qscale = scene.mesh_qscale.cpu().numpy()
     for mesh_idx, _root, _leaf in scene.mega_chain:
+        if mesh_idx == -2:  # TLAS entry: identity transform, the union of
+            # the instances' world boxes as its pretest box
+            rows.append(np.array(
+                [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0,
+                 1.0, 0.0, 1.0, *scene.mega_tlas_bounds], np.float32))
+            continue
         if mesh_idx < 0:  # fused static entry: identity transform
             rows.append(np.array(
                 [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0,
@@ -208,10 +241,12 @@ def _chain_params(scene: Scene) -> _ChainParams:
             rmin, rmax,
         ]).astype(np.float32))
     chain = scene.mega_chain
+    # A TLAS root holds ITAG-tagged instance metas, which the expansion
+    # does not decode: it is entered through its root row.
     expand = tuple(
         bool(_cfg.MEGA_ROOT_EXPAND) and len(chain) <= _cfg.MEGA_ROOT_EXPAND_MAX_E
-        and not leaf
-        for _m, _r, leaf in chain
+        and not leaf and m != -2
+        for m, _r, leaf in chain
     )
     table = np.stack(rows)
     roots_f = roots_i = None
@@ -231,12 +266,22 @@ def _chain_params(scene: Scene) -> _ChainParams:
     )
 
 
+def _bf16_halves(w0, w1, w2):
+    """A bf16 child slot's three words (u32 values held in a wider
+    integer type) -> the six f32 bit patterns bmin.xyz, bmax.xyz: each
+    word holds two bf16 values, decoded as the top half of an f32 with a
+    zero low half (tpurt's shift/mask decode)."""
+    return [h for w in (w0, w1, w2) for h in ((w << 16) & _HI16, w & _HI16)]
+
+
 def _root_tables(scene: Scene, chain_roots, expand):
     """Each expanded entry's root-node test inputs: the sort axis, the
-    per-slot child bounds DECODED with the in-loop expression
-    ``grid_o + q * grid_s`` in f32, and the child metas."""
+    per-slot child bounds DECODED as the in-loop decode computes them
+    (u8: ``grid_o + q * grid_s`` in f32; bf16: the word halves as f32
+    top halves), and the child metas."""
     arity = scene.mega_arity
     roots = scene.mega_rows[list(chain_roots)].cpu().numpy()  # just these rows
+    bf16 = scene.mega_bounds_fmt == "bf16"
     f_rows, i_rows = [], []
     for e in range(len(chain_roots)):
         if not expand[e]:
@@ -249,6 +294,13 @@ def _root_tables(scene: Scene, chain_roots, expand):
         cols = [np.float32(ints[6])]
         metas = []
         for slot in range(arity):
+            if bf16:
+                base = 7 + 4 * slot
+                metas.append(ints[base + 3])
+                cols.extend(np.array(
+                    _bf16_halves(*bits[base:base + 3].astype(np.uint64)),
+                    np.uint64).astype(np.uint32).view(np.float32))
+                continue
             base = 7 + 3 * slot
             w0, w1 = bits[base], bits[base + 1]
             metas.append(ints[base + 2])
@@ -449,6 +501,69 @@ def _seed(ctx: _Ctx, pix, sample_u):
 # ---------------------------------------------------------------------------
 
 
+class _Inst(NamedTuple):
+    """A trip's instance-row step (TLAS regime): enter and exit lanes and
+    what each needs (tpurt _body_math's instance branch)."""
+
+    on: torch.Tensor  # the lane's row is an instance row
+    enter_ok: torch.Tensor  # entering: pretest passed, scale not degenerate
+    skip: torch.Tensor  # entering, but the instance is skipped
+    exit: torch.Tensor  # the exit marker brought the lane back
+    lo: V3  # the instance's local ray (enter)
+    ld: V3
+    lid: V3
+    mesh: torch.Tensor  # owner mesh, flags and root meta of the row
+    scale: torch.Tensor
+    flags: torch.Tensor
+    rootmeta: torch.Tensor
+    fold: torch.Tensor  # exit lanes whose local best folds to world space
+    point: V3  # that best in world space
+    normal: V3
+    dst: torch.Tensor
+
+
+def _f32_of_u32(v):
+    """int64 tensor of u32 bit patterns -> f32 tensor of those bits."""
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(_I32).view(_F32)
+
+
+def _instance_step(s: _Lane, ctx: _Ctx, trav, col, coli) -> _Inst:
+    """An instance row read by the lane (builder.MEGA_INST_ROW_WORDS):
+    enter = WorldToLocalRay with the baked transform, in _enter's op
+    order, then the root pretest (a degenerate scale skips the instance,
+    Trace.cl:448-449); exit = LocalToWorldHit of the local best, in the
+    fold's op order (Trace.cl:139-156)."""
+    on = trav & s.cur_inst
+    enter, leave = on & ~s.in_inst, on & s.in_inst
+
+    def rot_t(v: V3) -> V3:  # out_i = sum_j rot[j][i] * v_j
+        return V3(*(col(3 + i) * v.x + col(6 + i) * v.y + col(9 + i) * v.z
+                    for i in range(3)))
+
+    def rot_f(v: V3) -> V3:  # out_i = sum_j rot[i][j] * v_j
+        return V3(*(col(3 + 3 * i) * v.x + col(4 + 3 * i) * v.y
+                    + col(5 + 3 * i) * v.z for i in range(3)))
+
+    pos = V3(col(0), col(1), col(2))
+    scale = col(12)
+    safe = _safe(scale)
+    lo = rot_t(s.origin - pos) / safe
+    ld = v3lib.normalize(rot_t(s.direction) / safe)
+    lid = V3(1.0 / ld.x, 1.0 / ld.y, 1.0 / ld.z)
+    pre = _aabb_soa(lo, lid, V3(col(16), col(17), col(18)),
+                    V3(col(19), col(20), col(21)), s.w_dst / safe * _GROW)
+    ok = pre & (scale > _EPS)
+    point = rot_f((s.lo + s.ld * s.lt) * scale) + pos
+    point_dst = v3lib.length(point - s.origin)
+    return _Inst(
+        on=on, enter_ok=enter & ok, skip=enter & ~ok, exit=leave, lo=lo,
+        ld=ld, lid=lid, mesh=coli(14), scale=scale, flags=coli(13),
+        rootmeta=coli(15),
+        fold=leave & (s.lmesh >= 0) & ~(s.inst_os & s.lback),
+        point=point, normal=v3lib.normalize(rot_f(s.lnrm)), dst=point_dst,
+    )
+
+
 def _traverse(s: _Lane, ctx: _Ctx):
     """The trip's traversal step (one bank row per lane) and the chain
     fold of entries that finished. Returns the post-traversal lane and
@@ -456,6 +571,7 @@ def _traverse(s: _Lane, ctx: _Ctx):
     e_count = ctx.e_count
     p = ctx.params
     tab = p.table
+    tlas = ctx.tlas
     trav = ~s.done & (s.entry < e_count) & (s.cur >= 0)
     ec = torch.clamp_max(s.entry, e_count - 1).long()
     idx = torch.where(trav, s.cur, 0).long()
@@ -463,7 +579,10 @@ def _traverse(s: _Lane, ctx: _Ctx):
     col = lambda j: row[:, j]
     coli = lambda j: row_i[:, j]
     scale_e = tab[ec, _CP_SCALE]
+    if tlas:  # the lane's current frame: the instance's inside one
+        scale_e = torch.where(s.in_inst, s.inst_scale, scale_e)
     limit = torch.minimum(s.lt, s.w_dst / _safe(scale_e) * _GROW)
+    inst = _instance_step(s, ctx, trav, col, coli) if tlas else None
 
     # --- leaf branch: inline exact MT tests ---------------------------
     leaf_on = trav & s.cur_leaf
@@ -479,6 +598,10 @@ def _traverse(s: _Lane, ctx: _Ctx):
             (aux >= 0) & (aux < k_meshes),
             ctx.mesh_cull[torch.clamp(aux, 0, k_meshes - 1).long()], True)
         cull = torch.where(is_static, owner_cull, cull_mesh_e)
+        cand_mesh = torch.where(is_static, aux, entry_mesh)
+        if tlas:  # inside an instance, its own policy and owner
+            cull = torch.where(s.in_inst, s.inst_cull, cull)
+            cand_mesh = torch.where(s.in_inst, s.inst_mesh, cand_mesh)
         cv = lambda j: V3(col(j), col(j + 1), col(j + 2))
         pa = cv(b)
         ok, t, n, backface = _mt_core(s.lo, s.ld, pa, cv(b + 3) - pa,
@@ -488,10 +611,12 @@ def _traverse(s: _Lane, ctx: _Ctx):
         lt = torch.where(win, t, lt)
         lnrm = v3lib.where(win, n, lnrm)
         lback = torch.where(win, backface, lback)
-        lmesh = torch.where(win, torch.where(is_static, aux, entry_mesh), lmesh)
+        lmesh = torch.where(win, cand_mesh, lmesh)
 
-    # --- node branch: arity u8-quantised children, nearest first -------
+    # --- node branch: arity quantised children, nearest first ---------
     node_on = trav & ~s.cur_leaf
+    if tlas:  # instance rows are not node rows
+        node_on &= ~s.cur_inst
     grid_o = V3(col(0), col(1), col(2))
     grid_s = V3(col(3), col(4), col(5))
     sort_axis = coli(6)
@@ -503,12 +628,21 @@ def _traverse(s: _Lane, ctx: _Ctx):
     best = (zeros_i + arity, zeros_i, zeros_i + arity, zeros_i, zeros_i)
     b2f = lambda w: w.to(_F32)
     for slot in range(arity):
-        base = 7 + 3 * slot
-        w0, w1, meta = coli(base), coli(base + 1), coli(base + 2)
-        q_lo = V3(b2f(w0 & 255), b2f((w0 >> 8) & 255), b2f((w0 >> 16) & 255))
-        q_hi = V3(b2f((w0 >> 24) & 255), b2f(w1 & 255), b2f((w1 >> 8) & 255))
-        hit = _aabb_soa(s.lo, s.lid, grid_o + q_lo * grid_s,
-                        grid_o + q_hi * grid_s, limit)
+        if ctx.bf16:  # absolute bounds, two bf16 a word
+            base = 7 + 4 * slot
+            meta = coli(base + 3)
+            h = [_f32_of_u32(x) for x in _bf16_halves(
+                *(coli(base + j).long() & 0xFFFFFFFF for j in range(3)))]
+            bmin, bmax = V3(*h[:3]), V3(*h[3:])
+        else:  # u8 on the node's grid
+            base = 7 + 3 * slot
+            w0, w1, meta = coli(base), coli(base + 1), coli(base + 2)
+            q_lo = V3(b2f(w0 & 255), b2f((w0 >> 8) & 255),
+                      b2f((w0 >> 16) & 255))
+            q_hi = V3(b2f((w0 >> 24) & 255), b2f(w1 & 255),
+                      b2f((w1 >> 8) & 255))
+            bmin, bmax = grid_o + q_lo * grid_s, grid_o + q_hi * grid_s
+        hit = _aabb_soa(s.lo, s.lid, bmin, bmax, limit)
         prio = torch.where(fwd, slot, arity - 1 - slot).to(_I32)
         hit &= (meta != 0) & (prio >= s.cur_slot)
         best = _two_best(hit, prio, meta, best)
@@ -524,6 +658,13 @@ def _traverse(s: _Lane, ctx: _Ctx):
     resume_entry = ((torch.where(trav, s.cur, 0).long() << MEGA_SLOT_BITS)
                     | (second_prio + 1).long())
     child_entry = _TAG | second_meta.long()
+    if tlas:
+        # A passing enter pushes the exit marker (a resolved entry that
+        # targets this instance row); a skipped enter or an exit pops.
+        marker = _TAG | _ITAG | (torch.where(inst.on, s.cur, 0).long() << 1)
+        child_entry = torch.where(inst.enter_ok, marker, child_entry)
+        push_child = push_child | inst.enter_ok
+        pop = pop | inst.skip | inst.exit
     top = s.stack[0]
     top_empty = top == _EMPTY
     pop_shift = pop & ~top_empty
@@ -541,13 +682,15 @@ def _traverse(s: _Lane, ctx: _Ctx):
                     stack1[i])
         for i in range(s_depth)
     )
-    cur = torch.where(descend, first_meta >> 1, s.cur)
+    # Targets are below 2^27, so masking the meta's ITAG bit changes
+    # nothing outside the TLAS regime.
+    cur = torch.where(descend, (first_meta & _META_T) >> 1, s.cur)
     cur_leaf = torch.where(descend, (first_meta & 1) == 1, s.cur_leaf)
     cur_slot = torch.where(descend, 0, s.cur_slot)
     resume = pop & ~top_empty
     top_resolved = (top & _TAG) != 0
     top_meta = top & 0x7FFFFFFF
-    cur_popped = torch.where(top_resolved, top_meta >> 1,
+    cur_popped = torch.where(top_resolved, (top_meta & _META_T) >> 1,
                              top >> MEGA_SLOT_BITS).to(_I32)
     slot_popped = torch.where(top_resolved, 0, top & _SLOT_MASK).to(_I32)
     cur = torch.where(resume, cur_popped, cur)
@@ -555,8 +698,48 @@ def _traverse(s: _Lane, ctx: _Ctx):
     cur_leaf = torch.where(resume, top_resolved & ((top_meta & 1) == 1),
                            cur_leaf)
     cur = torch.where(pop & top_empty, -1, cur)
-    return _fold(s, ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur, cur_leaf,
-                 cur_slot, stack)
+    if not tlas:
+        return _fold(s, ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur,
+                     cur_leaf, cur_slot, stack)
+
+    # Instance enter (descend to the mesh root in the instance's frame)
+    # and exit (fold its best hit into the world best, then back to the
+    # world ray, recomputed with _enter's exact ops).
+    ok = inst.enter_ok
+    cur = torch.where(ok, (inst.rootmeta & _META_T) >> 1, cur)
+    cur_leaf = torch.where(ok, (inst.rootmeta & 1) == 1, cur_leaf)
+    cur_slot = torch.where(ok, 0, cur_slot)
+    cur_inst = torch.where(descend, (first_meta & _ITAG) != 0, s.cur_inst)
+    cur_inst = torch.where(resume, top_resolved & ((top_meta & _ITAG) != 0),
+                           cur_inst)
+    cur_inst = cur_inst & ~ok & ~(pop & top_empty)
+    lo_w, ld_w, lid_w, _root, _leaf = _enter(ctx, s.entry, s.origin,
+                                             s.direction)
+    closer = inst.fold & (inst.dst < s.w_dst)
+    base = s._replace(
+        w_valid=s.w_valid | closer,
+        w_dst=torch.where(closer, inst.dst, s.w_dst),
+        w_point=v3lib.where(closer, inst.point, s.w_point),
+        w_normal=v3lib.where(closer, inst.normal, s.w_normal),
+        w_back=torch.where(closer, s.lback, s.w_back),
+        w_mesh=torch.where(closer, s.lmesh, s.w_mesh),
+    )
+    out = inst.exit
+    zeros = torch.zeros_like(lt)
+    t, in_chain = _fold(
+        base, ctx, ec, scale_e, torch.where(out, _INF, lt),
+        v3lib.where(out, V3(zeros, zeros, zeros), lnrm), lback & ~out,
+        torch.where(out, -1, lmesh), cur, cur_leaf, cur_slot, stack)
+    frame = lambda a, b, c: v3lib.where(ok, a, v3lib.where(out, b, c))
+    return t._replace(
+        lo=frame(inst.lo, lo_w, s.lo), ld=frame(inst.ld, ld_w, s.ld),
+        lid=frame(inst.lid, lid_w, s.lid), cur_inst=cur_inst,
+        in_inst=(s.in_inst | ok) & ~out,
+        inst_mesh=torch.where(ok, inst.mesh, s.inst_mesh),
+        inst_scale=torch.where(ok, inst.scale, s.inst_scale),
+        inst_cull=torch.where(ok, (inst.flags & 2) != 0, s.inst_cull),
+        inst_os=torch.where(ok, (inst.flags & 1) != 0, s.inst_os),
+    ), in_chain
 
 
 def _dense_hit(s: _Lane, ctx: _Ctx, ec):
@@ -632,15 +815,15 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
     res = shade_hit_soa(
         ctx.mats, shade, t.w_valid, t.w_point, t.w_normal, t.w_back,
         t.w_mesh, t.origin, t.direction, t.throughput, t.light, t.rng,
-        t.bounces, ctx.max_bounces,
+        t.bounces, ctx.max_bounces, mat_slots=ctx.mat_slots,
     )
     invis = t.invis + (shade & res.invisible).to(_I32)
     continuing = res.continuing & ~(res.invisible & (invis > ctx.invisible_budget))
 
-    cache = {}
+    opt = {}
     if ctx.use_cache:  # primary-hit cache store (sample 0, bounce 0)
         store = shade & ~t.c_set & (t.bounces == 0) & (t.sample == 0)
-        cache = dict(
+        opt = dict(
             c_set=t.c_set | store,
             c_valid=torch.where(store, t.w_valid, t.c_valid),
             c_point=v3lib.where(store, t.w_point, t.c_point),
@@ -702,8 +885,8 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
     # Cached primary replay: new samples with a cache skip the chain (a
     # quota advance invalidates the cache — it belongs to the old pixel).
     if ctx.use_cache:
-        cache["c_set"] = cache["c_set"] & ~advance
-        replay = new_sample & cache["c_set"]
+        opt["c_set"] = opt["c_set"] & ~advance
+        replay = new_sample & opt["c_set"]
     else:
         replay = torch.zeros_like(new_sample)
     restart = cont | (new_sample & ~replay)
@@ -721,12 +904,12 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
     w_mesh = torch.where(restart, sm, torch.where(shade, -1, t.w_mesh))
     if ctx.use_cache:
         entry = torch.where(replay, e_count, entry)
-        w_valid = torch.where(replay, cache["c_valid"], w_valid)
-        w_dst = torch.where(replay, cache["c_dst"], w_dst)
-        w_point = v3lib.where(replay, cache["c_point"], w_point)
-        w_normal = v3lib.where(replay, cache["c_normal"], w_normal)
-        w_back = torch.where(replay, cache["c_back"], w_back)
-        w_mesh = torch.where(replay, cache["c_mesh"], w_mesh)
+        w_valid = torch.where(replay, opt["c_valid"], w_valid)
+        w_dst = torch.where(replay, opt["c_dst"], w_dst)
+        w_point = v3lib.where(replay, opt["c_point"], w_point)
+        w_normal = v3lib.where(replay, opt["c_normal"], w_normal)
+        w_back = torch.where(replay, opt["c_back"], w_back)
+        w_mesh = torch.where(replay, opt["c_mesh"], w_mesh)
 
     cur, cur_leaf, cur_slot = t.cur, t.cur_leaf, t.cur_slot
     lo, ld, lid = t.lo, t.ld, t.lid
@@ -767,6 +950,11 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
                     ctx, e_x, entering & ok_e & (entry == e_x), lo, ld, lid,
                     t.lt, w_dst, cur, cur_leaf, stack,
                 )
+        if ctx.tlas:
+            # An entering lane starts at the entry's root (a node row) in
+            # the world frame.
+            opt.update(cur_inst=t.cur_inst & ~entering,
+                         in_inst=t.in_inst & ~entering)
 
     return t._replace(
         ro0=ro0, rd0=rd0, pix=pix, pixno=pixno, sample=sample, acc=acc,
@@ -775,7 +963,7 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
         bounces=bounces, invis=invis, entry=entry, cur=cur,
         cur_leaf=cur_leaf, cur_slot=cur_slot, stack=stack, lo=lo, ld=ld,
         lid=lid, w_valid=w_valid, w_dst=w_dst, w_point=w_point,
-        w_normal=w_normal, w_back=w_back, w_mesh=w_mesh, **cache,
+        w_normal=w_normal, w_back=w_back, w_mesh=w_mesh, **opt,
     )
 
 
@@ -857,8 +1045,6 @@ def run_megakernel(
         _unsupported("pixel_list (list-quota mode)", "A.4")
     if frames_per_batch > 1:
         _unsupported("frames_per_batch > 1 (cross-frame packing)", "A.3")
-    if scene.mega_tlas or scene.mega_bounds_fmt != "u8":
-        _unsupported("TLAS scenes and bf16 bounds", "A.2")
     if body_backend not in ("plain", "cuda"):
         raise ValueError(f"unknown body_backend: {body_backend!r}")
     if max_bounces <= 0 and not return_state:
@@ -912,6 +1098,16 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                                  roots_i=None)
         table = build_dense_table(scene)
     use_cache = rays_per_pixel > 1
+    tlas = bool(scene.mega_tlas)
+    if tlas and dense:
+        raise ValueError(
+            "dense (brute-force) mode walks chain entries per mesh; freeze "
+            "TLAS scenes with MEGA_TLAS_THRESHOLD above the instance count "
+            "to use it")
+    mat_slots = None
+    if tlas and scene.mesh_mat_slot:
+        mat_slots = tuple(torch.tensor(v, dtype=_I32, device=dev) for v in (
+            scene.mesh_mat_slot, scene.mat_slot_rep))
     mat_type = scene.mat_type.cpu().numpy()
     stride = r if pixel_stride is None else int(pixel_stride)
     ctx = _Ctx(
@@ -934,6 +1130,7 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         n_skip=(min(e_count - 1, _cfg.MEGA_SKIP_CAP)
                 if e_count <= _cfg.SELECT_GATHER_THRESHOLD else 0),
         leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity, dense=table,
+        tlas=tlas, bf16=scene.mega_bounds_fmt == "bf16", mat_slots=mat_slots,
     )
 
     if p_count > 1:
@@ -985,11 +1182,14 @@ def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
     else:
         lo0, ld0, lid0 = ro0, rd0, V3(1.0 / rd0.x, 1.0 / rd0.y, 1.0 / rd0.z)
         cur0, cur_leaf0 = zeros_i - 1, falses
-    cache = {}
+    opt = {}
     if ctx.use_cache:
-        cache = dict(c_set=falses, c_valid=falses, c_point=zero3,
+        opt = dict(c_set=falses, c_valid=falses, c_point=zero3,
                      c_normal=zero3, c_back=falses, c_mesh=zeros_i - 1,
                      c_dst=zeros + _INF)
+    if ctx.tlas:  # lanes start outside any instance, at a node row
+        opt.update(in_inst=falses, cur_inst=falses, inst_mesh=zeros_i - 1,
+                     inst_scale=ones, inst_cull=falses, inst_os=falses)
     return _Lane(
         iters=0, ro0=ro0, rd0=rd0, pix=pix, pixno=zeros_i, sample=zeros_i,
         acc=zero3,
@@ -1000,5 +1200,5 @@ def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
         cur=cur0, cur_leaf=cur_leaf0, cur_slot=zeros_i, stack=stack,
         lo=lo0, ld=ld0, lid=lid0, lt=zeros + _INF, lnrm=zero3, lback=falses,
         lmesh=zeros_i - 1, w_valid=sv, w_dst=sd, w_point=sp, w_normal=sn,
-        w_back=sb, w_mesh=sm, **cache,
+        w_back=sb, w_mesh=sm, **opt,
     )

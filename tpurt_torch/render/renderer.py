@@ -5,7 +5,10 @@ flat batches and the modular engine's tiles.
 ceil(W*H / (B * pixels_per_lane)) megakernel launches of B lanes, each
 lane owning a quota of pixels at stride B; seeds and rays are pure
 functions of the absolute pixel, so any decomposition gives the same
-frame. ``mega_dense=True`` runs the brute-force megakernel.
+frame. A scene frozen into the TLAS regime (more instanced meshes than
+config.MEGA_TLAS_THRESHOLD) or with bf16 node bounds renders through the
+same path. ``mega_dense=True`` runs the brute-force megakernel; a TLAS
+scene refuses it, as tpurt's does.
 
 ``engine="modular"``: tiles of ``tile_size`` swept row-major, edge tiles
 rendered at full shape and cropped; each tile intersects its primary
@@ -25,8 +28,10 @@ The port runs tpurt's plain flat schedule: ``compaction_threshold`` is
 read but the staged drivers are not ported (ROADMAP A.5);
 ``mega_interleave`` and ``mega_schedule`` are bitwise no-ops by contract
 and are ignored. ``subpixel_jitter``, ``mega_frames_per_batch > 1``,
-``sample_flatten``, accumulators and TLAS scenes raise
-NotImplementedError naming their ROADMAP item.
+``sample_flatten`` and accumulators raise NotImplementedError naming
+their ROADMAP item. The modular engine walks ``scene.node_*`` and
+ignores the TLAS (tpurt's tests/test_tlas.py holds the two engines
+equal on a TLAS scene).
 """
 
 from __future__ import annotations

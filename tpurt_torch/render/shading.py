@@ -2,9 +2,12 @@
 Trace.cl:502-591): five materials, full Fresnel, Russian roulette.
 
 Materials are fetched with an indexed read of the packed (K, 11) table —
-the same values tpurt's select chains produce. tpurt's material-set
-pruning only saves code size on the TPU and is bitwise-neutral, so the
-port keeps every branch.
+the same values tpurt's select chains produce — or, given the scene's
+material slots (``Scene.mesh_mat_slot`` / ``mat_slot_rep``, the
+freeze-time dedup by value), through the two-level index
+``mats[rep[slot[mesh]]]``, which reads the same fields. tpurt's
+material-set pruning only saves code size on the TPU and is
+bitwise-neutral, so the port keeps every branch.
 
 ``shade_hit_soa`` carries vectors as V3 component triples (the
 megakernel's layout); ``shade_hit`` is the (R, 3)-row wrapper the modular
@@ -67,10 +70,18 @@ def pack_materials(scene: Scene) -> torch.Tensor:
     ], dim=1)
 
 
-def select_material_soa(mats: torch.Tensor, mesh_idx: torch.Tensor):
+def select_material_soa(mats: torch.Tensor, mesh_idx: torch.Tensor,
+                        mat_slots=None):
     """Per-lane material fields for mesh ids in [0, K) (colors as V3;
-    mtype stays f32, exact small ints)."""
-    rows = mats[mesh_idx.long()]  # (R, 11)
+    mtype stays f32, exact small ints). ``mat_slots``: (mesh -> slot,
+    slot -> representative mesh) as sequences or i32 tensors; the fetch
+    then reads the slot's representative (tpurt's two-level fetch)."""
+    idx = mesh_idx.long()
+    if mat_slots is not None:
+        slot, rep = (torch.as_tensor(m, device=mats.device).long()
+                     for m in mat_slots)
+        idx = rep[slot[idx]]
+    rows = mats[idx]  # (R, 11)
     c = lambda j: rows[:, j]
     return (
         c(MAT_TYPE), c(MAT_IOR),
@@ -95,11 +106,13 @@ def shade_hit_soa(
     rng: torch.Tensor,
     bounces: torch.Tensor,
     max_bounces: int,
+    mat_slots=None,
 ) -> ShadeResultSoA:
     """One material interaction for lanes where ``enabled``; all other
-    lanes pass through untouched, RNG stream included."""
+    lanes pass through untouched, RNG stream included. ``mat_slots`` as
+    for ``select_material_soa``."""
     mtype, ior, color, em_color, em_strength, refl, spec_prob = (
-        select_material_soa(mats, torch.clamp_min(hit_mesh, 0))
+        select_material_soa(mats, torch.clamp_min(hit_mesh, 0), mat_slots)
     )
     a_hit = enabled & hit_valid
     invisible = a_hit & (mtype == float(MaterialType.INVISIBLE))

@@ -1,5 +1,5 @@
 """SceneBuilder: host-side scene assembly -> frozen torch Scene (port of
-tpurt/scene/builder.py, unrolled-chain regime).
+tpurt/scene/builder.py).
 
 Geometry, BVHs, the modular engine's threaded node rows and the
 megakernel row bank are built in numpy exactly as tpurt builds them —
@@ -8,16 +8,20 @@ C++ builder behind ``_native``), and the emitters below are the same
 code — so the port's banks are bit-identical to tpurt's
 (tests/test_torch_scene.py and tests/test_torch_config.py hold them so).
 
-Supported at freeze: u8 child bounds, the arity and leaf counts from
-``tpurt_torch.config``, the inline static stage, one fused static chain
-entry plus one entry per instanced mesh. The TLAS regime (more
-instanced meshes than ``MEGA_TLAS_THRESHOLD``), bf16 bounds and material
-slots raise NotImplementedError (ROADMAP A.2).
+Freeze reads from ``tpurt_torch.config`` the child-bounds format (u8 on
+the node's grid, or bf16 with ``MEGA_BF16_BOUNDS``), the arity and the
+leaf size. It emits the inline static stage, one fused static chain
+entry, and either one chain entry per instanced mesh or, above
+``MEGA_TLAS_THRESHOLD`` instanced meshes, tpurt's many-instance (TLAS)
+regime: one instance row per mesh under a world-space top-level BVH in
+the same bank, reached through a single ``-2`` chain entry. Materials
+are deduplicated by value into slots (``Scene.mesh_mat_slot``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -38,9 +42,11 @@ MEGA_SLOT_BITS = 6
 MEGA_STATIC_MAX_TRIS = 64
 
 
-def mega_row_width(leaf_tris: int, arity: int) -> int:
-    """Bank row width for u8 bounds (tpurt builder.mega_row_width)."""
-    w = max(19 * leaf_tris, 7 + 3 * arity)
+def mega_row_width(leaf_tris: int, arity: int, bounds_fmt: str = "u8") -> int:
+    """Bank row width (tpurt builder.mega_row_width): 19 words a leaf
+    triangle; a node row 7 + 3 words a child (u8) or 7 + 4 (bf16)."""
+    node_w = 7 + (4 if bounds_fmt == "bf16" else 3) * arity
+    w = max(19 * leaf_tris, node_w)
     w = -(-w // 8) * 8
     if leaf_tris >= 8:
         w = max(w, 160)
@@ -55,10 +61,46 @@ def _i32f(v) -> np.float32:
     return np.array(v, np.int32).view(np.float32)
 
 
-def _pack_child_slots(row, kids, arity: int, lo, hi):
-    """One node row's u8 child-slot words on the node's grid (row[0:6]);
-    decoded boxes always contain the true boxes; empty slots are
-    self-missing boxes with meta 0."""
+def _bf16_dir(vals, up: bool) -> np.ndarray:
+    """Conservative bf16 rounding of f32 values (tpurt builder._bf16_dir):
+    the returned uint16 (the f32's top half), read as an f32 with a zero
+    low half, is <= vals (up=False) or >= vals (up=True). Truncation
+    moves toward zero; where that lands on the wrong side, step one bf16
+    ulp away from zero."""
+    f = np.atleast_1d(np.asarray(vals, np.float32))
+    t = f.view(np.uint32) & np.uint32(0xFFFF0000)
+    dec = t.view(np.float32)
+    need = (dec < f) if up else (dec > f)
+    t = np.where(need, t + np.uint32(0x10000), t)
+    return (t >> 16).astype(np.uint16)
+
+
+def _pack_child_slots(row, kids, bounds_fmt: str, arity: int, lo, hi):
+    """One node row's child-slot words (tpurt builder._pack_child_slots).
+    u8: 3 words a slot on the node's grid (row[0:6]); bf16: 4 words a
+    slot, absolute bounds rounded outward (_bf16_dir), two per word as
+    f32 top halves, the meta at base + 3. Decoded boxes always contain
+    the true boxes; an empty slot has meta 0 and lo > hi."""
+    if bounds_fmt == "bf16":
+        u16f = lambda a, b: np.array(
+            np.uint32(a) | (np.uint32(b) << np.uint32(16)), np.uint32
+        ).view(np.float32)
+        for s_idx, (meta, clo, chi) in enumerate(kids):
+            lo16 = _bf16_dir(clo.astype(np.float32), up=False)
+            hi16 = _bf16_dir(chi.astype(np.float32), up=True)
+            base = 7 + 4 * s_idx
+            row[base] = u16f(lo16[0], lo16[1])
+            row[base + 1] = u16f(lo16[2], hi16[0])
+            row[base + 2] = u16f(hi16[1], hi16[2])
+            row[base + 3] = _i32f(meta)
+        big, neg = np.uint16(0x7F7F), np.uint16(0xFF7F)
+        for s_idx in range(len(kids), arity):
+            base = 7 + 4 * s_idx
+            row[base] = u16f(big, big)  # lo = +MAX > hi = -MAX
+            row[base + 1] = u16f(big, neg)
+            row[base + 2] = u16f(neg, neg)
+            row[base + 3] = 0.0
+        return
     scale = (hi - lo) / 255.0
     origin32 = lo.astype(np.float32)
     scale32 = np.where(scale > 0, scale, 0.0).astype(np.float32)
@@ -92,10 +134,11 @@ def _pack_child_slots(row, kids, arity: int, lo, hi):
 
 
 def _emit_mega_subtree(rows, nodes, root, tri_pos, tri_nrm, tri_mesh,
-                       leaf_tris: int, row_width: int, arity: int):
+                       bounds_fmt: str, leaf_tris: int, row_width: int,
+                       arity: int):
     """Emit a BVH2 subtree as arity-wide megakernel rows (layouts as in
-    tpurt builder._emit_mega_subtree, u8 format). Returns (root_row,
-    root_is_leaf, depth)."""
+    tpurt builder._emit_mega_subtree). Returns (root_row, root_is_leaf,
+    depth)."""
     bmin, bmax, child, first, ntris = nodes
     counts: Dict[int, int] = {}
 
@@ -181,11 +224,106 @@ def _emit_mega_subtree(rows, nodes, root, tri_pos, tri_nrm, tri_mesh,
                 np.asarray(bmin[j], np.float64),
                 np.asarray(bmax[j], np.float64),
             ))
-        _pack_child_slots(row, kids, arity, lo, hi)
+        _pack_child_slots(row, kids, bounds_fmt, arity, lo, hi)
         rows[my] = row
         return my, False, depth + 1
 
     return emit_node(root)
+
+
+#: Instance row of the TLAS regime (tpurt builder.MEGA_INST_ROW_WORDS),
+#: 22 words: [0:3] position, [3:12] row-major rotation, [12] scale,
+#: [13] i32 flags one_sided | cull << 1, [14] i32 owner mesh, [15] i32
+#: root meta (root_row << 1 | is_leaf), [16:19] / [19:22] the local root
+#: box (the mesh's u16 grid span, the unrolled chain's pretest box).
+MEGA_INST_ROW_WORDS = 22
+#: Meta bit marking an instance-row target in TLAS child slots and stack
+#: entries (row targets stay below 2^27).
+MEGA_ITAG = 1 << 28
+
+
+def _euler_np(pitch: float, yaw: float, roll: float) -> np.ndarray:
+    """float32 XYZ-Euler rotation in vecmath.euler_rotation's expressions
+    and association order (tpurt builder._euler_np): the instance rows'
+    baked rotation, equal bit for bit to the unrolled chain's table,
+    which the port also computes in numpy."""
+    p, y, r = np.float32(pitch), np.float32(yaw), np.float32(roll)
+    cx, sx = np.cos(p), np.sin(p)
+    cy, sy = np.cos(y), np.sin(y)
+    cz, sz = np.cos(r), np.sin(r)
+    return np.array([
+        [cy * cz, cy * sz, -sy],
+        [cz * sy * sx - cx * sz, cx * cz + sx * sy * sz, cy * sx],
+        [sx * sz + cx * cz * sy, cx * sy * sz - cz * sx, cx * cy],
+    ], np.float32)
+
+
+def _emit_tlas(rows, entries, bounds_fmt: str, row_width: int, arity: int):
+    """The top-level BVH over instance rows as node rows of the bank's
+    format (tpurt builder._emit_tlas): an arity-wide split of the
+    instances sorted along the widest axis into near-equal chunks, slots
+    sorted by centroid along the recorded axis, leaf metas tagged
+    MEGA_ITAG. ``entries``: [(inst_row, world_lo (3,) f64, world_hi)].
+    Returns (root_row, depth); the root is always a node row."""
+
+    def emit(items, force_node=False):
+        if len(items) == 1 and not force_node:
+            row_idx, lo, hi = items[0]
+            return row_idx, True, lo, hi, 0
+        lo = np.min([e[1] for e in items], axis=0)
+        hi = np.max([e[2] for e in items], axis=0)
+        axis = int(np.argmax(hi - lo))
+        items = sorted(items, key=lambda e: float(e[1][axis] + e[2][axis]))
+        n_chunks = min(arity, len(items))
+        cuts = [round(k * len(items) / n_chunks) for k in range(n_chunks + 1)]
+        chunks = [items[cuts[k]:cuts[k + 1]] for k in range(n_chunks)
+                  if cuts[k] < cuts[k + 1]]
+        my = len(rows)
+        rows.append(None)  # reserve (pre-order)
+        row = np.zeros(row_width, np.float32)
+        row[6] = _i32f(axis)
+        kids = []
+        depth = 0
+        for ch in chunks:
+            t, is_inst, clo, chi, d = emit(ch)
+            depth = max(depth, d)
+            kids.append(((MEGA_ITAG | (t << 1)) if is_inst else (t << 1), clo, chi))
+        kids.sort(key=lambda k: float(k[1][axis] + k[2][axis]))
+        _pack_child_slots(row, kids, bounds_fmt, arity, lo, hi)
+        rows[my] = row
+        return my, False, lo, hi, depth + 1
+
+    target, _is_inst, _lo, _hi, depth = emit(entries, force_node=True)
+    return target, depth
+
+
+def _instance_row(m, mesh: int, root_meta: int, grid, row_width: int):
+    """An instance row (MEGA_INST_ROW_WORDS) and its conservative world
+    box: the local root box's 8 corners transformed in float64, padded
+    one f32 ulp outward (tpurt's freeze, many-instance branch)."""
+    gmin32, scale32 = grid
+    rmin = gmin32
+    rmax = (gmin32 + np.float32(65535.0) * scale32).astype(np.float32)
+    rot = _euler_np(m.pitch, m.yaw, m.roll)
+    mt = int(m.material.type)
+    row = np.zeros(row_width, np.float32)
+    row[0:3] = np.asarray(m.pos, np.float32)
+    row[3:12] = rot.reshape(9)
+    row[12] = np.float32(m.scale)
+    row[13] = _i32f(int(mt == int(MaterialType.ONE_SIDED)) | (int(_culls(mt)) << 1))
+    row[14] = _i32f(mesh)
+    row[15] = _i32f(root_meta)
+    row[16:19] = rmin
+    row[19:22] = rmax
+    corners = np.array([[rmin[0] if (k & 1) == 0 else rmax[0],
+                         rmin[1] if (k & 2) == 0 else rmax[1],
+                         rmin[2] if (k & 4) == 0 else rmax[2]]
+                        for k in range(8)], np.float64)
+    world = ((corners * np.float64(m.scale)) @ rot.astype(np.float64).T
+             + np.asarray(m.pos, np.float64))
+    wlo = np.nextafter(world.min(axis=0).astype(np.float32), -np.inf)
+    whi = np.nextafter(world.max(axis=0).astype(np.float32), np.inf)
+    return row, wlo.astype(np.float64), whi.astype(np.float64)
 
 
 def _subtree_indices(child, ntris, root):
@@ -453,11 +591,7 @@ class SceneBuilder:
     # -- freeze -----------------------------------------------------------
 
     def freeze(self, device="cuda") -> Scene:
-        """Flatten to a Scene on ``device`` (tpurt SceneBuilder.freeze,
-        untiled regime)."""
-        if cfgmod.MEGA_BF16_BOUNDS:
-            raise NotImplementedError(
-                "bf16 node bounds are not ported yet (ROADMAP A.2)")
+        """Flatten to a Scene on ``device`` (tpurt SceneBuilder.freeze)."""
         tri_pos, tri_nrm = self._consolidate()
         bmin, bmax, child, first, ntris = self.nodes.as_arrays()
         bmin_arr = np.asarray(bmin, np.float32).reshape(-1, 3)
@@ -468,10 +602,11 @@ class SceneBuilder:
         node_q, root_params = _walk_rows(bmin_arr, bmax_arr, child, first,
                                          ntris, hit, miss, roots)
 
+        bounds_fmt = "bf16" if cfgmod.MEGA_BF16_BOUNDS else "u8"
         leaf_tris = int(cfgmod.MEGA_LEAF_TRIS)
         arity = int(cfgmod.MEGA_NODE_ARITY)
         assert 2 <= arity <= (1 << MEGA_SLOT_BITS) - 1
-        row_width = mega_row_width(leaf_tris, arity)
+        row_width = mega_row_width(leaf_tris, arity, bounds_fmt)
         rows: List[np.ndarray] = []
         chain: List[Tuple[int, int, bool]] = []
         chain_members: List[Tuple[int, ...]] = []
@@ -522,7 +657,7 @@ class SceneBuilder:
                                leaf_cap=2, aux=s_mesh)
             root_row, root_leaf, d = _emit_mega_subtree(
                 rows, s_nodes.as_arrays(), s_root, s_pos, s_nrm, s_mesh,
-                leaf_tris, row_width, arity,
+                bounds_fmt, leaf_tris, row_width, arity,
             )
             chain.append((-1, root_row, root_leaf))
             chain_members.append(tuple(static_members))
@@ -532,27 +667,73 @@ class SceneBuilder:
             i for i, m in enumerate(self.meshes)
             if i not in static_members and i not in inline and m.num_tris > 0
         ]
-        if len(inst_list) > int(cfgmod.MEGA_TLAS_THRESHOLD):
-            raise NotImplementedError(
-                f"{len(inst_list)} instanced meshes would route through "
-                "tpurt's TLAS regime, which is not ported yet (ROADMAP A.2)")
+        use_tlas = len(inst_list) > int(cfgmod.MEGA_TLAS_THRESHOLD)
         emitted: Dict[int, Tuple[int, bool]] = {}
+        inst_depth = 0
         for i in inst_list:
             m = self.meshes[i]
             if m.node_idx not in emitted:
                 root_row, root_leaf, d = _emit_mega_subtree(
                     rows, nodes_tuple, m.node_idx, tri_pos, tri_nrm, None,
-                    leaf_tris, row_width, arity,
+                    bounds_fmt, leaf_tris, row_width, arity,
                 )
-                mega_depth = max(mega_depth, d)
+                inst_depth = max(inst_depth, d)
                 emitted[m.node_idx] = (root_row, root_leaf)
-            root_row, root_leaf = emitted[m.node_idx]
-            chain.append((i, root_row, root_leaf))
-            chain_members.append((i,))
+            if not use_tlas:
+                root_row, root_leaf = emitted[m.node_idx]
+                chain.append((i, root_row, root_leaf))
+                chain_members.append((i,))
+        tlas_bounds: Tuple[float, ...] = ()
+        if use_tlas:
+            # Many-instance regime: one instance row per mesh (transform
+            # baked) under a world-space top-level BVH, one (-2) entry.
+            assert row_width >= MEGA_INST_ROW_WORDS, (
+                f"bank width {row_width} cannot hold an instance row")
+            assert len(rows) + 2 * len(inst_list) < (1 << 27)
+            entries = []
+            for i in inst_list:
+                m = self.meshes[i]
+                root_row, root_leaf = emitted[m.node_idx]
+                row, wlo, whi = _instance_row(
+                    m, i, (root_row << 1) | int(root_leaf),
+                    root_params[m.node_idx], row_width)
+                entries.append((len(rows), wlo, whi))
+                rows.append(row)
+            tlas_root, tlas_depth = _emit_tlas(rows, entries, bounds_fmt,
+                                               row_width, arity)
+            chain.append((-2, tlas_root, False))
+            chain_members.append(tuple(inst_list))
+            # TLAS pushes + the exit marker + the deepest instance subtree.
+            mega_depth = max(mega_depth, tlas_depth + 1 + inst_depth)
+            ulo = np.min([e[1] for e in entries], axis=0)
+            uhi = np.max([e[2] for e in entries], axis=0)
+            tlas_bounds = tuple(float(v) for v in ulo) + tuple(
+                float(v) for v in uhi)
+            print(f"tpurt_torch: {len(inst_list)} instanced meshes > TLAS "
+                  f"threshold {cfgmod.MEGA_TLAS_THRESHOLD} — routing through "
+                  f"the instance-row TLAS (depth {tlas_depth}); transforms "
+                  f"are baked (re-freeze to animate)", file=sys.stderr)
+        else:
+            mega_depth = max(mega_depth, inst_depth)
 
         mega_rows = (np.stack(rows) if rows
                      else np.zeros((1, row_width), np.float32))
-        assert len(mega_rows) < (1 << 26), "row index exceeds packed fields"
+        assert len(mega_rows) < (1 << 27), "row index exceeds packed meta field"
+
+        # Material slots: dedup by value (tpurt's freeze); a slot's
+        # representative is its first mesh.
+        slot_of: Dict[tuple, int] = {}
+        mesh_mat_slot: List[int] = []
+        mat_slot_rep: List[int] = []
+        for i, m in enumerate(self.meshes):
+            a = m.material
+            key = (int(a.type), float(a.ior), tuple(a.color),
+                   tuple(a.emission_color), float(a.emission_strength),
+                   float(a.reflectiveness), float(a.specular_probability))
+            if key not in slot_of:
+                slot_of[key] = len(mat_slot_rep)
+                mat_slot_rep.append(i)
+            mesh_mat_slot.append(slot_of[key])
 
         k = len(self.meshes)
         zeros3 = np.zeros((0, 3), np.float32)
@@ -600,8 +781,11 @@ class SceneBuilder:
             mega_static_onesided=tuple(static_onesided),
             mega_static_owner=tuple(static_owner),
             mesh_identity=tuple(_is_identity(m) for m in self.meshes),
-            mega_bounds_fmt="u8",
+            mega_bounds_fmt=bounds_fmt,
             mega_leaf_tris=leaf_tris,
             mega_arity=arity,
-            mega_tlas=False,
+            mega_tlas=use_tlas,
+            mega_tlas_bounds=tlas_bounds,
+            mesh_mat_slot=tuple(mesh_mat_slot),
+            mat_slot_rep=tuple(mat_slot_rep),
         )

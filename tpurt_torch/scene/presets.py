@@ -10,6 +10,8 @@ caller names another; without a card that fails, it does not fall back.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 from typing import Optional, Tuple
 
@@ -18,6 +20,22 @@ from tpurt_torch.core.camera import Camera
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, MeshHandle, SceneBuilder
 from tpurt_torch.scene.types import MaterialType, Scene
+
+#: The five materials tpurt's many-instance grid cycles through
+#: (tests/test_many_meshes.py _grid_scene).
+GRID_MATERIALS = (
+    Material(type=MaterialType.SOLID, color=(0.9, 0.4, 0.3)),
+    Material(type=MaterialType.SOLID, color=(0.3, 0.9, 0.4),
+             reflectiveness=0.8, specular_probability=0.5),
+    Material(type=MaterialType.CHECKER, color=(0.9, 0.9, 0.9),
+             emission_color=(0.1, 0.1, 0.6), emission_strength=25.0),
+    Material(type=MaterialType.GLASSY, ior=1.5, color=(1.0, 1.0, 1.0)),
+    Material(type=MaterialType.SOLID, color=(0.9, 0.9, 0.2),
+             emission_color=(1.0, 0.9, 0.7), emission_strength=2.0),
+)
+#: The one material of tpurt's many-instance probe (scripts/probe_r74.py).
+PROBE_MATERIAL = Material(type=MaterialType.SOLID, color=(0.9, 0.5, 0.3),
+                          reflectiveness=0.5, specular_probability=0.4)
 
 
 def _model_for(builder: SceneBuilder, cfg: RenderConfig) -> MeshHandle:
@@ -89,3 +107,32 @@ def bench_scene(kind: str, cfg: RenderConfig, device="cuda"
         raise ValueError(f"unknown bench scene: {kind!r}")
     b = SceneBuilder()
     return scene_around(b, b.add_triangles(pos, nrm), cfg, device)
+
+
+def grid_scene(k: int, subdivisions: int = 0, materials=GRID_MATERIALS,
+               device="cuda") -> Scene:
+    """tpurt's many-instance grid (tests/test_many_meshes.py _grid_scene,
+    scripts/probe_r74.py grid_scene): ``k`` instances of one
+    icosphere(``subdivisions``, radius 10), each with its own position
+    on a grid, yaw 0.3 i and scale 0.4 + 0.02 (i % 5), inside the
+    Cornell box sized for the sphere at scale 0.5 (7 meshes), the i-th
+    instance taking ``materials[i % len(materials)]``. Above
+    config.MEGA_TLAS_THRESHOLD instances it freezes into the TLAS
+    regime."""
+    b = SceneBuilder()
+    pos, nrm = procedural.icosphere(subdivisions, radius=10.0)
+    proto = b.add_triangles(pos, nrm)
+    proto.material = Material(type=MaterialType.SOLID, color=(1.0, 1.0, 1.0))
+    proto.scale = 0.5
+    b.add_cornell_box(proto)
+    side = math.ceil(math.sqrt(k))
+    for i in range(k):
+        b.add_mesh(dataclasses.replace(
+            proto,
+            pos=(-120.0 + 240.0 * (i % side) / max(side - 1, 1),
+                 30.0 + 200.0 * (i // side) / max(side - 1, 1),
+                 -40.0 + 10.0 * (i % 3)),
+            yaw=0.3 * i, scale=0.4 + 0.02 * (i % 5),
+            material=materials[i % len(materials)],
+        ))
+    return b.freeze(device)

@@ -114,10 +114,18 @@ class Scene:
     mega_static_onesided: Tuple[bool, ...] = ()
     mega_static_owner: Tuple[int, ...] = ()
     mesh_identity: Tuple[bool, ...] = ()
-    mega_bounds_fmt: str = "u8"
+    mega_bounds_fmt: str = "u8"  # node-row child bounds: "u8" or "bf16"
     mega_leaf_tris: int = 3
     mega_arity: int = 8
+    # Many-instance (TLAS) regime: the instanced meshes are instance rows
+    # under a top-level BVH, reached through one (-2) chain entry whose
+    # pretest box is mega_tlas_bounds (world lo xyz, hi xyz).
     mega_tlas: bool = False
+    mega_tlas_bounds: Tuple[float, ...] = ()
+    # Material slots (freeze-time dedup by value): mesh -> slot, and each
+    # slot's representative mesh, whose material row the slot reads.
+    mesh_mat_slot: Tuple[int, ...] = ()
+    mat_slot_rep: Tuple[int, ...] = ()
 
     @property
     def num_meshes(self) -> int:
@@ -159,12 +167,6 @@ def from_arrays(arrays: Mapping[str, np.ndarray], static: Mapping,
     Scene's fields read out as numpy, carried across to the port
     unchanged. Banks keep their exact bits (no dtype round trip through
     a cast)."""
-    if static.get("mega_tlas"):
-        raise NotImplementedError(
-            "TLAS scenes are not ported yet (ROADMAP A.2)")
-    if static.get("mega_bounds_fmt", "u8") != "u8":
-        raise NotImplementedError(
-            "bf16 node bounds are not ported yet (ROADMAP A.2)")
     tensors = {}
     for name, dtype in ARRAY_FIELDS.items():
         a = np.ascontiguousarray(arrays[name])
