@@ -67,10 +67,41 @@ Phases (each raises on failure, so any failure exits nonzero):
 13. B1's bf16 instantiation (MEGA_BF16_BOUNDS): the bunny at phase 4's
    knobs (2 spp) and the K = 12 grid against the plain version as in phase 3,
    each bf16 frame against the u8 frame (equal segments, pixels that
-   differ counted), and the bunny-1080p batch's 16 trips in u8 and bf16
-   in turns.
+   differ counted), the grid packed F = 2 as in phase 14, and the
+   bunny-1080p batch's 16 trips in u8 and bf16 in turns.
+14. Cross-frame packing, small: the Cornell sphere (phase 3's knobs) and
+   the K = 12 grid (phase 11's), each packed F = 2 with a rotation-only
+   second camera and F = 3 with one camera (the shared direction
+   table), and the teapot at 320x180 through the dense instantiation,
+   F = 2: B1's packed launch against the plain version in every lane
+   field after 1, 4 and 16 trips, and every packed frame of every batch
+   bit for bit the frame rendered alone through B1, the segments summing
+   equal.
+15. The headline packed, bunny-1080p-plain with mega_frames_per_batch=2
+   (one launch of 262,144 lanes x 16 slots covering frames 0 and 1): 16
+   trips against the plain version and the batch to completion as in
+   phase 5 (trips, counted bound); both frames bit for bit the unpacked
+   frames 0 and 1; the pack through the video path's dispatch (B1
+   launches counted) timed against the unpacked ``render_image`` frame in
+   turns, 3 of each. Then the parity row on the megakernel packed F = 4
+   (bench.py:567-571), its four frames equal to ``render_image``'s and
+   timed the same way.
+16. The other schedules, small (the Cornell sphere at 64x64 through B1): a
+   sample_flatten frame equal to the in-lane frame (decorrelated); a
+   ``rays_per_batch=0`` tiled frame and ``render_tile`` with the
+   megakernel equal to the flat frame; a TileAccumulator resume giving
+   the same image with no launch; ``anim.render_video`` of 3 frames
+   (hook ``video_frame_scene``) and a static-hook video packed 2 frames
+   a launch, their BMPs read back equal to ``render_image`` of each
+   frame. Then presets.deep_stack_scene (mega_stack_depth 36: 72 stack
+   words in global memory, of which its primary rays hold 67) through
+   B1's deep-stack instantiation against the plain version as in phase
+   3 (1 spp, P=1) after 1, 16, 34 and 100 trips, with its budget cut to 66 words (a
+   full stack drops its bottom entry) and packed F = 2 as in phase 14,
+   its first 34 trips timed, its frame counted.
 
-Each path's launch counts are set to 0 just before its counted
+Every scene's ``mega_stack_depth`` is logged where a phase first drives
+it. Each path's launch counts are set to 0 just before its counted
 ``render_image`` and read just after. ``--b1-public`` builds B1 alone
 and times the bunny-1080p batch through ``mega_cuda.launch`` on the
 device (16 trips, then to completion), calls every version of the port
@@ -228,6 +259,17 @@ def phase2():
                 log(f"  ptxas {name}:", line.strip())
 
 
+def log_depth(name, scene):
+    """The scene's stack budget and where B1 keeps it."""
+    from tpurt_torch.render import mega_cuda
+
+    words = 2 * scene.mega_stack_depth
+    where = ("global memory (deep-stack instantiation)"
+             if words > mega_cuda.MAX_REGISTER_STACK else "the lane's array")
+    log(f"{name}: mega_stack_depth {scene.mega_stack_depth}, {words} stack "
+        f"words a lane in {where}")
+
+
 def compare_backends(name, scene, cam, cfg, trips=(1, 4, 16)):
     """Kernel against the plain version on the card: lane states after
     ``trips`` trips, then whole frames and segment counts."""
@@ -237,6 +279,7 @@ def compare_backends(name, scene, cam, cfg, trips=(1, 4, 16)):
     from tpurt_torch.render.megakernel import run_megakernel
     from tpurt_torch.render.renderer import flat_batch_args, render_frame
 
+    log_depth(name, scene)
     args = flat_batch_args(scene, cam, cfg, 0)
     for k in trips:
         st = {b: run_megakernel(scene, body_backend=b, max_iterations=k,
@@ -348,11 +391,12 @@ def phase4():
     return scene
 
 
-def time_trips(scene, cam, cfg, k: int, label: str):
+def time_trips(scene, cam, cfg, k: int, label: str, args=None):
     """The full-size batch's first ``k`` trips through both backends from
     one lane state (agreement, kernel ms, plain ms, the lane work those
     k trips did), then the kernel alone to completion, twice (ms, trips,
-    work), with its persistent launch configuration."""
+    work), with its persistent launch configuration. ``args``: the
+    batch's run_megakernel arguments (default: the flat batch at 0)."""
     import torch
 
     from tpurt_torch.core.v3 import V3
@@ -360,7 +404,8 @@ def time_trips(scene, cam, cfg, k: int, label: str):
     from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render.renderer import flat_batch_args
 
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    log_depth(label, scene)
+    lane, ctx = mk.prepare(scene, **(args or flat_batch_args(scene, cam, cfg, 0)))
     buf0 = mega_cuda.pack(lane)
     r = lane.done.shape[0]
     mega_cuda.launch(buf0.clone(), ctx, k)  # warm-up
@@ -393,7 +438,7 @@ def time_trips(scene, cam, cfg, k: int, label: str):
         (trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
         full.extend(ms)
     launch = mega_cuda.launch_config(ctx.dense is not None, tlas=ctx.tlas,
-                                     bf16=ctx.bf16)
+                                     bf16=ctx.bf16, deep=mega_cuda.deep_stack(ctx))
     blocks = min(launch["blocks_per_sm"] * launch["sms"],
                  -(-r // launch["threads"]))
     log(f"{label} persistent launch: {blocks} blocks x {launch['threads']} "
@@ -409,6 +454,8 @@ def time_trips(scene, cam, cfg, k: int, label: str):
     i = int(trips.argmax())
     ctx1 = ctx if ctx.slot_rd is None else ctx._replace(
         slot_rd=V3(*(c[:, i:i + 1].contiguous() for c in ctx.slot_rd)))
+    if ctx.slot_pix is not None:
+        ctx1 = ctx1._replace(slot_pix=ctx.slot_pix[:, i:i + 1].contiguous())
     buf1 = buf0[:, i:i + 1].contiguous()
     _out, one_ms = cuda_ms(lambda: mega_cuda.launch(buf1, ctx1, None))
     if not torch.equal(buf1[:, 0], buf[:, i]):
@@ -418,9 +465,12 @@ def time_trips(scene, cam, cfg, k: int, label: str):
         f"{int(trips[i])} trips; mean trips of the first / last tenth of the "
         f"lane indices {float(trips[:tenth].float().mean()):.1f} / "
         f"{float(trips[-tenth:].float().mean()):.1f} | {CARD}")
+    done = mega_cuda.unpack(buf, ctx, lane.iters)
     return dict(err=err, ms=min(times["cuda"]), plain_ms=min(times["plain"]),
                 full_ms=min(full), work_k=[int(w) for w in work_k.long().sum(1)],
-                work=[int(w) for w in work.long().sum(1)], lanes=r, ctx=ctx)
+                work=[int(w) for w in work.long().sum(1)], lanes=r, ctx=ctx,
+                adv_k=kern.pixno - lane.pixno, adv=done.pixno - lane.pixno,
+                state=buf, trips=trips)
 
 
 def main_path(name, scene, cam, cfg, counter: str, min_lit=0.05):
@@ -456,18 +506,27 @@ def main_path(name, scene, cam, cfg, counter: str, min_lit=0.05):
     return img, stats, launched[counter], best
 
 
-def megakernel_bound(scene, tt, work, label: str):
+def megakernel_bound(scene, tt, work, adv, label: str):
     """B1's bound for a launch whose lanes did ``work`` (child-box tests,
-    leaf rows, segment completions): those counts times their branches'
-    operations; the bank and each lane's words read once and written
-    once."""
+    leaf rows, segment completions) and advanced ``adv`` (R,) quota
+    slots: those counts times their branches' operations; the bank and
+    each lane's words read once, the lane words written once, and the
+    slot table rows the lanes read (a lane reads one direction row, and
+    in a pack one pixel row, where it advances), each once."""
     from tpurt_torch.render import mega_cuda
 
     ctx = tt["ctx"]
     words = len(mega_cuda.LANE_WORDS) + ctx.s_depth + (
         3 * ctx.p_count if ctx.p_count > 1 else 0) + (
         len(mega_cuda.TLAS_WORDS) if ctx.tlas else 0)
-    nbytes = scene.mega_rows.numel() * 4 + 2 * words * 4 * tt["lanes"]
+    tables = 0
+    if ctx.slot_rd is not None:
+        a = adv.long()
+        tables = int(a.clamp(max=ctx.slot_rd.x.shape[0]).sum()) * 12
+        if ctx.slot_pix is not None:
+            tables += int(a.clamp(max=ctx.ppf).sum()) * 4
+    nbytes = (scene.mega_rows.numel() * 4 + tables
+              + 2 * words * 4 * tt["lanes"])
     boxes, leaves, segs, enters, exits = (list(work) + [0, 0])[:5]
     box_ops = BOX_OPS_BF16 if ctx.bf16 else BOX_OPS
     ops = (boxes * box_ops + leaves * ctx.leaf_tris * MT_DET_OPS
@@ -477,7 +536,7 @@ def megakernel_bound(scene, tt, work, label: str):
         f"{box_ops} + {leaves} leaf rows x {ctx.leaf_tris} x {MT_DET_OPS} + "
         f"{segs} segments x {SHADE_OPS} + {enters} instance enters x "
         f"{INST_ENTER_OPS} + {exits} exits x {INST_EXIT_OPS} = {ops:.4g} ops, "
-        f"{nbytes} bytes")
+        f"{nbytes} bytes ({tables} of slot table rows)")
     return b_ms, b_by
 
 
@@ -485,17 +544,19 @@ def phase5(scene):
     cfg = bunny_cfg(1920, 1080)
     cam = camera_for(cfg)
     tt = time_trips(scene, cam, cfg, 16, "bunny-1080p")
-    _img, _stats, launches, _best = main_path(
+    img, _stats, launches, best = main_path(
         "bunny-1080p-plain", scene, cam, cfg, "megakernel")
-    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], "16 trips")
-    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], "whole batch")
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], tt["adv_k"], "16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], tt["adv"], "whole batch")
     log(f"B1 whole batch: {tt['full_ms']:.3f} ms against its bound "
         f"{f_ms:.3f} ms | {CARD}")
+    # img, frame_ms and full_ms are for phase 15 (not in the kernels line).
     return dict(name="megakernel (B1)", route="cuda",
                 source="tpurt_torch/csrc/megakernel.cu",
                 replaces="tpurt/render/mega_pallas.py:237", launches=launches,
                 max_abs_err=tt["err"], ms=tt["ms"], plain_ms=tt["plain_ms"],
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                img=img, frame_ms=best, full_ms=tt["full_ms"])
 
 
 def dense_sweep_ops(lo, ld, entry, table):
@@ -1055,6 +1116,7 @@ def phase10(b3):
 
     cfg = parity_cfg()
     scene, cam = bench_scene("sphere", cfg, device="cuda")
+    log_depth("parity-640x480-modular", scene)
     # At one bounce only emitters seen directly add light, and this camera
     # does not see the ceiling light: the parity frame is black by
     # construction. The lit check is the 4-bounce frame below.
@@ -1176,8 +1238,8 @@ def phase12():
     # frame is ~2.5% lit by construction (2.46% at 160x90 on the CPU).
     _img, _stats, launches, _best = main_path(
         "grid-64-720p-tlas", scene, cam, cfg, "megakernel", min_lit=0.02)
-    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], "grid-64, 16 trips")
-    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], "grid-64, whole batch")
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], tt["adv_k"], "grid-64, 16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], tt["adv"], "grid-64, whole batch")
     log(f"B1 TLAS whole batch: {tt['full_ms']:.3f} ms against its bound "
         f"{f_ms:.3f} ms | {CARD}")
     return dict(name="megakernel (B1), TLAS instantiation", route="cuda",
@@ -1219,6 +1281,8 @@ def phase13(bunny_u8):
     compare_backends("grid-12-160x90-bf16", grid_bf, gcam, gcfg)
     frames_differ("grid-12-160x90-bf16", grid_bf, gcam, gcfg, grid_u8, gcfg,
                   "the u8 bank")
+    compare_packed("grid-12-160x90-bf16", grid_bf, gcam, gcfg,
+                   (gcam, turned(gcam, 0.1)))
     # The bunny-1080p batch's first 16 trips in both formats, in turns.
     big = bunny_cfg(1920, 1080)
     bcam = camera_for(big)
@@ -1237,6 +1301,293 @@ def phase13(bunny_u8):
     log(f"bunny-1080p batch, 16 trips: u8 ms {times['u8']}, bf16 ms {times['bf16']}; "
         f"box tests u8 {boxes['u8']}, bf16 {boxes['bf16']} | {CARD}")
     return dict(u8_ms=min(times["u8"]), bf16_ms=min(times["bf16"]))
+
+
+def compare_packed(name, scene, cam, cfg, cams):
+    """A cross-frame packed launch (the frames of ``cams``: a tuple of
+    distinct cameras, or one camera repeated for the shared table) through
+    B1 against the plain version after 1, 4 and 16 trips, then every
+    batch of the frame packed through B1 against each of its frames
+    rendered alone through B1, bit for bit, the segments summing equal."""
+    import torch
+
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render.megakernel import run_megakernel
+    from tpurt_torch.render.renderer import (
+        _flat_batch_size, flat_batch_args, render_batch_flat,
+        render_batch_flat_frames)
+
+    shared = all(c is cams[0] for c in cams)
+    form = f"F = {len(cams)}, " + ("one camera" if shared else "a camera a frame")
+    args = flat_batch_args(scene, cam, cfg, 0, frames=len(cams),
+                           cameras=None if shared else cams)
+    for k in (1, 4, 16):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=k,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, err = mega_cuda.compare_lanes(*st)
+        log(f"{name} packed ({form}): after {k} trips, integer fields agree on "
+            f"{agree:.4%} of {args['pixel_index'].shape[0]} lanes, float max abs "
+            f"err {err:.3g}")
+        if agree < LANE_AGREE:
+            raise AssertionError(f"{name} packed: lane agreement {agree:.4%}")
+    kcfg = cfg.replace(mega_body="pallas")
+    b = _flat_batch_size(cfg) * cfg.pixels_per_lane
+    batches = -(-cfg.width * cfg.height // b)
+    for i in range(batches):
+        packed, segs, _ = render_batch_flat_frames(scene, cams, kcfg, i * b,
+                                                   frame_index=4)
+        total = 0
+        for f, c in enumerate(cams):
+            lone, s1, _ = render_batch_flat(scene, c, kcfg, i * b, frame_index=4 + f)
+            if not torch.equal(packed[f * b:(f + 1) * b], lone):
+                raise AssertionError(f"{name} packed: frame {f} of batch {i} "
+                                     "differs from the frame alone")
+            total += s1
+        if segs != total:
+            raise AssertionError(f"{name} packed: segments {segs} vs {total}")
+    log(f"{name} packed ({form}): {batches} batches, every frame bit for bit the "
+        f"frame alone through B1, segments summing equal")
+
+
+def turned(cam, d_yaw):
+    """A rotation-only companion of ``cam`` (packing's shared position)."""
+    from tpurt_torch.core.camera import Camera
+
+    p = cam.host_params()
+    return Camera.create(tuple(float(v) for v in p[:3]), pitch=float(p[3]),
+                         yaw=float(p[4]) + d_yaw, roll=float(p[5]),
+                         fov_degrees=float(p[6]), aspect_ratio=float(p[7]),
+                         device="cuda")
+
+
+def phase14():
+    """Cross-frame packing, small: Cornell sphere and the K = 12 grid in
+    both camera forms, the teapot through the dense instantiation."""
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.scene.presets import bench_scene, cornell_sphere_scene, grid_scene
+
+    cfg = RenderConfig(width=64, height=64, rays_per_pixel=2, max_bounces=3,
+                       pixels_per_lane=2, mega_tail_passes=2)
+    scene, cam, _ = cornell_sphere_scene(2, cfg, device="cuda")
+    gcfg = grid_cfg(160, 90, rays_per_batch=4096).replace(
+        rays_per_pixel=2, max_bounces=3, pixels_per_lane=2, mega_tail_passes=2)
+    gcam = grid_camera(160, 90)
+    grid = grid_scene(12, device="cuda")
+    for name, sc, c, k in (("cornell-sphere-64", scene, cfg, cam),
+                           ("grid-12-160x90-tlas", grid, gcfg, gcam)):
+        compare_packed(name, sc, k, c, (k, turned(k, 0.1)))
+        compare_packed(name, sc, k, c, (k,) * 3)
+    tcfg = teapot_cfg(320, 180)
+    teapot, tcam = bench_scene("teapot", tcfg, device="cuda")
+    compare_packed("teapot-320x180-dense", teapot, tcam, tcfg,
+                   (tcam, turned(tcam, 0.1)))
+
+
+def packed_images(scene, cam, cfg, frame_index: int, frames: int) -> list:
+    """``frames`` uint8 frames of a static scene through the video path's
+    packed dispatch (anim: cross-frame packed launches, tonemap on the
+    device, uint8 to the host)."""
+    from tpurt_torch import anim
+
+    return [anim._materialise_frame_u8(b, cfg)
+            for b in anim._dispatch_pack_u8(scene, cam, cfg, frame_index, frames)]
+
+
+def pack_against_frames(label, scene, cam, cfg, frames: int):
+    """The pack of ``frames`` frames (packed_images, B1 launches counted:
+    counts set to 0 just before, read just after) against ``render_image``
+    of each frame, bit for bit; then both timed in turns, 3 of each:
+    (launches, per-frame ms of the pack, ms of an unpacked frame)."""
+    import numpy as np
+
+    from tpurt_torch.render.renderer import render_image
+
+    reset_counts()
+    imgs = packed_images(scene, cam, cfg, 0, frames)
+    launched = counts()["megakernel"]
+    if launched < 1:
+        raise AssertionError(f"{label}: the pack launched no megakernel")
+    for f, img in enumerate(imgs):
+        if not np.array_equal(img, render_image(scene, cam, cfg, frame_index=f)):
+            raise AssertionError(f"{label}: packed frame {f} differs from "
+                                 "render_image's")
+    pack_ms, frame_ms = [], []
+    for _ in range(3):
+        pack_ms += cuda_ms(lambda: packed_images(scene, cam, cfg, 0, frames))[1]
+        frame_ms += cuda_ms(lambda: render_image(scene, cam, cfg))[1]
+    per = min(pack_ms) / frames
+    log(f"{label}: a pack of {frames} frames, {launched} B1 launch(es), every "
+        f"frame bit for bit render_image's; pack ms {[round(t, 3) for t in pack_ms]} "
+        f"-> {per:.3f} ms a frame against the unpacked frame's "
+        f"{[round(t, 3) for t in frame_ms]} (best {min(frame_ms):.3f}), "
+        f"{per / min(frame_ms):.3f}x | {CARD}")
+    return launched, per, min(frame_ms)
+
+
+def phase15(scene, b1):
+    """bunny-1080p-plain packed F = 2 at full width, then the parity row
+    on the megakernel packed F = 4."""
+    import numpy as np
+    import torch
+
+    from tpurt_torch.render.renderer import (
+        flat_batch_args, render_batch_flat, render_batch_flat_frames)
+    from tpurt_torch.render.tonemap import tonemap
+    from tpurt_torch.scene.presets import bench_scene
+
+    cfg = bunny_cfg(1920, 1080).replace(mega_frames_per_batch=2)
+    cam = camera_for(cfg)
+    args = flat_batch_args(scene, cam, cfg, 0, frames=2)
+    tt = time_trips(scene, cam, cfg, 16, "bunny-1080p-packF2", args=args)
+    kcfg = cfg.replace(mega_body="pallas")
+    packed, segs, _ = render_batch_flat_frames(scene, (cam, cam), kcfg, 0)
+    rows = packed.shape[0] // 2
+    total = cfg.width * cfg.height
+    lone_segs = 0
+    for f in (0, 1):
+        lone, s1, _ = render_batch_flat(scene, cam, kcfg, 0, frame_index=f)
+        lone_segs += s1
+        if not torch.equal(packed[f * rows:(f + 1) * rows], lone):
+            raise AssertionError(f"bunny packed: frame {f} differs from unpacked")
+    if segs != lone_segs:
+        raise AssertionError(f"bunny packed: segments {segs} vs {lone_segs}")
+    frame0 = tonemap(packed[:total]).cpu().numpy().reshape(cfg.height, cfg.width, 3)
+    if not np.array_equal(frame0, b1["img"]):
+        raise AssertionError("bunny packed: frame 0 differs from phase 5's image")
+    log(f"bunny-1080p-packF2: frames 0 and 1 bit for bit the unpacked frames "
+        f"(and frame 0 phase 5's image); {segs} segments = {lone_segs}")
+    launches, per, unpacked = pack_against_frames("bunny-1080p-packF2", scene, cam,
+                                                  cfg, 2)
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], tt["adv_k"], "packed F=2, 16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], tt["adv"], "packed F=2, whole batch")
+    log(f"B1 packed batch (2 frames): {tt['full_ms']:.3f} ms against its bound "
+        f"{f_ms:.3f} ms; {tt['full_ms'] / 2:.3f} ms a frame against the unpacked "
+        f"batch's {b1['full_ms']:.3f} ms in phase 5 | {CARD}")
+    pcfg = parity_cfg().replace(engine="mega", mega_frames_per_batch=4)
+    pscene, pcam = bench_scene("sphere", pcfg, device="cuda")
+    log_depth("parity-640x480-mega-packF4", pscene)
+    pack_against_frames("parity-640x480-mega-packF4", pscene, pcam, pcfg, 4)
+    return dict(name="megakernel (B1), packed F=2", route="cuda",
+                source="tpurt_torch/csrc/megakernel.cu",
+                replaces="tpurt/render/mega_pallas.py:237", launches=launches,
+                max_abs_err=tt["err"], ms=tt["ms"], plain_ms=tt["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase16():
+    """The other schedules on the card, small; then the deep-stack scene."""
+    import shutil
+
+    import numpy as np
+
+    from tpurt_torch import anim
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.io import TileAccumulator, read_bmp
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render.renderer import (
+        flat_batch_args, render_frame, render_image, render_tile)
+    from tpurt_torch.scene.presets import cornell_sphere_scene, deep_stack_scene
+
+    cfg = RenderConfig(width=64, height=64, rays_per_pixel=2, max_bounces=3,
+                       pixels_per_lane=2, mega_tail_passes=2, tile_size=24)
+    scene, cam, _ = cornell_sphere_scene(2, cfg, device="cuda")
+    out = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    def counted(what, fn, at_least=1):
+        reset_counts()
+        got = fn()
+        n = counts()["megakernel"]
+        if n < at_least:
+            raise AssertionError(f"{what}: {n} B1 launches")
+        return got, n
+
+    dcfg = cfg.replace(seed_mode="decorrelated")
+    sflat, n = counted("sample_flatten", lambda: render_frame(
+        scene, cam, dcfg.replace(sample_flatten=True)), cfg.rays_per_pixel)
+    if not np.array_equal(sflat, render_frame(scene, cam, dcfg)):
+        raise AssertionError("sample_flatten frame differs from the in-lane frame")
+    log(f"schedules: sample_flatten ({n} launches) equals the in-lane frame")
+    flat = render_frame(scene, cam, cfg)
+    tiled, n = counted("tiled", lambda: render_frame(
+        scene, cam, cfg.replace(rays_per_batch=0)), 9)
+    tile = render_tile(scene, cam, cfg, x0=48, y0=24, tile_h=24, tile_w=24)
+    if not (np.array_equal(tiled, flat)
+            and np.array_equal(tile[:24, :16].cpu().numpy(), flat[24:48, 48:64])):
+        raise AssertionError("tiled frame or render_tile differs from the flat frame")
+    log(f"schedules: rays_per_batch=0 ({n} tile launches) and render_tile equal "
+        "the flat frame")
+    want = render_image(scene, cam, cfg)
+    path = os.path.join(out, "acc.npz")
+    first, n1 = counted("accumulator", lambda: render_image(
+        scene, cam, cfg, accumulator=TileAccumulator(cfg, path=path)), 9)
+    resumed, n2 = counted("resume", lambda: render_image(
+        scene, cam, cfg, accumulator=TileAccumulator(cfg, path=path)), 0)
+    if not (np.array_equal(first, want) and np.array_equal(resumed, want)) or n2:
+        raise AssertionError("TileAccumulator resume differs or relaunched")
+    log(f"schedules: TileAccumulator frame ({n1} launches) and its resume (0 "
+        "launches) equal the flat image")
+    vcfg = cfg.replace(video_frame_count=3)
+    paths, n = counted("render_video", lambda: anim.render_video(
+        scene, cam, vcfg, out_dir=os.path.join(out, "video")), 3)
+    for f, p in enumerate(paths):
+        if not np.array_equal(read_bmp(p), render_image(
+                anim.video_frame_scene(scene, f, 3), cam, vcfg, frame_index=f)):
+            raise AssertionError(f"video frame {f} differs from render_image's")
+    static = lambda s, f, n_: s
+    paths, n_packed = counted("packed video", lambda: anim.render_video(
+        scene, cam, vcfg.replace(mega_frames_per_batch=2),
+        out_dir=os.path.join(out, "packed"), frame_hook=static), 2)
+    for f, p in enumerate(paths):
+        if not np.array_equal(read_bmp(p), render_image(scene, cam, vcfg,
+                                                        frame_index=f)):
+            raise AssertionError(f"packed video frame {f} differs")
+    log(f"schedules: render_video, 3 frames ({n} launches), and the static-hook "
+        f"video packed 2 frames a launch ({n_packed} launches): BMPs equal "
+        "render_image of each frame")
+    shutil.rmtree(out)
+    dscene, dcam = deep_stack_scene(cfg, device="cuda")
+    # Its primary rays hold 67 entries after trip 34, past the register
+    # stack's 64: compared there, and with the budget cut to 66 words
+    # (still kDeep), where each of them drops its bottom entry. One
+    # sample a pixel: the plain version takes a step per trip, and each
+    # sample's walk down and back up the chain is ~140 trips.
+    one = cfg.replace(rays_per_pixel=1, pixels_per_lane=1)
+    compare_backends("deep-stack-64", dscene, dcam, one, trips=(1, 16, 34, 100))
+    lane, ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, one, 0))
+    held = int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max())
+    lane, ctx = lane._replace(stack=lane.stack[:66]), ctx._replace(s_depth=66)
+    if held <= mega_cuda.MAX_REGISTER_STACK or not mega_cuda.deep_stack(ctx):
+        raise AssertionError(f"deep-stack-64 holds {held} entries")
+    for k in (34, 100, None):
+        buf = mega_cuda.pack(lane)
+        mega_cuda.launch(buf, ctx, k)
+        agree, _err = mega_cuda.compare_lanes(
+            mk.run_plain(lane, ctx, k), mega_cuda.unpack(buf, ctx, 0))
+        if agree < 1.0:
+            raise AssertionError(f"deep-stack-64 overflow, {k} trips: {agree:.4%}")
+    log(f"deep-stack-64: the plain version's lanes hold up to {held} stack "
+        "entries; with a 66-word budget (full stacks drop their bottom "
+        "entry) B1 equals it in every lane field after 34, 100 trips and "
+        "to the end")
+    compare_packed("deep-stack-64", dscene, dcam, one, (dcam, turned(dcam, 0.1)))
+    big = cfg.replace(width=256, height=256)
+    _lane, ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, big, 0))
+    if not mega_cuda.deep_stack(ctx):
+        raise AssertionError("the deep-stack scene did not take kDeep")
+    # 34 trips: the window in which its stacks grow past 64 entries.
+    tt = time_trips(dscene, dcam, big, 34, "deep-stack-256")
+    _img, _stats, launches, _best = main_path("deep-stack-256", dscene, dcam, big,
+                                              "megakernel")
+    b_ms, b_by = megakernel_bound(dscene, tt, tt["work_k"], tt["adv_k"],
+                                  "deep stack, 34 trips")
+    return dict(name="megakernel (B1), deep-stack instantiation", route="cuda",
+                source="tpurt_torch/csrc/megakernel.cu",
+                replaces="tpurt/render/mega_pallas.py:237", launches=launches,
+                max_abs_err=tt["err"], ms=tt["ms"], plain_ms=tt["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def main():
@@ -1269,6 +1620,9 @@ def main():
     phase11()
     b1_tlas = phase12()
     phase13(bunny)
+    phase14()
+    b1_packed = phase15(bunny, b1)
+    b1_deep = phase16()
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1276,7 +1630,7 @@ def main():
     # B3 also gives its device time (``device_ms``) beside ``ms``, which
     # for every kernel is CUDA events around the call, the host included.
     print(json.dumps({"kernels": [{k: b[k] for k in keys + ("device_ms",) if k in b}
-                                  for b in (b1, b1_tlas, b2, b3)]}))
+                                  for b in (b1, b1_tlas, b1_packed, b1_deep, b2, b3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

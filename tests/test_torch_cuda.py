@@ -2,7 +2,9 @@
 the card: the megakernel (B1) and its dense instantiation — on their
 persistent grid too, with fewer lanes than a block, than the resident
 threads and more — B1's TLAS and bf16 instantiations on tpurt's K = 12
-instance grid and a bf16 Cornell sphere, the dense block sweep (B2)
+instance grid and a bf16 Cornell sphere, cross-frame packed launches in
+every instantiation, B1's deep-stack instantiation (stacks in global
+memory) on presets.deep_stack_scene, the dense block sweep (B2)
 alone, and the exact sweep (B3) alone and in the modular engine. Marked ``cuda``: without a CUDA device every test skips (the
 decision is made in a fixture, at run time). On the GPU machine, which
 has no jax, run them without tests/conftest.py:
@@ -26,10 +28,12 @@ from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 from tpurt_torch.render import megakernel as mk
 from tpurt_torch.render.megakernel import run_megakernel
-from tpurt_torch.render.renderer import flat_batch_args, render_frame
+from tpurt_torch.render.renderer import (
+    flat_batch_args, render_batch_flat, render_batch_flat_frames, render_frame)
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder
-from tpurt_torch.scene.presets import cornell_sphere_scene, grid_scene
+from tpurt_torch.scene.presets import (
+    cornell_sphere_scene, deep_stack_scene, grid_scene)
 from tpurt_torch.scene.types import MaterialType
 
 pytestmark = pytest.mark.cuda
@@ -212,6 +216,88 @@ def test_kernel_matches_plain_in_the_tlas_and_bf16_instantiations(cuda_scene,
     assert np.isfinite(kern).all() and kern.max() > 0.0
     assert (kern != plain).any(axis=-1).mean() <= 0.005
     assert abs(sk["segments"] - sp["segments"]) <= 0.005 * sp["segments"]
+
+
+def _turned(cam, d_yaw):
+    p = cam.host_params()
+    return Camera.create(tuple(float(v) for v in p[:3]), pitch=float(p[3]),
+                         yaw=float(p[4]) + d_yaw, roll=float(p[5]),
+                         fov_degrees=float(p[6]), aspect_ratio=float(p[7]),
+                         device="cuda")
+
+
+@pytest.mark.parametrize("form", ["per-camera", "shared"])
+@pytest.mark.parametrize("which", ["cornell", "grid", "cornell-bf16", "dense"])
+def test_packed_kernel_matches_plain(cuda_scene, which, form):
+    """A cross-frame packed launch (F = 2 with a rotation-only second
+    camera, or F = 3 with one camera and the shared direction table) in
+    every instantiation: lane state after 1, 4, 16 trips and to the end
+    against the plain version, and each packed frame bit for bit the
+    frame rendered alone through the kernel."""
+    if which == "dense":
+        scene, cam = cuda_scene
+        cfg = CFG.replace(mega_dense=True)
+    else:
+        scene, cam = _regime_scene(which)
+        cfg = CFG
+    cams = (cam, _turned(cam, 0.1)) if form == "per-camera" else (cam,) * 3
+    args = flat_batch_args(scene, cam, cfg, 0, frames=len(cams),
+                           cameras=cams if form == "per-camera" else None)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree == 1.0, (trips, agree)
+    kcfg = cfg.replace(mega_body="pallas")
+    rows = args["pixel_index"].shape[0] * cfg.pixels_per_lane
+    packed, segs, _ = render_batch_flat_frames(scene, cams, kcfg, 0, frame_index=2)
+    total = 0
+    for f, c in enumerate(cams):
+        lone, s1, _ = render_batch_flat(scene, c, kcfg, 0, frame_index=2 + f)
+        assert torch.equal(packed[f * rows:(f + 1) * rows], lone), f
+        total += s1
+    assert segs == total
+
+
+def test_deep_stack_kernel_matches_plain(cuda_scene):
+    """B1's deep-stack instantiation (a stack budget of 72 words, above
+    the 64-entry array) against the plain version, whose primary rays
+    hold 67 entries after trip 34: lane state after 1, 16, 34 and 100
+    trips and to the end, and the frame."""
+    cfg = CFG.replace(width=32, height=32)
+    scene, cam = deep_stack_scene(cfg, device="cuda")
+    args = flat_batch_args(scene, cam, cfg, 0)
+    lane, ctx = mk.prepare(scene, **args)
+    assert scene.mega_stack_depth > 32 and mega_cuda.deep_stack(ctx)
+    assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) > 64
+    for trips in (1, 16, 34, 100, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree == 1.0, (trips, agree)
+    sk, sp = {}, {}
+    kern = render_frame(scene, cam, cfg.replace(mega_body="pallas"), stats=sk)
+    plain = render_frame(scene, cam, cfg.replace(mega_body="xla"), stats=sp)
+    np.testing.assert_array_equal(kern, plain)
+    assert sk["segments"] == sp["segments"] and kern.max() > 0.0
+
+
+def test_deep_stack_overflow_matches_plain(cuda_scene):
+    """A full stack in global memory drops its bottom entry as the plain
+    version's does: the deep-stack scene with its budget cut to 66
+    words (still kDeep), below the 67 entries its primary rays push."""
+    cfg = CFG.replace(width=32, height=32)
+    scene, cam = deep_stack_scene(cfg, device="cuda")
+    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    lane, ctx = lane._replace(stack=lane.stack[:66]), ctx._replace(s_depth=66)
+    assert mega_cuda.deep_stack(ctx)
+    assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) == 66
+    for trips in (34, 100, None):
+        buf = mega_cuda.pack(lane)
+        mega_cuda.launch(buf, ctx, trips)
+        kern = mega_cuda.unpack(buf, ctx, lane.iters + (trips or 0))
+        agree, _err = mega_cuda.compare_lanes(mk.run_plain(lane, ctx, trips), kern)
+        assert agree == 1.0, (trips, agree)
 
 
 def test_tlas_scene_refuses_the_dense_mode(cuda_scene):

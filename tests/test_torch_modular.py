@@ -227,6 +227,23 @@ def test_modular_edge_tiles_and_tile_entry_points():
 
 
 def test_modular_accumulator_raises():
-    scene, cam, _ = cornell_sphere_scene(0, port(GOLDEN), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        renderer.render_frame(scene, cam, port(GOLDEN), accumulator=object())
+    """Accumulators are ported: a modular frame through a
+    TileAccumulator equals the frame without one, a second frame resumes
+    every tile from it, and an object that is not an accumulator
+    raises."""
+    from tpurt_torch.io.checkpoint import TileAccumulator
+
+    cfg = port(GOLDEN).replace(tile_size=8)
+    scene, cam, _ = cornell_sphere_scene(0, cfg, device="cpu")
+    want = renderer.render_frame(scene, cam, cfg)
+    acc = TileAccumulator(cfg)
+    np.testing.assert_array_equal(
+        renderer.render_frame(scene, cam, cfg, accumulator=acc), want)
+    assert acc.num_tiles == 4
+    stats = {}
+    np.testing.assert_array_equal(
+        renderer.render_frame(scene, cam, cfg, accumulator=acc, stats=stats),
+        want)
+    assert stats["segments"] == 0  # every tile came from the accumulator
+    with pytest.raises(AttributeError):
+        renderer.render_frame(scene, cam, cfg, accumulator=object())

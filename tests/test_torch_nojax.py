@@ -2,8 +2,10 @@
 jax`` and ``import tpurt`` both fail (the GPU machine has no jax, and the
 port keeps its own copy of everything it reads from tpurt), the package
 imports, builds the Cornell-sphere scene and renders 8x8 on the CPU
-through both engines, and renders a 9-instance grid in the TLAS regime
-with bf16 node bounds; and no module of the port, nor chip_smoke.py,
+through both engines, renders a 9-instance grid in the TLAS regime
+with bf16 node bounds, writes a video through tpurt_torch.anim (the
+yaw hook, then a static-hook pack) and reads its BMPs back through
+tpurt_torch.io, and resumes a frame from a TileAccumulator; and no module of the port, nor chip_smoke.py,
 imports jax, flax or any module of tpurt."""
 
 import os
@@ -36,6 +38,23 @@ grid = grid_scene(9, device="cpu")
 assert grid.mega_tlas and grid.mega_bounds_fmt == "bf16"
 img = render_image(grid, cam, cfg.replace(rays_per_pixel=1, max_bounces=2))
 assert img.shape == (8, 8, 3) and str(img.dtype) == "uint8", img.shape
+config.MEGA_BF16_BOUNDS = False
+import tempfile
+import numpy as np
+from tpurt_torch import anim
+from tpurt_torch.io import TileAccumulator, read_bmp
+with tempfile.TemporaryDirectory() as d:
+    vcfg = cfg.replace(video_frame_count=2, mega_frames_per_batch=2)
+    paths = anim.render_video(scene, cam, vcfg, out_dir=d)
+    first = render_image(anim.video_frame_scene(scene, 0, 2), cam, vcfg)
+    assert np.array_equal(read_bmp(paths[0]), first)
+    paths = anim.render_video(scene, cam, vcfg, out_dir=d,
+                              frame_hook=lambda s, f, n: s)  # one pack
+    assert np.array_equal(read_bmp(paths[1]),
+                          render_image(scene, cam, vcfg, frame_index=1))
+    acc = TileAccumulator(cfg, path=d + "/acc.npz")
+    assert np.array_equal(render_image(scene, cam, cfg, accumulator=acc),
+                          render_image(scene, cam, cfg))
 print("rendered", sorted(m for m in sys.modules
                          if m == "tpurt" or m.startswith("tpurt.")))
 """

@@ -215,3 +215,69 @@ def test_tlas_scene_refuses_the_dense_mode():
     scene = grid_scene(12, device="cpu")
     with pytest.raises(ValueError, match="TLAS"):
         render_frame(scene, _camera(CFG), CFG.replace(mega_dense=True))
+
+
+def _lane_masks(a: mk._Lane, b: mk._Lane):
+    """Per lane: all integer, u32 and bool fields (stack included) equal;
+    all float fields (accumulators included) equal bit for bit."""
+    fields = mega_cuda._FIELDS + mega_cuda._TLAS_FIELDS
+    ints = torch.ones_like(a.done)
+    floats = torch.ones_like(a.done)
+    for name, kind in fields:
+        va, vb = getattr(a, name), getattr(b, name)
+        if va is None:
+            continue
+        if kind not in "vf":
+            ints &= va.to(torch.int64) == vb.to(torch.int64)
+            continue
+        for x, y in (zip(va, vb) if kind == "v" else [(va, vb)]):
+            floats &= (x.view(torch.int32) == y.view(torch.int32)) | (
+                torch.isnan(x) & torch.isnan(y))
+    for sa, sb in zip(a.stack, b.stack):
+        ints &= sa == sb
+    for acc_a, acc_b in zip(a.accs, b.accs):
+        for x, y in zip(acc_a, acc_b):
+            floats &= x.view(torch.int32) == y.view(torch.int32)
+    return ints, floats
+
+
+@pytest.mark.slow
+def test_quota_tail3_lanes_against_tpurt():
+    """ROADMAP C.3: the grid at P=2 with 3 tail passes (tpurt's program
+    compiles for over a minute). Measured once: 4 of 512 lanes differ
+    in an integer field from trip 3 on (0.78%), every one of them a lane
+    whose floats already differed by 1-91 ulp at trip 2 — the class of
+    XLA's fused multiply-adds (ROADMAP C) turning an ulp into a branch
+    (a bounce, a hit or a miss) — and the frame is 0 of 768 pixels from
+    tpurt's with equal segments. Held here: no lane's integer fields
+    differ before its floats do, and the frame keeps tpurt's tolerance."""
+    cfg = CFG.replace(pixels_per_lane=2, mega_tail_passes=3)
+    tscene, tcam, tcfg = _grid_scene(12)
+    tcfg = tcfg.replace(mega_body="xla", pixels_per_lane=2, mega_tail_passes=3)
+    statics = t_renderer._mega_statics(tcfg, tcfg.width, tcfg.height)
+    b = t_renderer._flat_batch_size(tcfg)
+    run = lambda k: port_lane(t_renderer._mega_flat_start(
+        tscene, tcam, jnp.asarray([0, 0, 0, k], jnp.int32), batch=b,
+        pixels_per_lane=2, **statics)[0])
+    scene = grid_scene(12, device="cpu")
+    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, _camera(cfg), cfg, 0))
+    first_int = torch.zeros_like(lane.cur) - 1
+    first_float = torch.zeros_like(lane.cur) - 1
+    for k in range(1, 17):
+        lane = mk._body_math(lane, ctx)._replace(iters=k)
+        ints, floats = _lane_masks(lane, run(k))
+        first_int = torch.where((first_int < 0) & ~ints, k, first_int)
+        first_float = torch.where((first_float < 0) & ~floats, k, first_float)
+    differing = first_int > 0
+    assert bool((first_float[differing] > 0).all())
+    assert bool((first_float[differing] < first_int[differing]).all())
+    final = run(10 ** 6)
+    assert bool(final.done.all())
+    ref = np.concatenate([np.stack([c.numpy() for c in acc], -1)
+                          for acc in final.accs]) / np.float32(cfg.rays_per_pixel)
+    ref = ref[:cfg.width * cfg.height].reshape(cfg.height, cfg.width, 3)
+    stats = {}
+    mine = render_frame(scene, _camera(cfg), cfg, stats=stats)
+    assert_mostly_bitwise(mine, ref)
+    t_segs = int(final.segments.sum())
+    assert abs(stats["segments"] - t_segs) <= 0.005 * t_segs

@@ -72,6 +72,16 @@
 //          to world space, and the world ray is recomputed with the
 //          enter step's exact operations). Six lane words after N_FIXED
 //          (enum TlasField) carry the instance frame.
+//   kDeep  the traversal stack lives in a scratch buffer in global
+//          memory, (s_depth, R) words, instead of a kMaxStack-entry
+//          array: for scenes whose stack budget (2 * mega_stack_depth)
+//          exceeds kMaxStack. The other instantiations keep their array.
+//
+// Cross-frame packing (frames > 1, render_batch_flat_frames) is read at
+// run time from the launch configuration, only where a lane advances to
+// its next quota slot: the slot's pixel comes from a (ppf, R) table, its
+// direction from the periodic slot table, and its frame offset pixno /
+// ppf enters the seed. An unpacked launch takes the affine advance.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -145,7 +155,12 @@ struct MkCfg {
   int use_cache, p_count, pixel_stride, width, height;
   int tail_passes, expand_passes, n_skip, leaf_tris, arity, row_width;
   int frame_index, sample_offset;
-  int tlas, bf16;  // the instantiation (launch only; the kernel is compiled for it)
+  // The instantiation (launch only; the kernel is compiled for it):
+  // deep = the stacks in the (s_depth, R) scratch the host allocated.
+  int tlas, bf16, deep;
+  // Cross-frame packing: frames in the launch (1 = unpacked), quota
+  // slots a frame, and the rows of the slot direction table.
+  int frames, ppf, rd_rows;
 };
 
 namespace {
@@ -159,7 +174,9 @@ struct Tables {
   const int* roots_i;    // (E, arity) root child metas
   const int* meta;       // root[E] leaf[E] mesh[E] expand[E]
                          // s_cull[S] s_onesided[S] s_owner[S] mesh_cull[K]
-  const float* slot_rd;  // (3, P-1, R) quota slot directions
+  const float* slot_rd;  // (3, rd_rows, R) quota slot directions
+  const uint32_t* slot_pix;  // (ppf, R) within-frame slot pixels (packed only)
+  uint32_t* stack;       // (s_depth, R) traversal stacks (kDeep only)
   DenseTable dt;         // the dense sweep's table (megakernel<true> only)
 };
 
@@ -321,6 +338,26 @@ __device__ __forceinline__ float fresnel(V d, V n, float a, float b) {
 
 // ---------------------------------------------------------- lane state
 
+// A lane's traversal stack, entry 0 at the bottom: a kMaxStack-entry
+// array (local memory), or (kDeep) the lane's column of the launch's
+// global scratch, entry k at stack[k * R + lane].
+template <bool kDeep>
+struct Stack {
+  uint32_t e[kMaxStack];
+  __device__ void bind(uint32_t*, int, int) {}
+  __device__ uint32_t& operator[](int k) { return e[k]; }
+  __device__ uint32_t operator[](int k) const { return e[k]; }
+};
+template <>
+struct Stack<true> {
+  uint32_t* p;
+  int n;
+  __device__ void bind(uint32_t* base, int n_lanes, int i) { p = base + i; n = n_lanes; }
+  __device__ uint32_t& operator[](int k) { return p[(size_t)k * n]; }
+  __device__ uint32_t operator[](int k) const { return p[(size_t)k * n]; }
+};
+
+template <bool kDeep>
 struct Lane {
   V ro0, rd0;
   uint32_t pix;
@@ -358,7 +395,7 @@ struct Lane {
   // leaf rows (dense: entry sweeps), segment completions, instance
   // enters and exits.
   int n_box, n_leaf, n_seg, n_enter, n_exit;
-  uint32_t stk[kMaxStack];
+  Stack<kDeep> stk;
 };
 
 struct Words {
@@ -372,8 +409,8 @@ struct Words {
   __device__ void put(int f, V a) const { put(f, a.x); put(f + 1, a.y); put(f + 2, a.z); }
 };
 
-template <bool kTlas>
-__device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) {
+template <bool kTlas, class Ln>
+__device__ void load_lane(Ln& L, const Words& s, int stack_base, int s_depth, uint32_t* scratch) {
   L.ro0 = s.v(RO0_X); L.rd0 = s.v(RD0_X);
   L.pix = s.w(PIX); L.pixno = (int)s.w(PIXNO); L.sample = (int)s.w(SAMPLE);
   L.acc = s.v(ACC_X);
@@ -398,6 +435,7 @@ __device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) 
   }
   // Slot k of the buffer is the k-th entry from the top; the entries
   // are contiguous from slot 0 (pushes and pops shift the whole stack).
+  L.stk.bind(scratch, s.n, s.i);
   int sp = 0;
   while (sp < s_depth && s.w(stack_base + sp) != kEmpty) ++sp;
   for (int k = 0; k < sp; ++k) L.stk[sp - 1 - k] = s.w(stack_base + k);
@@ -405,8 +443,8 @@ __device__ void load_lane(Lane& L, const Words& s, int stack_base, int s_depth) 
   L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = 0;
 }
 
-template <bool kTlas>
-__device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_depth) {
+template <bool kTlas, class Ln>
+__device__ void store_lane(const Ln& L, const Words& s, int stack_base, int s_depth) {
   s.put(RO0_X, L.ro0); s.put(RD0_X, L.rd0);
   s.w(PIX) = L.pix; s.w(PIXNO) = (uint32_t)L.pixno; s.w(SAMPLE) = (uint32_t)L.sample;
   s.put(ACC_X, L.acc);
@@ -435,7 +473,8 @@ __device__ void store_lane(const Lane& L, const Words& s, int stack_base, int s_
 
 // Push on top; a full stack drops its bottom entry, as tpurt's
 // fixed-depth shift register does.
-__device__ __forceinline__ void push(Lane& L, uint32_t e, int s_depth) {
+template <class Ln>
+__device__ __forceinline__ void push(Ln& L, uint32_t e, int s_depth) {
   if (L.sp == s_depth) {
     for (int k = 1; k < s_depth; ++k) L.stk[k - 1] = L.stk[k];
     L.sp = s_depth - 1;
@@ -494,7 +533,8 @@ struct TwoBest {
 };
 
 // Root-node test of expanded entry ``e`` at enter time (_expand_root).
-__device__ void expand_root(const Ctx& x, Lane& L, int e) {
+template <class Ln>
+__device__ void expand_root(const Ctx& x, Ln& L, int e) {
   const int arity = x.c.arity;
   const float* rf = x.tb.roots_f + e * (1 + 6 * arity);
   const int* ri = x.tb.roots_i + e * arity;
@@ -559,7 +599,8 @@ __device__ void static_stage(const Ctx& x, V origin, V direction, bool& valid, f
 
 // One material interaction of a lane at the shading stage
 // (shading.shade_hit_soa with enabled = true).
-__device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisible) {
+template <class Ln>
+__device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible) {
   const float* m = x.tb.mats + kMatWidth * max(L.w_mesh, 0);
   float mtype = m[0], ior = m[1];
   V color = ld3(m + 2), em_color = ld3(m + 5);
@@ -639,8 +680,8 @@ __device__ void shade_hit(const Ctx& x, Lane& L, bool& continuing, bool& invisib
 // the start of the trip: the entry's, or in the TLAS regime the
 // instance's where the lane was inside one (``in_inst``, ``inst_scale``
 // as they were then). Returns in_chain.
-template <bool kTlas>
-__device__ bool fold(const Ctx& x, Lane& L, bool in_inst, float inst_scale) {
+template <bool kTlas, class Ln>
+__device__ bool fold(const Ctx& x, Ln& L, bool in_inst, float inst_scale) {
   const int E = x.c.e_count;
   if (!(L.entry < E && L.cur < 0)) return false;
   const float* cp = x.tb.chain + min(L.entry, E - 1) * kCpWidth;
@@ -669,7 +710,8 @@ __device__ bool fold(const Ctx& x, Lane& L, bool in_inst, float inst_scale) {
 // A trip on an instance row (kTlas; megakernel._instance_step): enter
 // it or, when its exit marker brought the lane back, exit it. Returns
 // whether the lane pops its stack.
-__device__ bool instance_step(const Ctx& x, Lane& L, const float* row) {
+template <class Ln>
+__device__ bool instance_step(const Ctx& x, Ln& L, const float* row) {
   const float scale = row[12];
   const float safe = safe_scale(scale);
   if (!L.in_inst) {
@@ -719,8 +761,8 @@ __device__ bool instance_step(const Ctx& x, Lane& L, const float* row) {
 }
 
 // The BVH trip's traversal step — one bank row — then the fold.
-template <bool kTlas, bool kBf16>
-__device__ bool traverse_rows(const Ctx& x, Lane& L) {
+template <bool kTlas, bool kBf16, class Ln>
+__device__ bool traverse_rows(const Ctx& x, Ln& L) {
   const int E = x.c.e_count;
   const int ec = min(L.entry, E - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
@@ -844,7 +886,8 @@ __device__ bool traverse_rows(const Ctx& x, Lane& L) {
 // sweep resolved (winner ``col``, -1 on a miss, at ``t_sw``): acceptance
 // and t from the sweep; normal, backface and the cull verdict from the
 // exact test on the winner (megakernel._dense_hit). Then the fold.
-__device__ bool traverse_swept(const Ctx& x, Lane& L, int col, float t_sw) {
+template <class Ln>
+__device__ bool traverse_swept(const Ctx& x, Ln& L, int col, float t_sw) {
   ++L.n_leaf;
   L.lt = t_sw;
   L.lmesh = -1;
@@ -865,10 +908,16 @@ __device__ bool traverse_swept(const Ctx& x, Lane& L, int col, float t_sw) {
   return fold<false>(x, L, false, 1.0f);
 }
 
+// The frame of quota slot ``pixno``: a cross-frame pack adds the slot's
+// frame offset pixno / ppf.
+__device__ __forceinline__ int slot_frame(const MkCfg& c, int pixno) {
+  return c.frames > 1 ? c.frame_index + pixno / c.ppf : c.frame_index;
+}
+
 // Segment completion: shade -> accumulate/advance -> restart -> static
 // stage -> chain enter (pretest, chain skip, root expansion).
-template <bool kTlas>
-__device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
+template <bool kTlas, class Ln>
+__device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
   const MkCfg& c = x.c;
   const int E = c.e_count;
   const bool shade = !L.done && L.entry >= E;
@@ -900,9 +949,17 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
     L.sample = 0;
     if (advance) {
       L.pixno += 1;
-      L.pix = (uint32_t)min((int)L.pix + c.pixel_stride, c.width * c.height - 1);
-      const float* sr = x.tb.slot_rd + (size_t)(L.pixno - 1) * x.s.n + x.s.i;
-      size_t comp = (size_t)(c.p_count - 1) * x.s.n;
+      int row = L.pixno - 1;
+      if (c.frames > 1) {
+        // Cross-frame pack: within-frame slot pixno % ppf's pixel, and
+        // the periodic direction table's row (pixno - 1) % rd_rows.
+        L.pix = x.tb.slot_pix[(size_t)(L.pixno % c.ppf) * x.s.n + x.s.i];
+        row %= c.rd_rows;
+      } else {
+        L.pix = (uint32_t)min((int)L.pix + c.pixel_stride, c.width * c.height - 1);
+      }
+      const float* sr = x.tb.slot_rd + (size_t)row * x.s.n + x.s.i;
+      size_t comp = (size_t)c.rd_rows * x.s.n;
       L.rd0 = v3(sr[0], sr[comp], sr[2 * comp]);
     }
   }
@@ -910,10 +967,11 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
   const bool new_sample = path_end && !retire;
   if (!c.seed_reference) {
     if (new_sample)
-      L.rng = make_seed(L.pix, c.frame_index, (uint32_t)L.sample + (uint32_t)c.sample_offset);
+      L.rng = make_seed(L.pix, slot_frame(c, L.pixno),
+                        (uint32_t)L.sample + (uint32_t)c.sample_offset);
   } else if (advance) {
     // Reference mode: one seed per PIXEL (Trace.cl:632-641).
-    L.rng = make_seed(L.pix, c.frame_index, 0u);
+    L.rng = make_seed(L.pix, slot_frame(c, L.pixno), 0u);
   }
   if (new_sample) {
     L.origin = L.ro0; L.direction = L.rd0;
@@ -976,8 +1034,8 @@ __device__ void tail(const Ctx& x, Lane& L, bool entering_in, bool do_expand) {
 
 // One loop trip after the traversal step: tail_passes segment
 // completions (megakernel._body_math).
-template <bool kTlas>
-__device__ __forceinline__ void trip_tail(const Ctx& x, Lane& L, bool in_chain) {
+template <bool kTlas, class Ln>
+__device__ __forceinline__ void trip_tail(const Ctx& x, Ln& L, bool in_chain) {
   tail<kTlas>(x, L, in_chain, x.c.expand_passes >= 1);
   for (int p = 1; p < x.c.tail_passes; ++p) tail<kTlas>(x, L, false, p < x.c.expand_passes);
 }
@@ -1000,8 +1058,8 @@ struct Out {
 };
 
 // Stores a retired lane (its state is final for this launch).
-template <bool kTlas>
-__device__ void retire(const Ctx& x, const Lane& L, int trips, const Out& o, int stack_base) {
+template <bool kTlas, class Ln>
+__device__ void retire(const Ctx& x, const Ln& L, int trips, const Out& o, int stack_base) {
   const int i = x.s.i, n = x.c.n_lanes;
   store_lane<kTlas>(L, x.s, stack_base, x.c.s_depth);
   o.trips[i] = trips;
@@ -1016,13 +1074,13 @@ __device__ void retire(const Ctx& x, const Lane& L, int trips, const Out& o, int
 
 // Takes lanes from the queue until one needs a trip (retiring any that
 // need none); false when the queue is empty.
-template <bool kTlas>
-__device__ bool take_live(Ctx& x, Lane& L, const Out& o, int stack_base) {
+template <bool kTlas, class Ln>
+__device__ bool take_live(Ctx& x, Ln& L, const Out& o, int stack_base) {
   for (;;) {
     const int i = take_lane(o.queue);
     if (i >= x.c.n_lanes) return false;
     x.s.i = i;
-    load_lane<kTlas>(L, x.s, stack_base, x.c.s_depth);
+    load_lane<kTlas>(L, x.s, stack_base, x.c.s_depth, x.tb.stack);
     if (!L.done && x.c.max_trips > 0) return true;
     retire<kTlas>(x, L, 0, o, stack_base);
   }
@@ -1031,7 +1089,8 @@ __device__ bool take_live(Ctx& x, Lane& L, const Out& o, int stack_base) {
 // Ends a trip of the dense megakernel's lane: a lane that is done or
 // at max_trips retires and the thread takes the next. Returns whether
 // the thread holds a live lane.
-__device__ __forceinline__ bool end_trip(Ctx& x, Lane& L, int& trips, const Out& o,
+template <class Ln>
+__device__ __forceinline__ bool end_trip(Ctx& x, Ln& L, int& trips, const Out& o,
                                          int stack_base) {
   ++trips;
   if (!L.done && trips < x.c.max_trips) return true;
@@ -1049,15 +1108,15 @@ __device__ __forceinline__ bool end_trip(Ctx& x, Lane& L, int& trips, const Out&
 // lanes as they retire, so that at the sweep every live lane sweeps. A
 // lane's trips are the same trips in the same order whichever loop runs
 // them.
-template <bool kDense, bool kTlas, bool kBf16>
+template <bool kDense, bool kTlas, bool kBf16, bool kDeep>
 __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
                                   kDense ? kDenseMinBlocks : kMinBlocks)
     megakernel(MkCfg c, Tables tb, Out o) {
-  static_assert(!(kDense && (kTlas || kBf16)), "the dense kernel walks no rows");
+  static_assert(!(kDense && (kTlas || kBf16 || kDeep)), "the dense kernel walks no rows");
   Ctx x{c, tb, Words{o.state, c.n_lanes, 0}};
   const int stack_base = kAccBase<kTlas> + (c.p_count > 1 ? 3 * c.p_count : 0);
   const int E = c.e_count;
-  Lane L;
+  Lane<kDeep> L;
   if constexpr (!kDense) {
     while (take_live<kTlas>(x, L, o, stack_base)) {
       int trips = 0;
@@ -1108,19 +1167,24 @@ namespace {
 
 using KernelFn = void (*)(MkCfg, Tables, Out);
 
-// The instantiation for ``variant`` = dense | tlas << 1 | bf16 << 2
-// (mega_cuda._variant), its threads a block, or null if there is none.
+// The instantiation for ``variant`` = dense | tlas << 1 | bf16 << 2 |
+// deep << 3 (mega_cuda._variant), its threads a block, or null if there
+// is none.
 KernelFn kernel_for(int variant, int* threads) {
   *threads = kThreads;
   switch (variant) {
-    case 0: return megakernel<false, false, false>;
-    case 2: return megakernel<false, true, false>;
-    case 4: return megakernel<false, false, true>;
-    case 6: return megakernel<false, true, true>;
+    case 0: return megakernel<false, false, false, false>;
+    case 2: return megakernel<false, true, false, false>;
+    case 4: return megakernel<false, false, true, false>;
+    case 6: return megakernel<false, true, true, false>;
+    case 8: return megakernel<false, false, false, true>;
+    case 10: return megakernel<false, true, false, true>;
+    case 12: return megakernel<false, false, true, true>;
+    case 14: return megakernel<false, true, true, true>;
     case 1:
     case 5:  // the dense kernel reads no node row: bounds format moot
       *threads = kDenseThreads;
-      return megakernel<true, false, false>;
+      return megakernel<true, false, false, false>;
     default: return nullptr;
   }
 }
@@ -1142,17 +1206,24 @@ extern "C" int tpurt_mk_occupancy(int variant, int* threads, int* blocks_per_sm,
 }
 
 // Launches the megakernel on ``stream`` — the dense instantiation when
-// ``dense`` is not null, else the one cfg->tlas and cfg->bf16 name — as
-// a persistent grid of resident blocks that take lanes from ``queue``
-// (an int the caller zeroed); returns a cudaError_t.
+// ``dense`` is not null, else the one cfg->tlas, cfg->bf16 and cfg->deep
+// name (kDeep: the stacks on ``stack``, which the host sized) — as a
+// persistent grid of resident blocks that take lanes from ``queue`` (an
+// int the caller zeroed); returns a cudaError_t. A stack budget above
+// kMaxStack without kDeep, or kDeep with the dense sweep, is refused.
 extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
                                const float* mats, const float* srows, const float* roots_f,
                                const int* roots_i, const int* meta, const float* slot_rd,
-                               uint32_t* state, int* trips, int* work, int* queue,
-                               const DenseTable* dense, void* stream) {
-  Tables tb{rows, chain, mats, srows, roots_f, roots_i, meta, slot_rd, DenseTable{}};
+                               const uint32_t* slot_pix, uint32_t* stack, uint32_t* state,
+                               int* trips, int* work, int* queue, const DenseTable* dense,
+                               void* stream) {
+  Tables tb{rows,    chain,    mats,  srows, roots_f, roots_i,
+            meta,    slot_rd,  slot_pix, stack, DenseTable{}};
   if (cfg->n_lanes <= 0) return (int)cudaGetLastError();
-  const int variant = (dense != nullptr) | (cfg->tlas != 0) << 1 | (cfg->bf16 != 0) << 2;
+  const bool deep = cfg->deep != 0;
+  if (deep ? dense != nullptr : cfg->s_depth > kMaxStack) return (int)cudaErrorInvalidValue;
+  const int variant = (dense != nullptr) | (cfg->tlas != 0) << 1 | (cfg->bf16 != 0) << 2 |
+                      (int)deep << 3;
   int threads = 0, per_sm = 0, sms = 0;
   int err = tpurt_mk_occupancy(variant, &threads, &per_sm, &sms);
   if (err != 0) return err;

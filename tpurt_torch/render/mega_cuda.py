@@ -17,8 +17,12 @@ A brute-force context (``ctx.dense`` set, RenderConfig.mega_dense)
 launches the kernel's dense instantiation, whose traversal step is
 kernel B2's sweep (render/plucker_fused.py); those launches are counted
 in ``DENSE_LAUNCHES``. A TLAS scene (``ctx.tlas``) and a bf16 bank
-(``ctx.bf16``) launch the instantiations compiled for them; their
-launches count in ``LAUNCHES``.
+(``ctx.bf16``) launch the instantiations compiled for them, and a stack
+budget above the kernel's ``kMaxStack`` (``MAX_REGISTER_STACK``) entries
+the one whose stacks live in a global scratch buffer (``kDeep``); their
+launches count in ``LAUNCHES``. A cross-frame pack (``ctx.frames`` > 1)
+runs in any of them: the kernel reads its slot pixels
+(``ctx.slot_pix``) and periodic direction table where a lane advances.
 
 The lane state crosses the C boundary as one contiguous (n_words, R)
 int32 buffer: ``LANE_WORDS`` (the kernel's ``enum Field``, word for
@@ -43,7 +47,10 @@ from tpurt_torch.render import megakernel as mk
 LAUNCHES = 0
 DENSE_LAUNCHES = 0
 
-_MAX_STACK = 64  # kMaxStack in the kernel
+#: kMaxStack in the kernel: deeper stacks take the kDeep instantiation,
+#: which ``launch`` names in MkCfg.deep (the kernel refuses a deeper
+#: budget without it).
+MAX_REGISTER_STACK = 64
 
 # (lane field, kind): kind f/i/u/b = f32 / i32 / u32 / bool; V3 fields
 # list x, y, z. Expanded to LANE_WORDS below.
@@ -85,6 +92,7 @@ class _Cfg(ctypes.Structure):
         "invisible_budget", "use_cache", "p_count", "pixel_stride", "width",
         "height", "tail_passes", "expand_passes", "n_skip", "leaf_tris",
         "arity", "row_width", "frame_index", "sample_offset", "tlas", "bf16",
+        "deep", "frames", "ppf", "rd_rows",
     )]
 
 
@@ -204,15 +212,20 @@ def _tables(ctx: mk._Ctx, dev):
         ctx.mesh_cull.cpu().numpy().astype(np.int32), np.zeros(1, np.int32),
     ]).astype(np.int32)
     if ctx.slot_rd is not None:
-        slot_rd = torch.stack(list(ctx.slot_rd)).contiguous()  # (3, P-1, R)
+        slot_rd = torch.stack(list(ctx.slot_rd)).contiguous()  # (3, rows, R)
     else:
         slot_rd = torch.zeros(1, dtype=torch.float32, device=dev)
+    if ctx.slot_pix is not None:
+        slot_pix = _word(ctx.slot_pix, "u").contiguous()  # (ppf, R)
+    else:
+        slot_pix = torch.zeros(1, dtype=torch.int32, device=dev)
     srows = ctx.srows if len(ctx.srows) else np.zeros((1, 19), np.float32)
     return dict(
         chain=f32(chain), mats=ctx.mats.contiguous(), srows=f32(srows),
         roots_f=f32(roots_f),
         roots_i=torch.as_tensor(np.ascontiguousarray(roots_i, np.int32), device=dev),
         meta=torch.as_tensor(meta, device=dev), slot_rd=slot_rd,
+        slot_pix=slot_pix,
     )
 
 
@@ -222,7 +235,7 @@ def _lib():
     lib = _build.load("megakernel")
     if not getattr(lib, "_tpurt_ready", False):
         vp = ctypes.c_void_p
-        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 14
+        lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 16
         lib.tpurt_mk_launch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.tpurt_mk_occupancy.argtypes = [ctypes.c_int, ip, ip, ip]
@@ -238,19 +251,25 @@ def _lib():
     return lib
 
 
-def _variant(dense: bool, tlas: bool, bf16: bool) -> int:
+def _variant(dense: bool, tlas: bool, bf16: bool, deep: bool = False) -> int:
     """The kernel's instantiation as the C interface names it."""
-    return int(dense) | int(tlas) << 1 | int(bf16) << 2
+    return int(dense) | int(tlas) << 1 | int(bf16) << 2 | int(deep) << 3
+
+
+def deep_stack(ctx: mk._Ctx) -> bool:
+    """Whether ``ctx`` launches the kDeep instantiation (stacks in global
+    scratch): a BVH walk whose stack budget exceeds MAX_REGISTER_STACK."""
+    return ctx.dense is None and ctx.s_depth > MAX_REGISTER_STACK
 
 
 def launch_config(dense: bool, device=None, tlas: bool = False,
-                  bf16: bool = False) -> dict:
+                  bf16: bool = False, deep: bool = False) -> dict:
     """The persistent launch of one instantiation on ``device``: threads
     a block, resident blocks per SM, SMs, and the resident lanes."""
     lib = _lib()
     vals = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
-        err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16),
+        err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16, deep),
                                      *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError("megakernel occupancy query failed: "
@@ -276,8 +295,6 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     tlas_words = len(TLAS_WORDS) if ctx.tlas else 0
     if buf.shape[0] != len(LANE_WORDS) + tlas_words + acc_words + ctx.s_depth:
         raise ValueError(f"lane buffer has {buf.shape[0]} words per lane")
-    if ctx.s_depth > _MAX_STACK:
-        raise ValueError(f"stack depth {ctx.s_depth} exceeds {_MAX_STACK}")
     rows = ctx.rows
     if rows.device != buf.device or rows.dtype != torch.float32 or not rows.is_contiguous():
         raise ValueError("row bank must be a contiguous f32 tensor on the buffer's device")
@@ -289,6 +306,9 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     trips = torch.empty(r, dtype=torch.int32, device=dev)
     work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    deep = deep_stack(ctx)
+    stack = torch.empty((ctx.s_depth, r) if deep else (1,),
+                        dtype=torch.int32, device=dev)
     cfg = _Cfg(
         n_lanes=r, max_trips=2 ** 31 - 1 if max_trips is None else int(max_trips),
         e_count=ctx.e_count, s_depth=ctx.s_depth,
@@ -301,7 +321,8 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         expand_passes=ctx.expand_passes, n_skip=ctx.n_skip,
         leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=rows.shape[1],
         frame_index=ctx.frame_index, sample_offset=ctx.sample_offset,
-        tlas=int(ctx.tlas), bf16=int(ctx.bf16),
+        tlas=int(ctx.tlas), bf16=int(ctx.bf16), deep=int(deep), frames=ctx.frames,
+        ppf=ctx.ppf, rd_rows=0 if ctx.slot_rd is None else ctx.slot_rd.x.shape[0],
     )
     dense = None
     if ctx.dense is not None:
@@ -315,7 +336,8 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         err = lib.tpurt_mk_launch(
             ctypes.byref(cfg), ptr(rows), ptr(tabs["chain"]), ptr(tabs["mats"]),
             ptr(tabs["srows"]), ptr(tabs["roots_f"]), ptr(tabs["roots_i"]),
-            ptr(tabs["meta"]), ptr(tabs["slot_rd"]), ptr(buf), ptr(trips),
+            ptr(tabs["meta"]), ptr(tabs["slot_rd"]), ptr(tabs["slot_pix"]),
+            ptr(stack), ptr(buf), ptr(trips),
             ptr(work), ptr(queue),
             None if dense is None else ctypes.c_void_p(ctypes.addressof(dense)),
             ctypes.c_void_p(stream),

@@ -13,8 +13,14 @@ accumulate/advance -> restart -> inline static stage -> chain enter with
 root pretest, chain skip and root expansion. ``_body_math`` below is
 that trip as tensor ops over (R,) lanes — the same transcription as
 tpurt's ``_body_math``, op for op and in the same association order,
-minus the regimes not ported yet (jitter, list quotas, cross-frame
-packs).
+minus the regimes not ported yet (jitter, list quotas).
+
+Cross-frame packing (``frames_per_batch`` F > 1): a lane's P quota
+slots span F frames of P/F slots each; slot k renders within-frame slot
+k mod P/F of frame ``frame_index + k // (P/F)``, its pixel and primary
+direction read from per-slot tables (``_Ctx.slot_pix``, ``slot_rd``)
+because the lane has overwritten its slot-0 pixel and direction by the
+time it reaches the next frame.
 
 In the TLAS regime (``Scene.mega_tlas``) the instanced meshes are
 instance rows under a top-level BVH reached through one ``-2`` chain
@@ -174,7 +180,9 @@ class _Ctx(NamedTuple):
     mats: torch.Tensor  # (K, 11)
     mesh_cull: torch.Tensor  # (K,) bool backface-cull policy per mesh
     params: Optional[_ChainParams]
-    slot_rd: Optional[V3]  # (P-1, R) directions of quota slots 1..P-1
+    # Quota slots' primary directions: (P-1, R), row k-1 for slot k; in a
+    # cross-frame pack (n, R), row (k-1) % n for slot k (see prepare).
+    slot_rd: Optional[V3]
     frame_index: int
     sample_offset: int
     e_count: int
@@ -199,6 +207,11 @@ class _Ctx(NamedTuple):
     # (mesh -> slot, slot -> representative mesh) as (K,) and (U,) i32
     # tensors: the shade fetch's material slots (TLAS regime).
     mat_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # Cross-frame packing: frames in the pack, slots a frame (P / frames)
+    # and the (ppf, R) int64 pixel of each within-frame slot.
+    frames: int = 1
+    ppf: int = 1
+    slot_pix: Optional[torch.Tensor] = None
 
 
 def _cull_policy(mt: int) -> bool:
@@ -489,10 +502,13 @@ def _expand_root(ctx: _Ctx, e: int, mask, lo: V3, ld: V3, lid: V3, lt, w_dst,
     ) + tuple(stack[2:])
 
 
-def _seed(ctx: _Ctx, pix, sample_u):
+def _seed(ctx: _Ctx, pix, sample_u, f_off=0):
+    """The lane's seed; ``f_off`` is its quota slot's frame offset in a
+    cross-frame pack (a tensor or 0)."""
+    frame = ctx.frame_index + f_off
     if ctx.seed_mode == "reference":
-        return rnglib.make_seed(pix, ctx.frame_index, 0)
-    return rnglib.make_seed(pix, ctx.frame_index,
+        return rnglib.make_seed(pix, frame, 0)
+    return rnglib.make_seed(pix, frame,
                             (sample_u + ctx.sample_offset) & 0xFFFFFFFF)
 
 
@@ -851,29 +867,41 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
         )
         acc = V3(*(torch.where(pix_done, 0.0, c) for c in acc))
         pixno = t.pixno + advance.to(_I32)
-        adv_pix = torch.clamp_max(t.pix + ctx.pixel_stride,
-                                  ctx.width * ctx.height - 1)
+        if ctx.frames > 1:
+            # Cross-frame pack: the slot's pixel from the within-frame
+            # table, its direction from the periodic table, its frame
+            # offset into the seed.
+            kk = (pixno % ctx.ppf).long()[None]
+            adv_pix = torch.gather(ctx.slot_pix, 0, kk)[0]
+            k = ((pixno - 1).clamp_min(0) % ctx.slot_rd.x.shape[0]).long()[None]
+            f_off = (pixno // ctx.ppf).long()
+        else:
+            adv_pix = torch.clamp_max(t.pix + ctx.pixel_stride,
+                                      ctx.width * ctx.height - 1)
+            k = (pixno - 1).clamp(0, p_count - 2).long()[None]
+            f_off = 0
         pix = torch.where(advance, adv_pix, t.pix)
         sample = torch.where(pix_done, 0, sample)
         # The new pixel's precomputed primary direction (slot pixno).
-        k = (pixno - 1).clamp(0, p_count - 2).long()[None]
         rd_n = V3(*(torch.gather(c, 0, k)[0] for c in ctx.slot_rd))
         rd0 = v3lib.where(advance, rd_n, t.rd0)
     else:
         retire = pix_done
         advance = torch.zeros_like(pix_done)
         accs, pixno, pix, rd0 = t.accs, t.pixno, t.pix, t.rd0
+        f_off = 0
     done = t.done | retire
     new_sample = path_end & ~retire
 
     ro0 = t.ro0
     rng = res.rng
     if ctx.seed_mode != "reference":
-        rng = torch.where(new_sample, _seed(ctx, pix, sample.long()), rng)
+        rng = torch.where(new_sample, _seed(ctx, pix, sample.long(), f_off),
+                          rng)
     elif p_count > 1:
         # Reference mode draws one seed per PIXEL (the stream runs across
         # its samples, Trace.cl:632-641): re-seed on advance only.
-        rng = torch.where(advance, _seed(ctx, pix, 0), rng)
+        rng = torch.where(advance, _seed(ctx, pix, 0, f_off), rng)
 
     origin = v3lib.where(new_sample, ro0, res.origin)
     direction = v3lib.where(new_sample, rd0, res.direction)
@@ -982,6 +1010,11 @@ def _body_math(s: _Lane, ctx: _Ctx) -> _Lane:
     return t
 
 
+def stack_entries(lane: _Lane) -> torch.Tensor:
+    """(R,) int64: the traversal stack entries each lane holds."""
+    return sum((s != _EMPTY).long() for s in lane.stack)
+
+
 def run_plain(lane: _Lane, ctx: _Ctx, max_iterations: Optional[int]) -> _Lane:
     """The loop as torch ops: trips until every lane is done or
     ``max_iterations`` more trips ran."""
@@ -1025,12 +1058,23 @@ def run_megakernel(
     dense: bool = False,
     pixel_list=None,
     frames_per_batch: int = 1,
+    cameras=None,
 ):
     """Returns (mean radiance (R*pixels_per_lane, 3), exact path segment
     count (int), loop trips) — or the raw lane state when
     ``return_state``. Semantics as tpurt's run_megakernel: with
     ``pixels_per_lane`` P > 1 lane i renders pixels pix[i] + k*stride
     (stride defaults to R) and radiance row k*R+i is its quota slot k.
+
+    ``frames_per_batch`` F > 1 packs F frames into the launch: slot k
+    covers frame ``frame_index + k // (P/F)`` at pixel pix + (k mod
+    P/F)*stride (clamped to the frame), its primary direction from
+    ``cameras[k // (P/F)]`` (a per-frame Camera tuple; None = ``camera``
+    for every frame, whose slots share one frame's direction table).
+    Radiance rows for frame f are [f*(P/F)*R, (f+1)*(P/F)*R), each
+    bitwise what rendering that frame alone gives. The cameras must
+    share a position (origins are not slotted); jitter, list quotas and
+    ``initial_state`` are refused, as tpurt refuses them.
 
     ``body_backend``: "plain" (this module's torch loop, any device) or
     "cuda" (render/mega_cuda.py). ``dense``: the brute-force mode (a
@@ -1043,8 +1087,16 @@ def run_megakernel(
         _unsupported("subpixel_jitter", "A.4")
     if pixel_list is not None:
         _unsupported("pixel_list (list-quota mode)", "A.4")
+    frames_per_batch = max(1, int(frames_per_batch))
     if frames_per_batch > 1:
-        _unsupported("frames_per_batch > 1 (cross-frame packing)", "A.3")
+        if pixels_per_lane % frames_per_batch:
+            raise ValueError("pixels_per_lane must split evenly over "
+                             "frames_per_batch")
+        if initial_state is not None:
+            raise ValueError("cross-frame packing: a resumed lane state "
+                             "is not taken (tpurt refuses it too)")
+        if cameras is not None and len(cameras) != frames_per_batch:
+            raise ValueError("cameras: one per packed frame")
     if body_backend not in ("plain", "cuda"):
         raise ValueError(f"unknown body_backend: {body_backend!r}")
     if max_bounces <= 0 and not return_state:
@@ -1055,6 +1107,7 @@ def run_megakernel(
         scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
         max_bounces, seed_mode, invisible_budget, sample_offset, camera,
         width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
+        frames_per_batch, cameras,
     )
     if initial_state is not None:
         lane = initial_state
@@ -1074,11 +1127,12 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             invisible_budget: int, sample_offset: int = 0, camera=None,
             width: int = 0, height: int = 0, pixels_per_lane: int = 1,
             pixel_stride: Optional[int] = None, tail_passes: int = 1,
-            dense: bool = False):
+            dense: bool = False, frames_per_batch: int = 1, cameras=None):
     """The shared setup of both backends -> (fresh lane state, loop
     invariants): chain and root tables (the dense sweep's table in
-    brute-force mode, where no root expands), quota slot directions, and
-    lanes seeded by the static stage and entered at chain entry 0."""
+    brute-force mode, where no root expands), quota slot directions (and
+    in a cross-frame pack the within-frame slot pixels), and lanes seeded
+    by the static stage and entered at chain entry 0."""
     if not isinstance(ro0, V3):
         ro0 = v3lib.from_rows(ro0)
     if not isinstance(rd0, V3):
@@ -1137,14 +1191,36 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         # Quota slots' primary directions, from the same pixel_uv +
         # make_ray chain as the entry rays.
         pi0 = pixel_index.to(torch.int64)
-        slot_rd = []
-        for k in range(1, p_count):
-            pk = torch.clamp_max(pi0 + k * stride, width * height - 1)
-            _ro, rd_k = make_ray(camera, pixel_uv(pk % width, pk // width,
-                                                  width, height))
-            slot_rd.append(rd_k)
+        frames = max(1, int(frames_per_batch))
+        ppf = p_count // frames
+
+        def slot_pixel(kk):
+            return torch.clamp_max(pi0 + kk * stride, width * height - 1)
+
+        def slot_dir(pk, cam):
+            return make_ray(cam, pixel_uv(pk % width, pk // width, width,
+                                          height))[1]
+
+        if frames > 1:
+            # Cross-frame pack: slot k's pixel is within-frame slot
+            # k mod ppf's (one (ppf, R) table); its direction is row
+            # (k-1) % rows of the table. One camera: the rows are one
+            # frame's slots 1..ppf-1 then slot 0 (the entry direction
+            # itself, so a frame start is bit-identical to a lone
+            # frame's), ppf rows. A camera a frame: slots 1..P-1.
+            pix_tab = torch.stack([slot_pixel(kk) for kk in range(ppf)])
+            if cameras is None:
+                rows = [slot_dir(slot_pixel(kk), camera)
+                        for kk in range(1, ppf)] + [v3lib.to_rows(rd0)]
+            else:
+                rows = [slot_dir(slot_pixel(k % ppf), cameras[k // ppf])
+                        for k in range(1, p_count)]
+            ctx = ctx._replace(frames=frames, ppf=ppf,
+                               slot_pix=(pix_tab & 0xFFFFFFFF).contiguous())
+        else:
+            rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
         ctx = ctx._replace(slot_rd=v3lib.from_rows(
-            torch.stack(slot_rd).contiguous()))
+            torch.stack(rows).contiguous()))
     pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
     return _initial_lane(ctx, ro0, rd0, pix), ctx
 

@@ -15,6 +15,9 @@ import math
 import os
 from typing import Optional, Tuple
 
+import numpy as np
+
+import tpurt_torch.config as cfgmod
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.core.camera import Camera
 from tpurt_torch.scene import procedural
@@ -136,3 +139,66 @@ def grid_scene(k: int, subdivisions: int = 0, materials=GRID_MATERIALS,
             material=materials[i % len(materials)],
         ))
     return b.freeze(device)
+
+
+def deep_chain(n: int = 70, ratio: float = 2.25, seed: int = 0):
+    """(pos, nrm) of ``n`` fins whose SAH tree is a chain ``n - 2`` levels
+    deep: fin k has two vertices at x = 0, +-0.1 (cos a, sin a) with an
+    angle a drawn from ``seed``, and its third at (3 c, 0, 0), c =
+    ``ratio`` ** k, so its centroid is (c, 0, 0). Every y and z candidate
+    plane of the builder's SAH leaves a side empty (all centroids there
+    are 0), and on x the largest fin's centroid is the only one past the
+    plane at 1/6 of the node box (ratio > 2): each split peels one fin.
+    Every box holds the points x in (0, 3), |y| < 0.036, |z| < 0.029,
+    so a ray from there with a positive x component hits both children
+    of every node row, whose axis is x, and visits the rest first."""
+    c = np.float64(ratio) ** np.arange(n)
+    ang = np.random.default_rng(seed).uniform(0.3, 1.2, n)
+    a, b = 0.1 * np.cos(ang), 0.1 * np.sin(ang)
+    zero = np.zeros(n)
+    pos = np.stack([np.stack([zero, a, b], -1), np.stack([zero, -a, -b], -1),
+                    np.stack([3.0 * c, zero, zero], -1)], 1)
+    face = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    face /= np.linalg.norm(face, axis=-1, keepdims=True)
+    nrm = np.broadcast_to(face[:, None], pos.shape)
+    return pos.astype(np.float32), nrm.astype(np.float32)
+
+
+#: Where deep_stack_scene puts the chain, and its camera's offset from
+#: there: inside every box of the chain (deep_chain).
+DEEP_CHAIN_POS = (0.0, 64.0, 0.0)
+DEEP_CAMERA_OFFSET = (1.5, 0.015625, -0.0078125)
+
+
+def deep_stack_scene(cfg: RenderConfig, arity: int = 4, device="cuda"
+                     ) -> Tuple[Scene, Camera]:
+    """The Cornell box around ``cfg``'s object with ``deep_chain()`` in
+    it, seen from inside every box of the chain along +x (a stack-depth
+    test scene): frozen with node rows of ``arity`` children
+    (config.MEGA_NODE_ARITY for this freeze). At arity 4 a row holds
+    three children, two levels of the SAH tree, and a primary ray pushes
+    two entries at each row it descends (the resume entry and the
+    second child): mega_stack_depth 36, a budget of 72 stack words, of
+    which the primary rays hold 67 after trip 34 (kernel B1 keeps such
+    stacks in global memory)."""
+    b = SceneBuilder()
+    model = _model_for(b, cfg)
+    model.material = Material(type=MaterialType.SOLID, ior=1.0,
+                              color=(1.0, 1.0, 1.0), specular_probability=1.0)
+    model.scale = 0.5
+    b.add_cornell_box(model)
+    b.add_mesh(model)
+    chain = b.add_triangles(*deep_chain(), max_depth=256)
+    chain.material = Material(type=MaterialType.SOLID, color=(0.9, 0.6, 0.3))
+    chain.pos = DEEP_CHAIN_POS
+    b.add_mesh(chain)
+    old = cfgmod.MEGA_NODE_ARITY
+    cfgmod.MEGA_NODE_ARITY = arity
+    try:
+        scene = b.freeze(device)
+    finally:
+        cfgmod.MEGA_NODE_ARITY = old
+    cam = Camera.create(position=np.add(DEEP_CHAIN_POS, DEEP_CAMERA_OFFSET),
+                        yaw=math.pi / 2, fov_degrees=cfg.fov_degrees,
+                        aspect_ratio=cfg.aspect_ratio, device=device)
+    return scene, cam
