@@ -100,6 +100,28 @@ Phases (each raises on failure, so any failure exits nonzero):
    full stack drops its bottom entry) and packed F = 2 as in phase 14,
    its first 34 trips timed, its frame counted.
 
+17. B1 with sub-pixel jitter and with list quotas, small (phase 3's
+   Cornell sphere and knobs): the jitter library's kernel against the
+   plain version in both seed modes as in phase 3; list quotas at P = 2
+   and 4 over a seeded permutation of the frame's pixels, lane fields
+   after 1, 4 and 16 trips, the radiance rows and segments; the identity
+   list at the flat batch's lanes against phase 3's frame, bit for bit.
+18. This slice's path at full size, bunny-1080p-jitter: bunny-1080p-plain
+   with subpixel_jitter=True (the primary-hit cache off), as phase 5: 16
+   trips through the kernel and the plain version, the batch to
+   completion (trips, the slowest lane, the counted bound),
+   ``render_image`` with its jitter launches counted, 3 frames timed; its
+   frame against phase 5's unjittered one (pixels that differ counted).
+19. The application layer on the card: ``cli.main`` at the reference
+   defaults (512x512, 50 spp, 50 bounces, the knight.obj stand-in; B1
+   launches counted) writes output.bmp, equal bit for bit to
+   ``render_image``'s frame of the same config; the CLI with
+   ``--scene-json examples/cornell_knot.json`` and with ``--engine
+   modular --subpixel-jitter --seed-mode decorrelated`` (B3 launches
+   counted) at 64x64; ``pick_mesh`` on the card against the CPU pick on
+   a uv grid; a scripted ``viewer.run_terminal`` session (move, +,
+   p X Y, g 2, o) writing preview.bmp and output.bmp.
+
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
 ``render_image`` and read just after. ``--b1-public`` builds B1 alone
@@ -215,7 +237,7 @@ def cuda_ms(fn, reps: int = 1):
 def reset_counts():
     from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 
-    mega_cuda.LAUNCHES = mega_cuda.DENSE_LAUNCHES = 0
+    mega_cuda.LAUNCHES = mega_cuda.DENSE_LAUNCHES = mega_cuda.JITTER_LAUNCHES = 0
     mt_sweep.LAUNCHES = plucker_fused.LAUNCHES = 0
 
 
@@ -223,7 +245,8 @@ def counts() -> dict:
     from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 
     return dict(megakernel=mega_cuda.LAUNCHES, dense=mega_cuda.DENSE_LAUNCHES,
-                mt_sweep=mt_sweep.LAUNCHES, dense_sweep=plucker_fused.LAUNCHES)
+                jitter=mega_cuda.JITTER_LAUNCHES, mt_sweep=mt_sweep.LAUNCHES,
+                dense_sweep=plucker_fused.LAUNCHES)
 
 
 def phase1():
@@ -247,12 +270,13 @@ def phase1():
 def phase2():
     from tpurt_torch import _build
 
-    names = ["megakernel", "dense_sweep", "mt_sweep", "tpurt_native"]
+    names = ["megakernel", "megakernel_jitter", "dense_sweep", "mt_sweep",
+             "tpurt_native"]
     t0 = time.time()
     done = _build.build_all(names)
     log(f"built {', '.join(f'{n} {s:.1f} s' for n, s in done.items())}; "
         f"all in {time.time() - t0:.1f} s")
-    for name in names[:3]:
+    for name in names[:4]:
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("entry function", "registers", "spill",
                                        "stack frame")):
@@ -438,7 +462,8 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None):
         (trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
         full.extend(ms)
     launch = mega_cuda.launch_config(ctx.dense is not None, tlas=ctx.tlas,
-                                     bf16=ctx.bf16, deep=mega_cuda.deep_stack(ctx))
+                                     bf16=ctx.bf16, deep=mega_cuda.deep_stack(ctx),
+                                     jitter=ctx.jitter)
     blocks = min(launch["blocks_per_sm"] * launch["sms"],
                  -(-r // launch["threads"]))
     log(f"{label} persistent launch: {blocks} blocks x {launch['threads']} "
@@ -512,7 +537,8 @@ def megakernel_bound(scene, tt, work, adv, label: str):
     slots: those counts times their branches' operations; the bank and
     each lane's words read once, the lane words written once, and the
     slot table rows the lanes read (a lane reads one direction row, and
-    in a pack one pixel row, where it advances), each once."""
+    in a pack or a list quota one pixel row, where it advances), each
+    once."""
     from tpurt_torch.render import mega_cuda
 
     ctx = tt["ctx"]
@@ -524,7 +550,7 @@ def megakernel_bound(scene, tt, work, adv, label: str):
         a = adv.long()
         tables = int(a.clamp(max=ctx.slot_rd.x.shape[0]).sum()) * 12
         if ctx.slot_pix is not None:
-            tables += int(a.clamp(max=ctx.ppf).sum()) * 4
+            tables += int(a.clamp(max=ctx.slot_pix.shape[0]).sum()) * 4
     nbytes = (scene.mega_rows.numel() * 4 + tables
               + 2 * words * 4 * tt["lanes"])
     boxes, leaves, segs, enters, exits = (list(work) + [0, 0])[:5]
@@ -1590,6 +1616,213 @@ def phase16():
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def compare_list(name, scene, cam, cfg, pixels, lanes=None):
+    """A list-quota launch over ``pixels`` (renderer.list_batch_args)
+    through B1 against the plain version: lane fields after 1, 4 and 16
+    trips, then the radiance rows and segments to the end; the launch to
+    completion timed against the plain version, with its counted bound.
+    Returns the kernel's rows."""
+    import torch
+
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render.megakernel import run_megakernel
+    from tpurt_torch.render.renderer import list_batch_args
+
+    args = list_batch_args(scene, cam, cfg, pixels, lanes=lanes)
+    r = args["pixel_index"].shape[0]
+    for k in (1, 4, 16):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=k,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        agree, err = mega_cuda.compare_lanes(*st)
+        log(f"{name}: after {k} trips, integer fields (lane0 included) agree on "
+            f"{agree:.4%} of {r} lanes, float max abs err {err:.3g}")
+        if agree < LANE_AGREE:
+            raise AssertionError(f"{name}: lane agreement {agree:.4%}")
+    reset_counts()
+    kern = run_megakernel(scene, body_backend="cuda", **args)
+    if counts()["megakernel"] != 1:
+        raise AssertionError(f"{name}: {counts()} launches")
+    plain = run_megakernel(scene, body_backend="plain", **args)
+    n = len(pixels)
+    same = float((kern[0][:n] == plain[0][:n]).all(-1).float().mean())
+    log(f"{name}: {n} listed pixels, {r} lanes; rows equal on {same:.4%}, "
+        f"bit for bit {bool(torch.equal(kern[0], plain[0]))}; segments kernel "
+        f"{kern[1]} plain {plain[1]}; trips {kern[2]}")
+    if 1.0 - same > MAX_FLIP or abs(kern[1] - plain[1]) > SEG_TOL * plain[1]:
+        raise AssertionError(f"{name}: rows or segments differ")
+    lane, ctx = mk.prepare(scene, **args)
+    buf0 = mega_cuda.pack(lane)
+    mega_cuda.launch(buf0.clone(), ctx, None)  # warm-up
+    bufs = [buf0.clone() for _ in range(3)]
+    it = iter(bufs)
+    (_trips, work), k_ms = cuda_ms(lambda: mega_cuda.launch(next(it), ctx, None), 3)
+    _out, p_ms = cuda_ms(lambda: mk.run_plain(lane, ctx, None))
+    adv = mega_cuda.unpack(bufs[-1], ctx, 0).pixno - lane.pixno
+    b_ms, b_by = megakernel_bound(scene, dict(ctx=ctx, lanes=r),
+                                  [int(w) for w in work.long().sum(1)], adv, name)
+    log(f"{name}: to completion kernel ms {[round(t, 4) for t in k_ms]}, plain ms "
+        f"{[round(t, 1) for t in p_ms]}, bound {b_ms:.4f} ms ({b_by}) | {CARD}")
+    return kern[0]
+
+
+def phase17():
+    """B1 with jitter (both seed modes) and with list quotas, small."""
+    import numpy as np
+
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.render.renderer import flat_batch_args, render_frame
+    from tpurt_torch.scene.presets import cornell_sphere_scene
+
+    cfg = RenderConfig(width=64, height=64, rays_per_pixel=2, max_bounces=3,
+                       pixels_per_lane=2, mega_tail_passes=2)
+    scene, cam, _ = cornell_sphere_scene(2, cfg, device="cuda")
+    for mode in ("reference", "decorrelated"):
+        jcfg = cfg.replace(subpixel_jitter=True, seed_mode=mode)
+        reset_counts()
+        compare_backends(f"cornell-sphere-64-jitter-{mode}", scene, cam, jcfg)
+        launched = counts()
+        if launched["jitter"] < 1 or launched["megakernel"]:
+            raise AssertionError(f"jitter: launches {launched}")
+    n = cfg.width * cfg.height
+    for p in (2, 4):
+        perm = np.random.default_rng(p).permutation(n)
+        compare_list(f"cornell-sphere-64-list-P{p}", scene, cam,
+                     cfg.replace(pixels_per_lane=p), perm)
+    lanes = flat_batch_args(scene, cam, cfg, 0)["pixel_index"].shape[0]
+    rows = compare_list("cornell-sphere-64-list-identity", scene, cam, cfg,
+                        np.arange(n), lanes=lanes)
+    flat = render_frame(scene, cam, cfg.replace(mega_body="pallas"))
+    if not np.array_equal(rows[:n].cpu().numpy().reshape(flat.shape), flat):
+        raise AssertionError("the identity list differs from the affine frame")
+    log("cornell-sphere-64: the identity list's frame is phase 3's flat frame, "
+        "bit for bit")
+
+
+def phase18(scene, b1):
+    """bunny-1080p-jitter at full width through B1's jitter library."""
+    import numpy as np
+
+    cfg = bunny_cfg(1920, 1080).replace(subpixel_jitter=True)
+    cam = camera_for(cfg)
+    tt = time_trips(scene, cam, cfg, 16, "bunny-1080p-jitter")
+    if tt["ctx"].use_cache or not tt["ctx"].jitter:
+        raise AssertionError("bunny-1080p-jitter: the cache is on or jitter off")
+    img, _stats, launches, best = main_path(
+        "bunny-1080p-jitter", scene, cam, cfg, "jitter")
+    b_ms, b_by = megakernel_bound(scene, tt, tt["work_k"], tt["adv_k"],
+                                  "jitter, 16 trips")
+    f_ms, _f_by = megakernel_bound(scene, tt, tt["work"], tt["adv"],
+                                   "jitter, whole batch")
+    differ = float((img != b1["img"]).any(axis=-1).mean())
+    log(f"B1 jitter whole batch: {tt['full_ms']:.3f} ms against its bound "
+        f"{f_ms:.3f} ms; the unjittered batch (phase 5) {b1['full_ms']:.3f} ms; "
+        f"lane trips {int(tt['trips'].long().sum())}, slowest lane "
+        f"{int(tt['trips'].max())}; the frame differs from phase 5's on "
+        f"{differ:.4%} of pixels (mean pixel {img.mean():.3f} against "
+        f"{b1['img'].mean():.3f}); frame {best:.3f} ms against phase 5's "
+        f"{b1['frame_ms']:.3f} | {CARD}")
+    if differ <= 0.0:
+        raise AssertionError("bunny-1080p-jitter: the frame equals the unjittered one")
+    return dict(name="b1_jitter: megakernel (B1) built with jitter", route="cuda",
+                source="tpurt_torch/csrc/megakernel_jitter.cu",
+                replaces="tpurt/render/mega_pallas.py:237", launches=launches,
+                max_abs_err=tt["err"], ms=tt["ms"], plain_ms=tt["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase19():
+    """The application layer on the card: the CLI, pick, the viewer."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from tpurt_torch import cli
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.io import read_bmp
+    from tpurt_torch.render.pick import pick_mesh
+    from tpurt_torch.render.renderer import render_image
+    from tpurt_torch.scene.presets import default_scene
+    from tpurt_torch.viewer import run_terminal
+
+    out = os.path.join(ROOT, "build", "chip_smoke_app")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    bmp = os.path.join(out, "output.bmp")
+    text = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["--output", bmp])
+    wall = time.time() - t0
+    launched = counts()
+    for line in text.getvalue().splitlines():
+        log("  cli:", line)
+    if rc != 0 or launched["megakernel"] < 1:
+        raise AssertionError(f"cli: rc {rc}, launches {launched}")
+    # The CLI's config on the card: tpurt's defaults, quota 8, 5 tail passes.
+    cfg = RenderConfig(pixels_per_lane=cli.CARD_PIXELS_PER_LANE,
+                       mega_tail_passes=cli.CARD_TAIL_PASSES, mega_interleave=1)
+    scene, cam, _ = default_scene(cfg, device="cuda")
+    want = render_image(scene, cam, cfg)
+    got = read_bmp(bmp)
+    if not np.array_equal(got, want):
+        raise AssertionError("cli: output.bmp differs from render_image's frame")
+    log(f"cli at the reference defaults ({cfg.width}x{cfg.height}, "
+        f"{cfg.rays_per_pixel} spp, {cfg.max_bounces} bounces, "
+        f"{cfg.object_path} stand-in): {wall:.2f} s with the scene build, "
+        f"launches {launched}; output.bmp equals render_image's frame bit for "
+        f"bit (mean pixel {got.mean():.3f}) | {CARD}")
+    small = ["--width", "64", "--height", "64", "--rays-per-pixel", "2",
+             "--max-bounces", "3"]
+    for what, extra, counter in (
+            ("scene-json", ["--scene-json", os.path.join(ROOT, "examples",
+                                                         "cornell_knot.json")],
+             "megakernel"),
+            ("modular jitter", ["--engine", "modular", "--subpixel-jitter",
+                                "--seed-mode", "decorrelated",
+                                "--object-path", "sphere2.obj"], "mt_sweep")):
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(small + extra + ["--output", os.path.join(out, "s.bmp")])
+        launched = counts()
+        img = read_bmp(os.path.join(out, "s.bmp"))
+        if rc != 0 or launched[counter] < 1 or img.shape != (64, 64, 3):
+            raise AssertionError(f"cli {what}: rc {rc}, launches {launched}")
+        log(f"cli {what} at 64x64: launches {launched}, mean pixel {img.mean():.3f}")
+    vcfg = RenderConfig(width=64, height=64, rays_per_pixel=1, max_bounces=3,
+                        tile_size=64, object_path="sphere2.obj")
+    vscene, vcam, _ = default_scene(vcfg, device="cuda")
+    g = (np.arange(16, dtype=np.float32) + 0.5) / 16
+    uv = np.stack(np.meshgrid(g, g, indexing="xy"), -1)
+    on_card = pick_mesh(vscene, vcam, uv).cpu().numpy()
+    cscene, ccam, _ = default_scene(vcfg, device="cpu")
+    on_cpu = pick_mesh(cscene, ccam, uv).numpy()
+    if not np.array_equal(on_card, on_cpu):
+        raise AssertionError("pick_mesh on the card differs from the CPU pick")
+    log(f"pick_mesh: a 16x16 uv grid on the card equals the CPU pick "
+        f"({len(set(on_card.ravel().tolist()))} distinct meshes)")
+    cwd = os.getcwd()
+    os.chdir(out)
+    try:
+        reset_counts()
+        ses = run_terminal(vscene, vcfg, preview_path="preview.bmp",
+                           stream=io.StringIO("ww\n+\np 32 48\ng 2\no\nQ\n"),
+                           out=io.StringIO())
+        launched = counts()
+        made = sorted(f for f in os.listdir(".") if f in ("preview.bmp", "output.bmp"))
+    finally:
+        os.chdir(cwd)
+    if made != ["output.bmp", "preview.bmp"] or launched["megakernel"] < 1:
+        raise AssertionError(f"viewer: wrote {made}, launches {launched}")
+    log(f"viewer: scripted session (ww, +, p 32 48 -> mesh {ses.picked}, g 2, o) "
+        f"wrote preview.bmp and output.bmp; {ses.num_passes} passes, launches "
+        f"{launched}")
+    shutil.rmtree(out)
+
+
 def main():
     global CARD
     import torch
@@ -1609,20 +1842,29 @@ def main():
         log("card:", CARD)
         b3_public_main()
         return
-    phase1()
-    phase2()
-    phase3()
-    bunny = phase4()
-    b1 = phase5(bunny)
-    b2 = phase7(phase6())
-    phase8()
-    b3 = phase10(phase9())
-    phase11()
-    b1_tlas = phase12()
-    phase13(bunny)
-    phase14()
-    b1_packed = phase15(bunny, b1)
-    b1_deep = phase16()
+    def timed(fn, *args):
+        t = time.time()
+        out = fn(*args)
+        log(f"{fn.__name__}: {time.time() - t:.1f} s")
+        return out
+
+    timed(phase1)
+    timed(phase2)
+    timed(phase3)
+    bunny = timed(phase4)
+    b1 = timed(phase5, bunny)
+    b2 = timed(phase7, timed(phase6))
+    timed(phase8)
+    b3 = timed(phase10, timed(phase9))
+    timed(phase11)
+    b1_tlas = timed(phase12)
+    timed(phase13, bunny)
+    timed(phase14)
+    b1_packed = timed(phase15, bunny, b1)
+    b1_deep = timed(phase16)
+    timed(phase17)
+    b1_jitter = timed(phase18, bunny, b1)
+    timed(phase19)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1630,7 +1872,8 @@ def main():
     # B3 also gives its device time (``device_ms``) beside ``ms``, which
     # for every kernel is CUDA events around the call, the host included.
     print(json.dumps({"kernels": [{k: b[k] for k in keys + ("device_ms",) if k in b}
-                                  for b in (b1, b1_tlas, b1_packed, b1_deep, b2, b3)]}))
+                                  for b in (b1, b1_tlas, b1_packed, b1_deep,
+                                            b1_jitter, b2, b3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

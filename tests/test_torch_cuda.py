@@ -4,7 +4,9 @@ persistent grid too, with fewer lanes than a block, than the resident
 threads and more — B1's TLAS and bf16 instantiations on tpurt's K = 12
 instance grid and a bf16 Cornell sphere, cross-frame packed launches in
 every instantiation, B1's deep-stack instantiation (stacks in global
-memory) on presets.deep_stack_scene, the dense block sweep (B2)
+memory) on presets.deep_stack_scene, B1 with sub-pixel jitter (its
+jitter library) and with list quotas, the CLI's BMP against
+render_image, the dense block sweep (B2)
 alone, and the exact sweep (B3) alone and in the modular engine. Marked ``cuda``: without a CUDA device every test skips (the
 decision is made in a fixture, at run time). On the GPU machine, which
 has no jax, run them without tests/conftest.py:
@@ -29,7 +31,8 @@ from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 from tpurt_torch.render import megakernel as mk
 from tpurt_torch.render.megakernel import run_megakernel
 from tpurt_torch.render.renderer import (
-    flat_batch_args, render_batch_flat, render_batch_flat_frames, render_frame)
+    flat_batch_args, list_batch_args, render_batch_flat,
+    render_batch_flat_frames, render_frame, render_image)
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder
 from tpurt_torch.scene.presets import (
@@ -298,6 +301,87 @@ def test_deep_stack_overflow_matches_plain(cuda_scene):
         kern = mega_cuda.unpack(buf, ctx, lane.iters + (trips or 0))
         agree, _err = mega_cuda.compare_lanes(mk.run_plain(lane, ctx, trips), kern)
         assert agree == 1.0, (trips, agree)
+
+
+@pytest.mark.parametrize("seed_mode", ["reference", "decorrelated"])
+@pytest.mark.parametrize("which", ["cornell", "grid", "dense"])
+def test_jittered_kernel_matches_plain(cuda_scene, which, seed_mode):
+    """B1 from its jitter library (each new sample's primary ray computed
+    in the kernel) in the u8, TLAS and dense instantiations against the
+    plain version: every lane field after 1, 4, 16 trips and to the end,
+    and the frame bit for bit with equal segments; the launches count in
+    JITTER_LAUNCHES, and the frame differs from the unjittered one."""
+    if which == "grid":
+        scene, cam = _regime_scene("grid")
+    else:
+        scene, cam = cuda_scene
+    cfg = CFG.replace(subpixel_jitter=True, seed_mode=seed_mode,
+                      mega_dense=which == "dense")
+    args = flat_batch_args(scene, cam, cfg, 0)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        assert st[0].c_set is None  # the primary-hit cache is off
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree == 1.0, (trips, agree)
+    before = (mega_cuda.JITTER_LAUNCHES, mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES)
+    sk, sp = {}, {}
+    kern = render_frame(scene, cam, cfg.replace(mega_body="pallas"), stats=sk)
+    assert mega_cuda.JITTER_LAUNCHES > before[0]
+    assert (mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES) == before[1:]
+    plain = render_frame(scene, cam, cfg.replace(mega_body="xla"), stats=sp)
+    np.testing.assert_array_equal(kern, plain)
+    assert sk["segments"] == sp["segments"]
+    assert not np.array_equal(kern, render_frame(
+        scene, cam, cfg.replace(subpixel_jitter=False)))
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_list_quota_kernel_matches_plain(cuda_scene, p):
+    """B1 with a list quota over a seeded permutation of 3,999 of the
+    frame's pixels (the last lanes' later slots clamp to the last entry)
+    against the plain version in every lane field after 1, 4, 16 trips
+    and to the end, and its radiance rows bit for bit; the identity list
+    at the flat batch's lanes gives the flat frame bit for bit."""
+    scene, cam = cuda_scene
+    cfg = CFG.replace(pixels_per_lane=p)
+    n = cfg.width * cfg.height
+    perm = np.random.default_rng(p).permutation(n)[:3999]
+    args = list_batch_args(scene, cam, cfg, perm)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=b, max_iterations=trips,
+                             return_state=True, **args) for b in ("plain", "cuda")]
+        assert torch.equal(st[1].lane0.long(), torch.arange(
+            args["pixel_index"].shape[0], device="cuda"))
+        agree, _err = mega_cuda.compare_lanes(*st)
+        assert agree == 1.0, (trips, agree)
+    kern = run_megakernel(scene, body_backend="cuda", **args)
+    plain = run_megakernel(scene, body_backend="plain", **args)
+    assert torch.equal(kern[0], plain[0]) and kern[1] == plain[1]
+    ident = list_batch_args(scene, cam, cfg, np.arange(n),
+                            lanes=flat_batch_args(scene, cam, cfg, 0)[
+                                "pixel_index"].shape[0])
+    mean, _segs, _ = run_megakernel(scene, body_backend="cuda", **ident)
+    flat = render_frame(scene, cam, cfg.replace(mega_body="pallas"))
+    np.testing.assert_array_equal(mean[:n].cpu().numpy().reshape(flat.shape), flat)
+
+
+def test_cli_bmp_equals_render_image(cuda_scene, tmp_path):
+    """``tpurt_torch.cli.main`` on the card (its default quota 8 and 5
+    tail passes) writes the BMP of render_image's frame, bit for bit."""
+    from tpurt_torch import cli
+    from tpurt_torch.io import read_bmp
+    from tpurt_torch.scene.presets import default_scene
+
+    out = str(tmp_path / "o.bmp")
+    assert cli.main(["--width", "48", "--height", "40", "--rays-per-pixel", "3",
+                     "--max-bounces", "4", "--object-path", "sphere1.obj",
+                     "--output", out]) == 0
+    cfg = RenderConfig(width=48, height=40, rays_per_pixel=3, max_bounces=4,
+                       object_path="sphere1.obj", pixels_per_lane=8,
+                       mega_tail_passes=5)
+    scene, cam, _ = default_scene(cfg, device="cuda")
+    np.testing.assert_array_equal(read_bmp(out), render_image(scene, cam, cfg))
 
 
 def test_tlas_scene_refuses_the_dense_mode(cuda_scene):

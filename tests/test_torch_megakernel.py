@@ -125,15 +125,22 @@ def test_pallas_body_on_cpu_scene_raises():
     dict(subpixel_jitter=True, engine="modular"),
 ])
 def test_unported_knobs_raise(knob):
-    """Jitter still raises in both engines (ROADMAP A.4). The knobs this
-    slice ported render: ``render_frame`` ignores mega_frames_per_batch,
-    as tpurt's does (the frame equals the unpacked one bit for bit), and
-    sample_flatten's frame equals the in-lane frame bit for bit."""
+    """Knobs once refused now render. Jitter, in both engines: the frame
+    differs from the unjittered one and equals the same plain version run
+    by another route (the megakernel's tile path, one launch a tile; the
+    modular engine in 8x8 tiles instead of one 16x16 tile), bit for bit.
+    ``render_frame`` ignores mega_frames_per_batch, as tpurt's does (the
+    frame equals the unpacked one bit for bit), and sample_flatten's frame
+    equals the in-lane frame bit for bit."""
     scene, cam, _ = cornell_sphere_scene(0, GOLDEN, device="cpu")
     cfg = GOLDEN.replace(**knob)
     if cfg.subpixel_jitter:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            render_frame(scene, cam, cfg)
+        frame = render_frame(scene, cam, cfg)
+        other = (cfg.replace(tile_size=8) if cfg.engine == "modular"
+                 else cfg.replace(rays_per_batch=0))
+        np.testing.assert_array_equal(frame, render_frame(scene, cam, other))
+        assert not np.array_equal(frame, render_frame(
+            scene, cam, cfg.replace(subpixel_jitter=False)))
         return
     plain = GOLDEN.replace(seed_mode=cfg.seed_mode)
     np.testing.assert_array_equal(render_frame(scene, cam, cfg),

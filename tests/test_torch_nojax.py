@@ -5,8 +5,12 @@ imports, builds the Cornell-sphere scene and renders 8x8 on the CPU
 through both engines, renders a 9-instance grid in the TLAS regime
 with bf16 node bounds, writes a video through tpurt_torch.anim (the
 yaw hook, then a static-hook pack) and reads its BMPs back through
-tpurt_torch.io, and resumes a frame from a TileAccumulator; and no module of the port, nor chip_smoke.py,
-imports jax, flax or any module of tpurt."""
+tpurt_torch.io, resumes a frame from a TileAccumulator, renders a
+jittered frame and a list quota, imports the application layer (cli,
+viewer, render.pick, scene.jsonscene, utils, parallel) and runs
+``cli.main(["--cpu", ...])`` on the default scene and on a JSON scene;
+and no module of the port, nor chip_smoke.py, imports jax, flax or any
+module of tpurt."""
 
 import os
 import re
@@ -55,6 +59,25 @@ with tempfile.TemporaryDirectory() as d:
     acc = TileAccumulator(cfg, path=d + "/acc.npz")
     assert np.array_equal(render_image(scene, cam, cfg, accumulator=acc),
                           render_image(scene, cam, cfg))
+    jit = render_image(scene, cam, cfg.replace(subpixel_jitter=True))
+    assert jit.shape == (8, 8, 3) and (jit > 0).any()
+    from tpurt_torch.render.megakernel import run_megakernel
+    from tpurt_torch.render.renderer import list_batch_args
+    mean, segs, _ = run_megakernel(scene, **list_batch_args(
+        scene, cam, cfg.replace(pixels_per_lane=2), np.arange(64)[::-1].copy()))
+    assert mean.shape == (64, 3) and segs > 0
+    from tpurt_torch import cli, utils, viewer  # noqa: F401
+    from tpurt_torch.parallel import device_inventory  # noqa: F401
+    from tpurt_torch.render import pick  # noqa: F401
+    from tpurt_torch.scene import jsonscene  # noqa: F401
+    from tpurt_torch.utils import profiling  # noqa: F401
+    tiny = ["--cpu", "--width", "8", "--height", "8", "--rays-per-pixel", "1",
+            "--max-bounces", "2"]
+    assert cli.main(tiny + ["--object-path", "sphere0.obj",
+                            "--output", d + "/cli.bmp"]) == 0
+    assert read_bmp(d + "/cli.bmp").shape == (8, 8, 3)
+    assert cli.main(tiny + ["--scene-json", {json!r}, "--engine", "modular",
+                            "--output", d + "/json.bmp"]) == 0
 print("rendered", sorted(m for m in sys.modules
                          if m == "tpurt" or m.startswith("tpurt.")))
 """
@@ -62,7 +85,9 @@ print("rendered", sorted(m for m in sys.modules
 
 def test_port_imports_and_renders_without_jax_or_tpurt():
     out = subprocess.run(
-        [sys.executable, "-c", _RENDER.format(root=ROOT)], cwd=ROOT,
+        [sys.executable, "-c", _RENDER.format(
+            root=ROOT, json=os.path.join(ROOT, "examples", "glass_sphere.json"))],
+        cwd=ROOT,
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     loaded = eval(out.stdout.strip().splitlines()[-1].split(" ", 1)[1])

@@ -10,7 +10,13 @@ has a named counterpart:
   scene/   OBJ, procedural meshes, builder + freeze   (tpurt/scene)
   render/  shading, tonemap, the megakernel (BVH and dense), the
            modular engine (intersect, integrator), the dense sweeps,
-           the renderers                               (tpurt/render)
+           the renderers, mesh picking                (tpurt/render)
+  io/      BMP files, the tile accumulator            (tpurt/io)
+  anim     videos and progressive frames              (tpurt/anim.py)
+  utils/   progress line, profiling hooks             (tpurt/utils)
+  parallel/ device inventory and selection            (tpurt/parallel)
+  cli, viewer  the command line and the terminal viewer (tpurt/cli.py,
+           tpurt/viewer.py): python -m tpurt_torch.cli
   csrc/    CUDA C++ kernels and the C++ BVH builder, built at first use
            (_build.py)
 

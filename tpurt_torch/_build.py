@@ -12,9 +12,10 @@ as the plain torch version computes them; no fast math, so divisions
 and square roots stay IEEE. Host sources (``<name>.cpp``, the SAH BVH
 builder) go through g++. A library lands in ``build/tpurt_torch/`` at
 the repository root, named by a hash of its source, the ``.cuh``
-headers beside it and the flags, so an edited source rebuilds and an
-unchanged one loads at once. A failed build raises with the compiler's
-output.
+headers beside it, for a CUDA source the other ``.cu`` files too (one
+may include another: ``megakernel_jitter.cu`` is ``megakernel.cu`` with
+jitter), and the flags, so an edited source rebuilds and an unchanged
+one loads at once. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -62,7 +63,10 @@ def lib_path(name: str) -> str:
     current hash."""
     src = _source(name)
     digest = hashlib.sha256(" ".join(_flags(src)).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    beside = glob.glob(os.path.join(CSRC, "*.cuh"))
+    if src.endswith(".cu"):
+        beside += glob.glob(os.path.join(CSRC, "*.cu"))
+    for path in [src] + sorted(beside):
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")

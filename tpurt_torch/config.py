@@ -5,9 +5,7 @@ written for one package means the same render in the other
 (tests/test_torch_config.py holds the two equal). The module constants
 are the ones the port reads; they take tpurt's values, which shape the
 bank layout and the lane trajectories. Knobs that only schedule work on
-the TPU are accepted and ignored, as their docs below say; knobs the
-port does not run yet raise NotImplementedError where they are used,
-naming their ROADMAP item.
+the TPU are accepted and ignored, as their docs below say.
 """
 
 from __future__ import annotations
@@ -88,7 +86,11 @@ class RenderConfig:
     video_frame_count: int = 1
     video_output_dir: str = "img"
 
-    #: Sub-pixel jitter from an auxiliary stream (ROADMAP A.4).
+    #: Sub-pixel jitter from an auxiliary stream: each sample's primary
+    #: ray moves within its pixel (the megakernel: every new sample after
+    #: the lane's first, with the primary-hit cache off; the modular
+    #: engine: sample 0's ray shared in reference mode, a ray a sample in
+    #: decorrelated mode), as tpurt's.
     subpixel_jitter: bool = False
 
     #: Modular engine: meshes with at most this many triangles are swept

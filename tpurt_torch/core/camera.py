@@ -59,12 +59,20 @@ class Camera(NamedTuple):
         return self.params.detach().cpu().numpy().astype(np.float32)
 
 
-def make_ray(camera: Camera, uv: torch.Tensor):
-    """MakeRay for a batch of uv (..., 2) -> (origins, directions)."""
+def camera_scalars(camera: Camera):
+    """The camera's per-frame scalars, as make_ray uses them: (position
+    (3,), rotation (3, 3) row-major, tan of the half fov, aspect), numpy
+    float32. Kernel B1 takes the same values for its jittered rays."""
     p = camera.host_params()
     # deg2rad as x * f32(pi/180), the form tpurt's jnp.deg2rad takes.
-    scale = float(np.tan(p[6] * np.float32(0.5) * np.float32(np.pi / 180)))
-    aspect = float(p[7])
+    tan = np.tan(p[6] * np.float32(0.5) * np.float32(np.pi / 180))
+    return p[0:3], euler_rotation(p[3], p[4], p[5]), np.float32(tan), p[7]
+
+
+def make_ray(camera: Camera, uv: torch.Tensor):
+    """MakeRay for a batch of uv (..., 2) -> (origins, directions)."""
+    _pos, rot, scale, aspect = camera_scalars(camera)
+    scale, aspect = float(scale), float(aspect)
     ndc = uv * 2.0 - 1.0
     ndc_x = ndc[..., 0] * aspect
     ndc_y = ndc[..., 1]
@@ -72,7 +80,6 @@ def make_ray(camera: Camera, uv: torch.Tensor):
         [ndc_x * scale, ndc_y * scale, torch.ones_like(ndc_x)], dim=-1
     ))
     # The camera applies makeRotation transposed (Trace.cl:608-616).
-    rot = euler_rotation(p[3], p[4], p[5])
     dir_world = normalize3(rotate_t(rot, dir_cam))
     origin = camera.position.to(uv.device).expand(dir_world.shape)
     return origin, dir_world
@@ -83,6 +90,33 @@ def pixel_uv(x: torch.Tensor, y: torch.Tensor, width: int, height: int):
     u = x.to(torch.float32) / float(width)
     v = 1.0 - y.to(torch.float32) / float(height)
     return torch.stack([u, v], dim=-1)
+
+
+#: Salt of the sub-pixel jitter's auxiliary stream (tpurt's camera_rays
+#: and megakernel primary_ray): its own seed, so the main stream is
+#: untouched.
+JITTER_SALT = 0xA511E9B3
+
+
+def jittered_uv(xs: torch.Tensor, ys: torch.Tensor, pixel_index: torch.Tensor,
+                frame_index, sample, width: int, height: int) -> torch.Tensor:
+    """pixel_uv moved by the sub-pixel jitter: two random_values of the
+    stream MakeSeed(pixel ^ JITTER_SALT, frame, sample), and uv +=
+    ((jx - 0.5) / W, (jy - 0.5) / H).
+
+    Every division divides by a 0-dim tensor on the pixels' device: torch
+    on CUDA divides by a Python scalar as a multiply by its reciprocal,
+    while kernel B1, which recomputes these rays, divides as IEEE does.
+    On the CPU both forms give pixel_uv's bits."""
+    dev = xs.device
+    w = torch.tensor(float(width), dtype=torch.float32, device=dev)
+    h = torch.tensor(float(height), dtype=torch.float32, device=dev)
+    u = xs.to(torch.float32) / w
+    v = 1.0 - ys.to(torch.float32) / h
+    seed = rng.make_seed(rng.u32(pixel_index) ^ JITTER_SALT, frame_index, sample)
+    seed, jx = rng.random_value(seed)
+    _seed, jy = rng.random_value(seed)
+    return torch.stack([u + (jx - 0.5) / w, v + (jy - 0.5) / h], dim=-1)
 
 
 def make_camera_rays(camera: Camera, xs: torch.Tensor, ys: torch.Tensor,

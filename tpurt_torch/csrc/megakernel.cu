@@ -81,13 +81,32 @@
 // run time from the launch configuration, only where a lane advances to
 // its next quota slot: the slot's pixel comes from a (ppf, R) table, its
 // direction from the periodic slot table, and its frame offset pixno /
-// ppf enters the seed. An unpacked launch takes the affine advance.
+// ppf enters the seed. A list quota (run_megakernel(pixel_list=)) takes
+// the same table advance, its (P, R) pixel table read at row pixno (the
+// host passes it as frames = ppf = P). An unpacked launch takes the
+// affine advance.
+//
+// Sub-pixel jitter is a compile-time parameter, TPURT_MK_JITTER, set per
+// library: this file builds the library without it, and
+// megakernel_jitter.cu, which includes this file with TPURT_MK_JITTER 1,
+// the one with it, so no unjittered instantiation holds its code or its
+// launch configuration's camera fields. Under jitter each new
+// sample's primary ray is computed here from the lane's current pixel and
+// sample (primary_ray below: the jitter stream, pixel uv, make_ray with
+// the camera's scalars from the launch configuration) -- it cannot come
+// from the host, since a sample's pixel is known only after the quota
+// advance -- in the plain version's operations and order, with IEEE
+// divisions.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "dense_sweep.cuh"
+
+#ifndef TPURT_MK_JITTER
+#define TPURT_MK_JITTER 0
+#endif
 
 namespace {
 
@@ -158,9 +177,20 @@ struct MkCfg {
   // The instantiation (launch only; the kernel is compiled for it):
   // deep = the stacks in the (s_depth, R) scratch the host allocated.
   int tlas, bf16, deep;
-  // Cross-frame packing: frames in the launch (1 = unpacked), quota
-  // slots a frame, and the rows of the slot direction table.
+  // The table advance (frames > 1): an advancing lane reads its slot's
+  // pixel from the (ppf, R) table at row pixno % ppf and its direction
+  // from row (pixno - 1) % rd_rows, and its seeds take the frame offset
+  // pixno / ppf. A cross-frame pack passes its frames and slots a frame;
+  // a list quota passes frames = ppf = P (one frame of P slots, no
+  // offset). frames = 1: the affine advance.
   int frames, ppf, rd_rows;
+#if TPURT_MK_JITTER
+  // The camera's scalars for jittered rays (core/camera.camera_scalars):
+  // position, rotation row-major, tan of the half fov, aspect. Only the
+  // jitter library's configuration has them, so the other's kernels see
+  // the configuration they saw before jitter.
+  float cam_pos[3], cam_rot[9], cam_tan, cam_aspect;
+#endif
 };
 
 namespace {
@@ -175,7 +205,7 @@ struct Tables {
   const int* meta;       // root[E] leaf[E] mesh[E] expand[E]
                          // s_cull[S] s_onesided[S] s_owner[S] mesh_cull[K]
   const float* slot_rd;  // (3, rd_rows, R) quota slot directions
-  const uint32_t* slot_pix;  // (ppf, R) within-frame slot pixels (packed only)
+  const uint32_t* slot_pix;  // (ppf, R) slot pixels (packed or list)
   uint32_t* stack;       // (s_depth, R) traversal stacks (kDeep only)
   DenseTable dt;         // the dense sweep's table (megakernel<true> only)
 };
@@ -908,6 +938,28 @@ __device__ bool traverse_swept(const Ctx& x, Ln& L, int col, float t_sw) {
   return fold<false>(x, L, false, 1.0f);
 }
 
+// The jittered primary ray of a lane's pixel and sample
+// (megakernel.primary_ray): pixel uv, the jitter stream MakeSeed(pix ^
+// salt, frame, sample), make_ray on the camera's scalars.
+#if TPURT_MK_JITTER
+constexpr uint32_t kJitterSalt = 0xA511E9B3u;  // core/camera.JITTER_SALT
+
+__device__ __forceinline__ void primary_ray(const MkCfg& c, uint32_t pix, int sample, V& o,
+                                            V& d) {
+  const float w = (float)c.width, h = (float)c.height;
+  float u = (float)((int)pix % c.width) / w;
+  float v = 1.0f - (float)((int)pix / c.width) / h;
+  float jx, jy;
+  const uint32_t s = random_value(make_seed(pix ^ kJitterSalt, c.frame_index, (uint32_t)sample), jx);
+  random_value(s, jy);
+  u = u + (jx - 0.5f) / w;
+  v = v + (jy - 0.5f) / h;
+  const float nx = (u * 2.0f - 1.0f) * c.cam_aspect, ny = v * 2.0f - 1.0f;
+  d = normalize(rot_t(c.cam_rot, normalize(v3(nx * c.cam_tan, ny * c.cam_tan, 1.0f))));
+  o = ld3(c.cam_pos);
+}
+#endif
+
 // The frame of quota slot ``pixno``: a cross-frame pack adds the slot's
 // frame offset pixno / ppf.
 __device__ __forceinline__ int slot_frame(const MkCfg& c, int pixno) {
@@ -951,8 +1003,8 @@ __device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
       L.pixno += 1;
       int row = L.pixno - 1;
       if (c.frames > 1) {
-        // Cross-frame pack: within-frame slot pixno % ppf's pixel, and
-        // the periodic direction table's row (pixno - 1) % rd_rows.
+        // The table advance: slot pixno % ppf's pixel, and the direction
+        // table's row (pixno - 1) % rd_rows.
         L.pix = x.tb.slot_pix[(size_t)(L.pixno % c.ppf) * x.s.n + x.s.i];
         row %= c.rd_rows;
       } else {
@@ -974,7 +1026,11 @@ __device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
     L.rng = make_seed(L.pix, slot_frame(c, L.pixno), 0u);
   }
   if (new_sample) {
+#if TPURT_MK_JITTER
+    primary_ray(c, L.pix, L.sample, L.origin, L.direction);
+#else
     L.origin = L.ro0; L.direction = L.rd0;
+#endif
     L.throughput = v3(1.0f, 1.0f, 1.0f); L.light = zero;
     L.bounces = 0; L.invis = 0;
   }
@@ -1158,6 +1214,10 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
 // The lane words before the quota accumulators: enum Field and the TLAS
 // instantiation's enum TlasField.
 extern "C" int tpurt_mk_fixed_words() { return N_TLAS_END; }
+
+// Whether this library computes jittered primary rays (TPURT_MK_JITTER),
+// and so takes the launch configuration with the camera's fields.
+extern "C" int tpurt_mk_jitter() { return TPURT_MK_JITTER; }
 
 extern "C" const char* tpurt_mk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

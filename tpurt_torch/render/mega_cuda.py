@@ -22,13 +22,20 @@ budget above the kernel's ``kMaxStack`` (``MAX_REGISTER_STACK``) entries
 the one whose stacks live in a global scratch buffer (``kDeep``); their
 launches count in ``LAUNCHES``. A cross-frame pack (``ctx.frames`` > 1)
 runs in any of them: the kernel reads its slot pixels
-(``ctx.slot_pix``) and periodic direction table where a lane advances.
+(``ctx.slot_pix``) and periodic direction table where a lane advances;
+a list quota (``ctx.pix_list``) reads its (P, R) slot pixels the same
+way. A jittered context (``ctx.jitter``) launches the same
+instantiations from the library built with jitter
+(csrc/megakernel_jitter.cu), which computes each new sample's primary
+ray in the kernel; those launches count in ``JITTER_LAUNCHES``.
 
 The lane state crosses the C boundary as one contiguous (n_words, R)
 int32 buffer: ``LANE_WORDS`` (the kernel's ``enum Field``, word for
 word), then in the TLAS regime ``TLAS_WORDS`` (``enum TlasField``), then
-3*P quota accumulators when P > 1, then the S stack slots top first.
-Bools travel as 0/1 words, u32 fields as their bits, floats by bit view.
+3*P quota accumulators when P > 1, then the S stack slots top first,
+then in a list quota the lane's ``lane0`` (which the kernel never reads
+or writes). Bools travel as 0/1 words, u32 fields as their bits, floats
+by bit view.
 """
 
 from __future__ import annotations
@@ -39,13 +46,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpurt_torch.core.camera import camera_scalars
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import megakernel as mk
 
 #: Kernel launches made by ``launch`` (incremented where a launch is
-#: made): the BVH instantiation and the dense one.
+#: made): the BVH instantiations, the dense one, and any instantiation of
+#: the jitter library.
 LAUNCHES = 0
 DENSE_LAUNCHES = 0
+JITTER_LAUNCHES = 0
 
 #: kMaxStack in the kernel: deeper stacks take the kDeep instantiation,
 #: which ``launch`` names in MkCfg.deep (the kernel refuses a deeper
@@ -96,6 +106,13 @@ class _Cfg(ctypes.Structure):
     )]
 
 
+class _JitterCfg(_Cfg):
+    """struct MkCfg of the jitter library: the camera's scalars follow."""
+
+    _fields_ = [("cam_pos", ctypes.c_float * 3), ("cam_rot", ctypes.c_float * 9),
+                ("cam_tan", ctypes.c_float), ("cam_aspect", ctypes.c_float)]
+
+
 def _word(t: torch.Tensor, kind: str) -> torch.Tensor:
     """A lane field as int32 words (bits preserved)."""
     if kind == "f":
@@ -134,6 +151,8 @@ def pack(lane: mk._Lane) -> torch.Tensor:
     for acc in lane.accs:
         rows.extend(_word(c, "f") for c in acc)
     rows.extend(_word(s, "u") for s in lane.stack)
+    if lane.lane0 is not None:
+        rows.append(_word(lane.lane0, "i"))
     return torch.stack(rows).contiguous()
 
 
@@ -158,6 +177,8 @@ def unpack(buf: torch.Tensor, ctx: mk._Ctx, iters: int) -> mk._Lane:
             accs.append(V3(*(_unword(buf[k + j], "f") for j in range(3))))
             k += 3
     stack = tuple(_unword(buf[k + j], "u") for j in range(ctx.s_depth))
+    if ctx.pix_list:
+        vals["lane0"] = buf[k + ctx.s_depth]
     if not ctx.use_cache:
         for name in _CACHE_FIELDS:
             vals[name] = None
@@ -170,9 +191,9 @@ def compare_lanes(a: mk._Lane, b: mk._Lane):
     lanes where both are finite)."""
     same = torch.ones_like(a.done)
     floats = []
-    for name, kind in _FIELDS + _TLAS_FIELDS:
+    for name, kind in _FIELDS + _TLAS_FIELDS + [("lane0", "i")]:
         va, vb = getattr(a, name), getattr(b, name)
-        if va is None:
+        if va is None or vb is None:
             continue
         if kind in "vf":
             floats.extend(zip(va, vb) if kind == "v" else [(va, vb)])
@@ -216,7 +237,7 @@ def _tables(ctx: mk._Ctx, dev):
     else:
         slot_rd = torch.zeros(1, dtype=torch.float32, device=dev)
     if ctx.slot_pix is not None:
-        slot_pix = _word(ctx.slot_pix, "u").contiguous()  # (ppf, R)
+        slot_pix = _word(ctx.slot_pix, "u").contiguous()  # (rows, R)
     else:
         slot_pix = torch.zeros(1, dtype=torch.int32, device=dev)
     srows = ctx.srows if len(ctx.srows) else np.zeros((1, 19), np.float32)
@@ -229,10 +250,11 @@ def _tables(ctx: mk._Ctx, dev):
     )
 
 
-def _lib():
+def _lib(jitter: bool = False):
+    """The kernel's library: csrc/megakernel.cu, or its jitter build."""
     from tpurt_torch import _build
 
-    lib = _build.load("megakernel")
+    lib = _build.load("megakernel_jitter" if jitter else "megakernel")
     if not getattr(lib, "_tpurt_ready", False):
         vp = ctypes.c_void_p
         lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 16
@@ -244,9 +266,14 @@ def _lib():
         lib.tpurt_mk_fixed_words.restype = ctypes.c_int
         lib.tpurt_mk_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_mk_error_string.restype = ctypes.c_char_p
+        lib.tpurt_mk_jitter.argtypes = []
+        lib.tpurt_mk_jitter.restype = ctypes.c_int
         if lib.tpurt_mk_fixed_words() != len(LANE_WORDS) + len(TLAS_WORDS):
             raise RuntimeError("csrc/megakernel.cu enum Field / TlasField and "
                                "LANE_WORDS / TLAS_WORDS disagree")
+        if lib.tpurt_mk_jitter() != int(jitter):
+            raise RuntimeError("the megakernel library's jitter build is not "
+                               "the one asked for")
         lib._tpurt_ready = True
     return lib
 
@@ -263,10 +290,11 @@ def deep_stack(ctx: mk._Ctx) -> bool:
 
 
 def launch_config(dense: bool, device=None, tlas: bool = False,
-                  bf16: bool = False, deep: bool = False) -> dict:
+                  bf16: bool = False, deep: bool = False,
+                  jitter: bool = False) -> dict:
     """The persistent launch of one instantiation on ``device``: threads
     a block, resident blocks per SM, SMs, and the resident lanes."""
-    lib = _lib()
+    lib = _lib(jitter)
     vals = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16, deep),
@@ -285,7 +313,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     lane in this launch (``WORK_ROWS``): child-box tests in node rows,
     leaf rows (dense: entry sweeps), segment completions; in the TLAS
     regime (5, R), with instance enters and exits."""
-    global LAUNCHES, DENSE_LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES, JITTER_LAUNCHES
     if buf.device.type != "cuda":
         raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
     if buf.dtype != torch.int32 or buf.dim() != 2 or not buf.is_contiguous():
@@ -293,8 +321,13 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     r = buf.shape[1]
     acc_words = 3 * ctx.p_count if ctx.p_count > 1 else 0
     tlas_words = len(TLAS_WORDS) if ctx.tlas else 0
-    if buf.shape[0] != len(LANE_WORDS) + tlas_words + acc_words + ctx.s_depth:
-        raise ValueError(f"lane buffer has {buf.shape[0]} words per lane")
+    words = (len(LANE_WORDS) + tlas_words + acc_words + ctx.s_depth
+             + int(ctx.pix_list))
+    if buf.shape[0] != words:
+        raise ValueError(f"lane buffer has {buf.shape[0]} words per lane, "
+                         f"not {words}")
+    if ctx.jitter and ctx.camera is None:
+        raise ValueError("a jittered launch needs the context's camera")
     rows = ctx.rows
     if rows.device != buf.device or rows.dtype != torch.float32 or not rows.is_contiguous():
         raise ValueError("row bank must be a contiguous f32 tensor on the buffer's device")
@@ -309,7 +342,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     deep = deep_stack(ctx)
     stack = torch.empty((ctx.s_depth, r) if deep else (1,),
                         dtype=torch.int32, device=dev)
-    cfg = _Cfg(
+    cfg = (_JitterCfg if ctx.jitter else _Cfg)(
         n_lanes=r, max_trips=2 ** 31 - 1 if max_trips is None else int(max_trips),
         e_count=ctx.e_count, s_depth=ctx.s_depth,
         num_meshes=ctx.mats.shape[0], n_static=len(ctx.s_cull),
@@ -321,15 +354,24 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         expand_passes=ctx.expand_passes, n_skip=ctx.n_skip,
         leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=rows.shape[1],
         frame_index=ctx.frame_index, sample_offset=ctx.sample_offset,
-        tlas=int(ctx.tlas), bf16=int(ctx.bf16), deep=int(deep), frames=ctx.frames,
-        ppf=ctx.ppf, rd_rows=0 if ctx.slot_rd is None else ctx.slot_rd.x.shape[0],
+        tlas=int(ctx.tlas), bf16=int(ctx.bf16), deep=int(deep),
+        # A list quota takes the kernel's table advance as one frame of P
+        # slots (frames = ppf = P: row pixno, no frame offset).
+        frames=ctx.p_count if ctx.pix_list else ctx.frames,
+        ppf=ctx.p_count if ctx.pix_list else ctx.ppf,
+        rd_rows=0 if ctx.slot_rd is None else ctx.slot_rd.x.shape[0],
     )
+    if ctx.jitter:
+        pos, rot, tan, aspect = camera_scalars(ctx.camera)
+        cfg.cam_pos[:] = [float(v) for v in pos]
+        cfg.cam_rot[:] = [float(v) for v in rot.reshape(9)]
+        cfg.cam_tan, cfg.cam_aspect = float(tan), float(aspect)
     dense = None
     if ctx.dense is not None:
         from tpurt_torch.render.plucker_fused import check_table
 
         dense = check_table(ctx.dense, dev)
-    lib = _lib()
+    lib = _lib(ctx.jitter)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -345,7 +387,9 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            + lib.tpurt_mk_error_string(err).decode())
-    if dense is None:
+    if ctx.jitter:
+        JITTER_LAUNCHES += 1
+    elif dense is None:
         LAUNCHES += 1
     else:
         DENSE_LAUNCHES += 1

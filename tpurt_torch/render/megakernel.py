@@ -12,8 +12,15 @@ chain entry to world space, then ``tail_passes`` times shade ->
 accumulate/advance -> restart -> inline static stage -> chain enter with
 root pretest, chain skip and root expansion. ``_body_math`` below is
 that trip as tensor ops over (R,) lanes — the same transcription as
-tpurt's ``_body_math``, op for op and in the same association order,
-minus the regimes not ported yet (jitter, list quotas).
+tpurt's ``_body_math``, op for op and in the same association order.
+
+Sub-pixel jitter (``subpixel_jitter``): every new sample's primary ray is
+recomputed from the lane's current pixel and sample (``primary_ray``:
+pixel uv, the jitter stream, make_ray), so it is right after a quota
+advance; the lane's first sample keeps its entry ray, and the primary-hit
+cache is off, as in tpurt. List quotas (``pixel_list``, P > 1): slot k
+of lane i renders pixel_list[min(i + k*stride, N-1)], read from a (P, R)
+slot table; the lanes carry their batch index (``lane0``).
 
 Cross-frame packing (``frames_per_batch`` F > 1): a lane's P quota
 slots span F frames of P/F slots each; slot k renders within-frame slot
@@ -61,7 +68,7 @@ import tpurt_torch.config as _cfg
 from tpurt_torch.config import EPSILON
 from tpurt_torch.core import rng as rnglib
 from tpurt_torch.core import v3 as v3lib
-from tpurt_torch.core.camera import make_ray, pixel_uv
+from tpurt_torch.core.camera import jittered_uv, make_ray, pixel_uv
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.core.vecmath import euler_rotation
 from tpurt_torch.render.intersect import mt_core as _mt_core
@@ -148,6 +155,9 @@ class _Lane(NamedTuple):
     inst_scale: Optional[torch.Tensor] = None  # (R,) f32 (1.0 outside)
     inst_cull: Optional[torch.Tensor] = None  # (R,) bool backface-cull policy
     inst_os: Optional[torch.Tensor] = None  # (R,) bool OneSided at exit
+    # List quotas only (None otherwise): the lane's index in the batch it
+    # started in, from which a resumed run rebuilds its slot pixels.
+    lane0: Optional[torch.Tensor] = None  # (R,) i32
 
 
 class _ChainParams(NamedTuple):
@@ -207,11 +217,18 @@ class _Ctx(NamedTuple):
     # (mesh -> slot, slot -> representative mesh) as (K,) and (U,) i32
     # tensors: the shade fetch's material slots (TLAS regime).
     mat_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    # Cross-frame packing: frames in the pack, slots a frame (P / frames)
-    # and the (ppf, R) int64 pixel of each within-frame slot.
+    # Cross-frame packing: frames in the pack, slots a frame (P / frames).
     frames: int = 1
     ppf: int = 1
+    # The quota slots' pixels where the advance is not affine, (rows, R)
+    # int64, row pixno % rows: a pack's (ppf, R) within-frame slots, or a
+    # list quota's (P, R) slots, pixel_list[min(lane0 + k*stride, N-1)].
     slot_pix: Optional[torch.Tensor] = None
+    pix_list: bool = False  # list quotas (lanes carry lane0)
+    # Sub-pixel jitter: every new sample's primary ray is recomputed from
+    # the lane's pixel and sample through this camera (primary_ray).
+    jitter: bool = False
+    camera: Optional[object] = None
 
 
 def _cull_policy(mt: int) -> bool:
@@ -820,6 +837,16 @@ def _fold(s: _Lane, ctx: _Ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur,
     return t, fin & (entry < e_count)
 
 
+def primary_ray(ctx: _Ctx, pix: torch.Tensor, sample: torch.Tensor):
+    """The jittered primary ray (V3 origin, V3 direction) of each lane's
+    pixel and sample: pixel uv, the jitter stream seeded with the
+    sample's index (no sample offset), make_ray (tpurt's primary_ray)."""
+    uv = jittered_uv(pix % ctx.width, pix // ctx.width, pix, ctx.frame_index,
+                     sample.to(torch.int64), ctx.width, ctx.height)
+    ro, rd = make_ray(ctx.camera, uv)
+    return v3lib.from_rows(ro), v3lib.from_rows(rd)
+
+
 def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
     """Segment completion: shade -> accumulate/advance -> restart ->
     static stage -> chain enter (pretest, chain skip, root expansion).
@@ -867,17 +894,20 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
         )
         acc = V3(*(torch.where(pix_done, 0.0, c) for c in acc))
         pixno = t.pixno + advance.to(_I32)
-        if ctx.frames > 1:
-            # Cross-frame pack: the slot's pixel from the within-frame
-            # table, its direction from the periodic table, its frame
-            # offset into the seed.
-            kk = (pixno % ctx.ppf).long()[None]
+        if ctx.slot_pix is not None:
+            # A list quota or a cross-frame pack: the slot's pixel from
+            # the slot table (row pixno % rows).
+            kk = (pixno % ctx.slot_pix.shape[0]).long()[None]
             adv_pix = torch.gather(ctx.slot_pix, 0, kk)[0]
-            k = ((pixno - 1).clamp_min(0) % ctx.slot_rd.x.shape[0]).long()[None]
-            f_off = (pixno // ctx.ppf).long()
         else:
             adv_pix = torch.clamp_max(t.pix + ctx.pixel_stride,
                                       ctx.width * ctx.height - 1)
+        if ctx.frames > 1:
+            # Cross-frame pack: the direction from the periodic table, the
+            # slot's frame offset into the seed.
+            k = ((pixno - 1).clamp_min(0) % ctx.slot_rd.x.shape[0]).long()[None]
+            f_off = (pixno // ctx.ppf).long()
+        else:
             k = (pixno - 1).clamp(0, p_count - 2).long()[None]
             f_off = 0
         pix = torch.where(advance, adv_pix, t.pix)
@@ -903,8 +933,9 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
         # its samples, Trace.cl:632-641): re-seed on advance only.
         rng = torch.where(advance, _seed(ctx, pix, 0, f_off), rng)
 
-    origin = v3lib.where(new_sample, ro0, res.origin)
-    direction = v3lib.where(new_sample, rd0, res.direction)
+    ro_s, rd_s = primary_ray(ctx, pix, sample) if ctx.jitter else (ro0, rd0)
+    origin = v3lib.where(new_sample, ro_s, res.origin)
+    direction = v3lib.where(new_sample, rd_s, res.direction)
     throughput = V3(*(torch.where(new_sample, 1.0, c) for c in res.throughput))
     light = V3(*(torch.where(new_sample, 0.0, c) for c in res.light))
     bounces = torch.where(new_sample, 0, res.bounces)
@@ -1029,10 +1060,6 @@ def run_plain(lane: _Lane, ctx: _Ctx, max_iterations: Optional[int]) -> _Lane:
 # ---------------------------------------------------------------------------
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def run_megakernel(
     scene: Scene,
     ro0,  # (R, 3) primary origins (or V3)
@@ -1076,6 +1103,16 @@ def run_megakernel(
     share a position (origins are not slotted); jitter, list quotas and
     ``initial_state`` are refused, as tpurt refuses them.
 
+    ``subpixel_jitter``: every new sample after the lane's first takes a
+    jittered primary ray through ``camera`` (``primary_ray``), and the
+    primary-hit cache is off. ``pixel_list`` ((N,) pixel ids) switches a
+    quota P > 1 to list form: lane i's slot k is pixel_list[min(i +
+    k*stride, N-1)], ``pixel_index`` must be each lane's slot-0 pixel
+    (pixel_list[:R] for a fresh batch), radiance row k*R+i is that slot,
+    and the lane state carries ``lane0`` (the lane's index in the batch),
+    from which a run resumed through ``initial_state`` rebuilds its slot
+    tables. At P = 1 the list is ignored, as in tpurt.
+
     ``body_backend``: "plain" (this module's torch loop, any device) or
     "cuda" (render/mega_cuda.py). ``dense``: the brute-force mode (a
     scene without chain entries has nothing to sweep and runs the
@@ -1083,15 +1120,14 @@ def run_megakernel(
     from ``initial_state`` (or from the fresh lanes), which is how the
     two backends and tpurt are held against each other trip by trip.
     """
-    if subpixel_jitter:
-        _unsupported("subpixel_jitter", "A.4")
-    if pixel_list is not None:
-        _unsupported("pixel_list (list-quota mode)", "A.4")
     frames_per_batch = max(1, int(frames_per_batch))
     if frames_per_batch > 1:
         if pixels_per_lane % frames_per_batch:
             raise ValueError("pixels_per_lane must split evenly over "
                              "frames_per_batch")
+        if subpixel_jitter or pixel_list is not None:
+            raise ValueError("cross-frame packing: jitter and list quotas "
+                             "are not taken (tpurt refuses them too)")
         if initial_state is not None:
             raise ValueError("cross-frame packing: a resumed lane state "
                              "is not taken (tpurt refuses it too)")
@@ -1107,7 +1143,8 @@ def run_megakernel(
         scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
         max_bounces, seed_mode, invisible_budget, sample_offset, camera,
         width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
-        frames_per_batch, cameras,
+        frames_per_batch, cameras, subpixel_jitter, pixel_list,
+        None if initial_state is None else initial_state.lane0,
     )
     if initial_state is not None:
         lane = initial_state
@@ -1127,12 +1164,14 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             invisible_budget: int, sample_offset: int = 0, camera=None,
             width: int = 0, height: int = 0, pixels_per_lane: int = 1,
             pixel_stride: Optional[int] = None, tail_passes: int = 1,
-            dense: bool = False, frames_per_batch: int = 1, cameras=None):
+            dense: bool = False, frames_per_batch: int = 1, cameras=None,
+            subpixel_jitter: bool = False, pixel_list=None, lane0=None):
     """The shared setup of both backends -> (fresh lane state, loop
     invariants): chain and root tables (the dense sweep's table in
     brute-force mode, where no root expands), quota slot directions (and
-    in a cross-frame pack the within-frame slot pixels), and lanes seeded
-    by the static stage and entered at chain entry 0."""
+    in a cross-frame pack or a list quota the slot pixels, the latter
+    from ``lane0``, a resumed state's batch indices, when given), and
+    lanes seeded by the static stage and entered at chain entry 0."""
     if not isinstance(ro0, V3):
         ro0 = v3lib.from_rows(ro0)
     if not isinstance(rd0, V3):
@@ -1151,7 +1190,9 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         params = params._replace(expand=(False,) * e_count, roots_f=None,
                                  roots_i=None)
         table = build_dense_table(scene)
-    use_cache = rays_per_pixel > 1
+    # The primary-hit cache replays sample 0's first hit for the pixel's
+    # later samples: pointless at one sample, wrong under jitter.
+    use_cache = not subpixel_jitter and rays_per_pixel > 1
     tlas = bool(scene.mega_tlas)
     if tlas and dense:
         raise ValueError(
@@ -1185,7 +1226,9 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                 if e_count <= _cfg.SELECT_GATHER_THRESHOLD else 0),
         leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity, dense=table,
         tlas=tlas, bf16=scene.mega_bounds_fmt == "bf16", mat_slots=mat_slots,
+        jitter=bool(subpixel_jitter), camera=camera,
     )
+    list_mode = pixel_list is not None and p_count > 1
 
     if p_count > 1:
         # Quota slots' primary directions, from the same pixel_uv +
@@ -1217,12 +1260,27 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                         for k in range(1, p_count)]
             ctx = ctx._replace(frames=frames, ppf=ppf,
                                slot_pix=(pix_tab & 0xFFFFFFFF).contiguous())
+        elif list_mode:
+            # List quota: slot k's pixel is pixel_list[min(lane0 +
+            # k*stride, N-1)]; row 0 (slot 0) is never read.
+            plist = torch.as_tensor(pixel_list, device=dev).to(torch.int64)
+            if lane0 is None:
+                lane0 = torch.arange(r, dtype=_I32, device=dev)
+            l0 = lane0.to(torch.int64)
+            pix_tab = torch.stack([
+                plist[torch.clamp_max(l0 + k * stride, plist.shape[0] - 1)]
+                for k in range(p_count)]) & 0xFFFFFFFF
+            rows = [slot_dir(pix_tab[k], camera) for k in range(1, p_count)]
+            ctx = ctx._replace(slot_pix=pix_tab.contiguous(), pix_list=True)
         else:
             rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
         ctx = ctx._replace(slot_rd=v3lib.from_rows(
             torch.stack(rows).contiguous()))
     pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
-    return _initial_lane(ctx, ro0, rd0, pix), ctx
+    lane = _initial_lane(ctx, ro0, rd0, pix)
+    if list_mode:
+        lane = lane._replace(lane0=torch.arange(r, dtype=_I32, device=dev))
+    return lane, ctx
 
 
 def finish(final: _Lane, ctx: _Ctx):

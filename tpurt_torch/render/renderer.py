@@ -39,9 +39,12 @@ renders plain batches and plain tiles. ``mega_interleave`` and
 ``mega_schedule`` are bitwise no-ops by contract and are ignored, as
 ``render_frame`` ignores ``mega_frames_per_batch`` (tpurt's does too;
 ``render_batch_flat_frames`` and ``anim`` read it). ``subpixel_jitter``
-raises NotImplementedError naming its ROADMAP item. The modular engine
-walks ``scene.node_*`` and ignores the TLAS (tpurt's tests/test_tlas.py
-holds the two engines equal on a TLAS scene).
+jitters the primary rays from an auxiliary stream, as tpurt does: the
+megakernel recomputes each new sample's ray from the lane's pixel (kernel
+B1 too); the modular engine jitters sample 0's ray once and shares it in
+reference seed mode, and jitters every sample in decorrelated mode. The
+modular engine walks ``scene.node_*`` and ignores the TLAS (tpurt's
+tests/test_tlas.py holds the two engines equal on a TLAS scene).
 
 A transient device error (``torch.AcceleratorError``, ``OSError``)
 retries a batch or tile up to ``retries`` times; any other error
@@ -57,7 +60,7 @@ import torch
 
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.core import rng as rnglib
-from tpurt_torch.core.camera import Camera, make_ray, pixel_uv
+from tpurt_torch.core.camera import Camera, jittered_uv, make_ray, pixel_uv
 from tpurt_torch.render.integrator import trace_paths
 from tpurt_torch.render.intersect import intersect_scene
 from tpurt_torch.render.megakernel import run_megakernel
@@ -80,12 +83,6 @@ def body_backend(cfg: RenderConfig, scene: Scene) -> str:
 #: Errors worth retrying a batch or tile for: device- or transport-level
 #: failures. Deterministic bugs propagate at once.
 _TRANSIENT_ERRORS = (getattr(torch, "AcceleratorError", OSError), OSError)
-
-
-def _check_supported(cfg: RenderConfig) -> None:
-    if cfg.subpixel_jitter:
-        raise NotImplementedError(
-            "subpixel_jitter is not ported yet (ROADMAP A.4)")
 
 
 def _retrying(fn, retries: int):
@@ -132,7 +129,6 @@ def flat_batch_args(scene: Scene, camera: Camera, cfg: RenderConfig,
     lanes' quota covers ``frames`` frames of pixels_per_lane slots each,
     ``camera`` gives the entry rays and ``cameras`` (one per frame, or
     None for ``camera`` in every frame) the slots' directions."""
-    _check_supported(cfg)
     b = _flat_batch_size(cfg)
     xs, ys, pix = _flat_coords(start, b, cfg.width, cfg.height, scene.device)
     ro0, rd0 = make_ray(camera, pixel_uv(xs, ys, cfg.width, cfg.height))
@@ -145,7 +141,28 @@ def flat_batch_args(scene: Scene, camera: Camera, cfg: RenderConfig,
         pixels_per_lane=cfg.pixels_per_lane * frames,
         tail_passes=cfg.mega_tail_passes, dense=cfg.mega_dense,
         frames_per_batch=frames, cameras=cameras,
+        subpixel_jitter=cfg.subpixel_jitter,
     )
+
+
+def list_batch_args(scene: Scene, camera: Camera, cfg: RenderConfig,
+                    pixel_list, lanes: Optional[int] = None,
+                    frame_index: int = 0, sample_offset: int = 0) -> dict:
+    """run_megakernel's arguments for one list-quota launch (tpurt's
+    ``pixel_list`` mode, P = pixels_per_lane > 1): ``lanes`` lanes
+    (default ceil(N / P)) at stride ``lanes``, lane i's slot k rendering
+    pixel_list[min(i + k*lanes, N-1)], so radiance row j < N is
+    pixel_list[j]."""
+    plist = torch.as_tensor(pixel_list, device=scene.device).to(torch.int64)
+    n = plist.shape[0]
+    r = lanes or -(-n // cfg.pixels_per_lane)
+    pix0 = plist[torch.clamp_max(torch.arange(r, device=scene.device), n - 1)]
+    args = flat_batch_args(scene, camera, cfg, 0, frame_index, sample_offset)
+    ro0, rd0 = make_ray(camera, pixel_uv(pix0 % cfg.width, pix0 // cfg.width,
+                                         cfg.width, cfg.height))
+    args.update(ro0=ro0, rd0=rd0, pixel_index=pix0, pixel_stride=r,
+                pixel_list=plist)
+    return args
 
 
 def render_batch_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -282,7 +299,6 @@ def render_tile_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig,
     knobs that change none of its bits; ``mega_dense`` too is left to
     the flat path, as tpurt leaves it); a plain launch, not the staged
     tile schedule."""
-    _check_supported(cfg)
     tile_h = tile_h or min(cfg.tile_size, cfg.height)
     tile_w = tile_w or min(cfg.tile_size, cfg.width)
     xs, ys = _tile_pixel_coords(tile_h, tile_w, x0, y0, scene.device)
@@ -294,31 +310,50 @@ def render_tile_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig,
             rays_per_pixel=cfg.rays_per_pixel, max_bounces=cfg.max_bounces,
             seed_mode=cfg.seed_mode, invisible_budget=cfg.invisible_budget,
             sample_offset=sample_offset, camera=camera, width=cfg.width,
-            height=cfg.height, body_backend=body_backend(cfg, scene))
+            height=cfg.height, body_backend=body_backend(cfg, scene),
+            subpixel_jitter=cfg.subpixel_jitter)
         return mean.reshape(tile_h, tile_w, 3), segs
-    # The camera ray is shared by every sample (Trace.cl:636-641) and its
-    # first intersection draws no random number: intersect it once.
-    hit0 = intersect_scene(scene, ro, rd, cfg.bruteforce_threshold,
-                           cfg.dense_engine)
-    trace = lambda state: trace_paths(
-        scene, ro, rd, state, cfg.max_bounces, cfg.invisible_budget,
-        cfg.bruteforce_threshold, first_hit=hit0, dense_engine=cfg.dense_engine)
+
+    def camera_rays(sample):
+        # Jitter from an auxiliary stream, sample ``sample``'s (a capability
+        # the reference lacks: it reuses one ray for every sample,
+        # Trace.cl:636-641).
+        if not cfg.subpixel_jitter:
+            return ro, rd
+        return make_ray(camera, jittered_uv(xs, ys, pixel_index, frame_index,
+                                            sample, cfg.width, cfg.height))
+
+    def trace(state, rays, hit0):
+        return trace_paths(
+            scene, *rays, state, cfg.max_bounces, cfg.invisible_budget,
+            cfg.bruteforce_threshold, first_hit=hit0,
+            dense_engine=cfg.dense_engine)
+
     acc = torch.zeros((tile_h * tile_w, 3), dtype=torch.float32,
                       device=scene.device)
     segs = 0
     if cfg.seed_mode == "reference":
-        # One continuous stream across the pixel's samples (Trace.cl:632-642).
+        # One ray and one continuous stream across the pixel's samples
+        # (Trace.cl:632-642): sample 0's ray, whose first intersection
+        # draws no random number, is intersected once and shared.
+        rays = camera_rays(0)
+        hit0 = intersect_scene(scene, *rays, cfg.bruteforce_threshold,
+                               cfg.dense_engine)
         state = rnglib.make_seed(pixel_index, frame_index, 0)
         for _ in range(cfg.rays_per_pixel):
-            light, state, segments = trace(state)
+            light, state, segments = trace(state, rays, hit0)
             acc = acc + light
             segs += int(segments.sum())
     else:
-        # Decorrelated streams: MakeSeed(pixel, frame, sample).
+        # Decorrelated streams: MakeSeed(pixel, frame, sample). Without
+        # jitter the camera ray is shared, so its first hit is too; with
+        # it every sample has its own ray.
+        hit0 = None if cfg.subpixel_jitter else intersect_scene(
+            scene, ro, rd, cfg.bruteforce_threshold, cfg.dense_engine)
         for s in range(cfg.rays_per_pixel):
-            state = rnglib.make_seed(pixel_index, frame_index,
-                                     (s + sample_offset) & 0xFFFFFFFF)
-            light, _state, segments = trace(state)
+            sample = (s + sample_offset) & 0xFFFFFFFF
+            state = rnglib.make_seed(pixel_index, frame_index, sample)
+            light, _state, segments = trace(state, camera_rays(sample), hit0)
             acc = acc + light
             segs += int(segments.sum())
     mean = acc / float(cfg.rays_per_pixel)
@@ -377,7 +412,6 @@ def _render_frame_tiles(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 def _render(scene, camera, cfg, frame_index, progress, accumulator, retries,
             stats, as_u8):
-    _check_supported(cfg)
     kw = dict(retries=retries, as_u8=as_u8, stats=stats)
     if (accumulator is None and cfg.engine == "mega"
             and cfg.rays_per_batch > 0 and cfg.max_bounces > 0):

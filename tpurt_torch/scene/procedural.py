@@ -1,5 +1,5 @@
 """Procedural triangle meshes: the stand-ins ``default_scene`` uses when
-no OBJ is on disk (numpy; same code and output as
+no OBJ is on disk, and the JSON scenes' shapes (numpy; same code and output as
 tpurt/scene/procedural.py, which the port cannot import because
 ``tpurt.scene`` pulls in jax)."""
 
@@ -58,6 +58,32 @@ def icosphere(subdivisions: int = 3, radius: float = 1.0) -> Tuple[np.ndarray, n
     pos = verts[faces].astype(np.float32) * np.float32(radius)
     nrm = verts[faces].astype(np.float32)  # unit sphere => normal == position
     return pos, nrm
+
+
+def box(size=(1.0, 1.0, 1.0), center=(0.0, 0.0, 0.0)) -> Tuple[np.ndarray, np.ndarray]:
+    """Axis-aligned box, 12 triangles, flat face normals."""
+    sx, sy, sz = (s / 2.0 for s in size)
+    cx, cy, cz = center
+    corners = np.array(
+        [
+            [cx - sx, cy - sy, cz - sz], [cx + sx, cy - sy, cz - sz],
+            [cx + sx, cy + sy, cz - sz], [cx - sx, cy + sy, cz - sz],
+            [cx - sx, cy - sy, cz + sz], [cx + sx, cy - sy, cz + sz],
+            [cx + sx, cy + sy, cz + sz], [cx - sx, cy + sy, cz + sz],
+        ],
+        np.float32,
+    )
+    quads = [
+        ([0, 1, 2, 3], [0, 0, -1]), ([5, 4, 7, 6], [0, 0, 1]),
+        ([4, 0, 3, 7], [-1, 0, 0]), ([1, 5, 6, 2], [1, 0, 0]),
+        ([4, 5, 1, 0], [0, -1, 0]), ([3, 2, 6, 7], [0, 1, 0]),
+    ]
+    pos, nrm = [], []
+    for idx, normal in quads:
+        a, b, c, d = corners[idx]
+        pos += [np.stack([a, b, c]), np.stack([a, c, d])]
+        nrm += [np.broadcast_to(np.asarray(normal, np.float32), (3, 3)).copy()] * 2
+    return np.stack(pos), np.stack(nrm)
 
 
 def torus_knot(
