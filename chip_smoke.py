@@ -4,6 +4,8 @@
     python3 chip_smoke.py                # from the repository root, one card
     python3 chip_smoke.py --b3-public    # B3's parity launches and frames only
     python3 chip_smoke.py --b1-public    # B1's headline batch only
+    python3 chip_smoke.py --tuned-vs-shipped  # the card's autotune cache
+                                              # against the shipped knobs
 
 Phases (each raises on failure, so any failure exits nonzero):
 
@@ -15,8 +17,9 @@ Phases (each raises on failure, so any failure exits nonzero):
    after 1, 4 and 16 trips (integer fields equal on >= 99.5% of lanes),
    the whole frame (<= 0.5% of pixels differ), segments within 0.5%.
 4. B1, the same on the 69,120-triangle bunny at 480x270, 4 bounces,
-   P=8, tail 5, and 2 spp (the headline's 8 cut to 2: at 8 spp its plain
-   frame took ~235 s on an H100).
+   P=8, tail 5, and 1 spp (the headline's 8 cut to 1: the plain version
+   pays per trip, ~0.2 s, and a lane's trips grow with its samples; at
+   8 spp its plain frame took ~235 s on an H100, at 2 spp ~52-56 s).
 5. B1's path at full size, bunny-1080p-plain: 16 trips of the 262,144-
    lane batch through kernel and plain version (compared, timed), the
    kernel to completion (its persistent launch: resident blocks, lanes
@@ -65,7 +68,7 @@ Phases (each raises on failure, so any failure exits nonzero):
    kernel to completion with instance enters and exits in its counted
    bound, ``render_image`` with its launches counted, 3 frames timed).
 13. B1's bf16 instantiation (MEGA_BF16_BOUNDS): the bunny at phase 4's
-   knobs (2 spp) and the K = 12 grid against the plain version as in phase 3,
+   knobs (1 spp) and the K = 12 grid against the plain version as in phase 3,
    each bf16 frame against the u8 frame (equal segments, pixels that
    differ counted), the grid packed F = 2 as in phase 14, and the
    bunny-1080p batch's 16 trips in u8 and bf16 in turns.
@@ -121,6 +124,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    counted) at 64x64; ``pick_mesh`` on the card against the CPU pick on
    a uv grid; a scripted ``viewer.run_terminal`` session (move, +,
    p X Y, g 2, o) writing preview.bmp and output.bmp.
+
+20. The autotuner on the card: every bank shape of
+   ``autotune.AXES`` (node arity 4/8/16/32, leaf rows of 2/3/4/5/8
+   triangles, u8 and bf16 bounds, one axis off the shipped a8/l3/u8 at a
+   time) frozen around icosphere(3) and held through B1 against the
+   plain version as in phase 3 (at 1 spp); the quick sweep (``autotune.main
+   (["--quick"])``: tail passes and quota from the bunny-1080p seed
+   config, each leg's ms logged) into a temporary TPURT_TUNE_DIR, and
+   its baseline leg three more times (the spread of a leg); then
+   ``cli.main(["--tuned"])`` at the reference defaults, which must load
+   that cache and write ``render_image``'s frame of the tuned config.
+21. Sharded frames on the card (``parallel.render_frame_sharded``):
+   bunny-1080p-plain on a 1x1 mesh over cuda:0 at over-decomposition 1
+   and 4, each bit for bit phase 5's frame (``render_frame``, and its
+   ``render_image`` pixels), B1 launches counted, segments equal to the
+   per-pixel counts over the pixels each decomposition's launches cover
+   (its padding lanes repeat pixels); a decorrelated 1x2 sample mesh
+   (cuda:0 twice) at tpurt's atol=1e-5; teapot-720p-bruteforce on a 2x1
+   mesh (B2 launches counted) and the parity scene's modular frame at 1
+   spp / 1 bounce and 2 spp / 4 bounces on a 2x1 mesh (B3 launches
+   counted), each equal to its own ``render_frame`` and ``render_image``
+   frames; a world-size-1 NCCL group (``init_process_group`` over
+   tcp://127.0.0.1) through which the sharded bunny frame is
+   all-gathered and its segments all-reduced; and the sharded frames
+   timed against ``render_image`` in turns.
 
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
@@ -345,13 +373,9 @@ def phase3():
 
 def bunny_scene(cfg, device="cuda"):
     """bench.py's "bunny" scene: assets/blob69k.obj in the Cornell box."""
-    from tpurt_torch.scene.builder import SceneBuilder
-    from tpurt_torch.scene.obj import load_obj
-    from tpurt_torch.scene.presets import scene_around
+    from tpurt_torch.scene.presets import bench_scene
 
-    b = SceneBuilder()
-    pos, nrm = load_obj(os.path.join(ROOT, "assets", "blob69k.obj"))
-    return scene_around(b, b.add_triangles(pos, nrm), cfg, device)
+    return bench_scene("bunny", cfg, device=device)
 
 
 def camera_for(cfg, device="cuda"):
@@ -400,8 +424,9 @@ def parity_cfg():
 
 
 def small_bunny_cfg():
-    """Phases 4 and 13: the bunny's knobs at 480x270 and 2 spp."""
-    return bunny_cfg(480, 270).replace(rays_per_pixel=2)
+    """Phases 4 and 13: the bunny's knobs at 480x270 and 1 spp (the plain
+    version's frame is the script's largest cost)."""
+    return bunny_cfg(480, 270).replace(rays_per_pixel=1)
 
 
 def phase4():
@@ -979,6 +1004,37 @@ def b1_public_main():
         log(f"B1 public entry, bunny-1080p batch, "
             f"{'16 trips' if trips else 'to completion'}: device ms "
             f"{[round(t, 3) for t in ms]} (best {min(ms):.3f}) | {CARD}")
+
+
+def tuned_vs_shipped_main():
+    """``--tuned-vs-shipped``: the autotuner's leg (``autotune._time_leg``,
+    bunny-1080p at the seed config, packed F = 2) under the card's cached
+    knob set against the shipped knobs (a8/l3/u8, tail 5, P = 8), in
+    turns, 4 legs each."""
+    from tpurt_torch import _build, autotune
+
+    _build.build_all(["megakernel", "tpurt_native"])
+    tuned = autotune.load_tuned()
+    if not tuned:
+        raise SystemExit("no autotune cache for this card (run python -m "
+                         "tpurt_torch.autotune first)")
+    seed = autotune._seed_config()
+    shipped = {"node_arity": 8, "leaf_tris": 3, "bounds_fmt": "u8",
+               "mega_tail_passes": seed.mega_tail_passes,
+               "pixels_per_lane": seed.pixels_per_lane}
+    legs = {}
+    for name, knobs in (("shipped", shipped), ("tuned", tuned)):
+        cfg = autotune.apply(knobs, seed)
+        scene, cam = bunny_scene(cfg)
+        legs[name] = (scene, cam, cfg)
+    autotune.apply(shipped, seed)
+    times = {"shipped": [], "tuned": []}
+    for name in ("shipped", "tuned", "tuned", "shipped") * 2:
+        r = autotune._time_leg(*legs[name])
+        times[name].append(round(r["seconds"] * 1e3, 3))
+    log(f"tuned {tuned}")
+    log(f"bunny-1080p leg in turns, ms/frame: shipped {times['shipped']}, "
+        f"tuned {times['tuned']} | {CARD}")
 
 
 def b3_public_main():
@@ -1823,6 +1879,262 @@ def phase19():
     shutil.rmtree(out)
 
 
+def phase20():
+    """The autotuner: every AXES bank shape through B1, the quick sweep
+    and the CLI's --tuned."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import tpurt_torch.config as cfgmod
+    from tpurt_torch import autotune, cli
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.io import read_bmp
+    from tpurt_torch.render.renderer import render_image
+    from tpurt_torch.scene.presets import cornell_sphere_scene, default_scene
+
+    saved = {k: getattr(cfgmod, k) for k in (
+        "MEGA_NODE_ARITY", "MEGA_LEAF_TRIS", "MEGA_BF16_BOUNDS")}
+    tune_dir = os.environ.get("TPURT_TUNE_DIR")
+    tmp = tempfile.mkdtemp(prefix="tpurt_tune_")
+    try:
+        cfg = RenderConfig(width=64, height=64, rays_per_pixel=1, max_bounces=3,
+                           pixels_per_lane=2, mega_tail_passes=2)
+        shipped = {"node_arity": 8, "leaf_tris": 3, "bounds_fmt": "u8"}
+        axes = dict(autotune.AXES)
+        shapes = []
+        for axis in ("node_arity", "leaf_tris", "bounds_fmt"):
+            for v in axes[axis]:
+                shape = dict(shipped, **{axis: v})
+                if shape not in shapes:
+                    shapes.append(shape)
+        for shape in shapes:
+            autotune.apply(shape, cfg)
+            scene, cam, _ = cornell_sphere_scene(3, cfg, device="cuda")
+            label = "a{node_arity}-l{leaf_tris}-{bounds_fmt}".format(**shape)
+            log(f"bank {label}: rows {tuple(scene.mega_rows.shape)}, chain "
+                f"{scene.mega_chain}")
+            compare_backends(f"cornell-sphere3-64-{label}", scene, cam, cfg)
+        for k, v in saved.items():
+            setattr(cfgmod, k, v)
+
+        os.environ["TPURT_TUNE_DIR"] = tmp
+        text = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            rc = autotune.main(["--quick"])
+        for line in text.getvalue().splitlines():
+            log("  autotune:", line)
+        knobs = autotune.load_tuned()
+        if rc != 0 or not knobs:
+            raise AssertionError(f"autotune --quick: rc {rc}, cache {knobs}")
+        log(f"quick sweep at bunny-1080p: {time.time() - t0:.1f} s, winner "
+            f"{knobs} | {CARD}")
+        # The baseline leg again, three times: the spread a winner's
+        # margin is read against.
+        seed = autotune._seed_config()
+        scene, cam = bunny_scene(seed)
+        again = [autotune._time_leg(scene, cam, seed)["seconds"] * 1e3
+                 for _ in range(3)]
+        log(f"baseline leg (seed config) three more times, ms/frame: "
+            f"{[round(t, 3) for t in again]} | {CARD}")
+
+        bmp = os.path.join(tmp, "output.bmp")
+        text = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["--tuned", "--output", bmp])
+        launched = counts()
+        for line in text.getvalue().splitlines():
+            log("  cli --tuned:", line)
+        if (rc != 0 or launched["megakernel"] < 1
+                or f"Tuned knobs ({autotune.cache_path(autotune.device_key())})"
+                not in text.getvalue()):
+            raise AssertionError(f"cli --tuned: rc {rc}, launches {launched}")
+        tcfg = autotune.apply(knobs, RenderConfig(
+            pixels_per_lane=cli.CARD_PIXELS_PER_LANE,
+            mega_tail_passes=cli.CARD_TAIL_PASSES, mega_interleave=1))
+        scene, cam, _ = default_scene(tcfg, device="cuda")
+        if not np.array_equal(read_bmp(bmp), render_image(scene, cam, tcfg)):
+            raise AssertionError("cli --tuned: output.bmp differs from "
+                                 "render_image's frame of the tuned config")
+        log(f"cli --tuned at the reference defaults: P={tcfg.pixels_per_lane}, "
+            f"tail {tcfg.mega_tail_passes}, bank a{scene.mega_arity}-"
+            f"l{scene.mega_leaf_tris}-{scene.mega_bounds_fmt}, launches "
+            f"{launched}; output.bmp equals render_image's frame")
+    finally:
+        for k, v in saved.items():
+            setattr(cfgmod, k, v)
+        if tune_dir is None:
+            os.environ.pop("TPURT_TUNE_DIR", None)
+        else:
+            os.environ["TPURT_TUNE_DIR"] = tune_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def covered_segments(per_px, starts, launch_px) -> int:
+    """The segments of flat launches of ``launch_px`` pixels at
+    ``starts`` (tensors on the card), each pixel past the frame end
+    counted as the last one (the lanes' clamp)."""
+    import torch
+
+    last = per_px.shape[0] - 1
+    ar = torch.arange(launch_px, device=per_px.device)
+    return sum(int(per_px[torch.clamp_max(ar + s, last)].sum()) for s in starts)
+
+
+def sharded_starts(cfg, n_tile: int, k: int):
+    """(starts, launch pixels) of render_frame_sharded's flat launches."""
+    total = cfg.width * cfg.height
+    block = -(-total // (n_tile * k))
+    p = cfg.pixels_per_lane
+    launch = min(cfg.rays_per_batch, -(-block // (256 * p)) * 256) * p
+    return [j * block + q * launch for j in range(n_tile * k)
+            for q in range(-(-block // launch))], launch
+
+
+def phase21(bunny, b1):
+    """Sharded frames: B1 (bunny), B2 (teapot), B3 (parity, modular) and
+    one NCCL group of one process."""
+    import datetime
+    import socket
+
+    import numpy as np
+    import torch
+
+    from tpurt_torch.parallel import make_mesh, mesh_info, render_frame_sharded
+    from tpurt_torch.render.megakernel import run_megakernel
+    from tpurt_torch.render.renderer import (
+        _flat_batch_size, flat_batch_args, render_frame, render_image)
+    from tpurt_torch.render.tonemap import tonemap
+    from tpurt_torch.scene.presets import bench_scene
+
+    dev = torch.device("cuda", 0)
+
+    def u8(radiance):
+        return tonemap(torch.as_tensor(radiance, device=dev)).cpu().numpy()
+
+    def sharded(name, scene, cam, cfg, mesh, counter, want, k=1, stats=None,
+                replicate_out=None):
+        reset_counts()
+        out = render_frame_sharded(scene, cam, cfg, mesh=mesh, overdecompose=k,
+                                   stats=stats, replicate_out=replicate_out)
+        launched = counts()
+        if launched[counter] < 1:
+            raise AssertionError(f"{name}: no {counter} launch ({launched})")
+        if not np.array_equal(out, want):
+            raise AssertionError(f"{name}: differs from the single-device frame")
+        log(f"{name} ({mesh_info(mesh)}, k {k}): equal bit for bit to "
+            f"render_frame; launches {launched}")
+        return out
+
+    def in_turns(label, scene, cam, cfg, mesh):
+        t_img, t_sh = [], []
+        for _ in range(2):
+            t_img += cuda_ms(lambda: render_image(scene, cam, cfg))[1]
+            t_sh += cuda_ms(lambda: render_frame_sharded(scene, cam, cfg,
+                                                         mesh=mesh))[1]
+        log(f"{label} in turns, ms: render_image {t_img}, sharded "
+            f"({mesh_info(mesh)}) {t_sh} | {CARD}")
+
+    cfg = bunny_cfg(1920, 1080)
+    cam = camera_for(cfg)
+    st = {}
+    ref = render_frame(bunny, cam, cfg, stats=st)
+    if not np.array_equal(u8(ref), b1["img"]):
+        raise AssertionError("bunny-1080p: render_frame's pixels are not phase 5's")
+    lane = run_megakernel(bunny, body_backend="cuda", return_state=True,
+                          **flat_batch_args(bunny, cam, cfg.replace(
+                              pixels_per_lane=1), 0,
+                              batch=cfg.width * cfg.height))
+    per_px = lane.segments.long()
+    b = _flat_batch_size(cfg) * cfg.pixels_per_lane
+    want = covered_segments(per_px, range(0, cfg.width * cfg.height, b), b)
+    if st["segments"] != want:
+        raise AssertionError(f"bunny-1080p: {st['segments']} segments, the "
+                             f"per-pixel counts give {want}")
+    one = make_mesh(1, 1, devices=[dev])
+    for k in (1, 4):
+        s = {}
+        out = sharded("bunny-1080p-plain sharded", bunny, cam, cfg, one,
+                      "megakernel", ref, k=k, stats=s)
+        starts, launch = sharded_starts(cfg, 1, k)
+        want = covered_segments(per_px, starts, launch)
+        if s["segments"] != want or not np.array_equal(u8(out), b1["img"]):
+            raise AssertionError(f"bunny sharded k {k}: segments {s['segments']} "
+                                 f"against {want}, or pixels not phase 5's")
+        log(f"bunny-1080p-plain sharded k {k}: {len(starts)} launches of "
+            f"{launch} pixels, {s['segments']} segments (render_frame "
+            f"{st['segments']}: {b} pixels a launch); both equal the per-pixel "
+            f"counts over the pixels their launches cover")
+    times = {}
+    for what in ("image", "k1", "k4", "k4", "k1", "image"):
+        fn = (lambda: render_image(bunny, cam, cfg)) if what == "image" else (
+            lambda: render_frame_sharded(bunny, cam, cfg, mesh=one,
+                                         overdecompose=int(what[1])))
+        _out, ms = cuda_ms(fn)
+        times.setdefault(what, []).extend(ms)
+    log(f"bunny-1080p in turns, ms: render_image {times['image']}, sharded "
+        f"k 1 {times['k1']}, sharded k 4 {times['k4']} (f32 frame to the host) "
+        f"| {CARD}")
+
+    dcfg = cfg.replace(seed_mode="decorrelated")
+    single = render_frame(bunny, cam, dcfg)
+    reset_counts()
+    two = make_mesh(1, 2, devices=[dev, dev])
+    samp = render_frame_sharded(bunny, cam, dcfg, mesh=two)
+    err = float(np.abs(samp - single).max())
+    log(f"bunny-1080p decorrelated over {mesh_info(two)}: max abs err {err:.3g} "
+        f"(tolerance 1e-5); launches {counts()}")
+    if not err <= 1e-5:
+        raise AssertionError(f"sample axis: max abs err {err}")
+
+    tile2 = make_mesh(2, 1, devices=[dev, dev])
+    tcfg = teapot_cfg(1280, 720)
+    teapot, tcam = bench_scene("teapot", tcfg, device="cuda")
+    tref = render_frame(teapot, tcam, tcfg)
+    out = sharded("teapot-720p-bruteforce sharded", teapot, tcam, tcfg, tile2,
+                  "dense", tref)
+    if not np.array_equal(u8(out), render_image(teapot, tcam, tcfg)):
+        raise AssertionError("teapot sharded: pixels differ from render_image's")
+    in_turns("teapot-720p-bruteforce", teapot, tcam, tcfg, tile2)
+    pcfg = parity_cfg()
+    sphere, pcam = bench_scene("sphere", pcfg, device="cuda")
+    for label, c in (("parity-640x480-modular", pcfg),
+                     ("640x480-2spp-4-bounces-modular",
+                      pcfg.replace(rays_per_pixel=2, max_bounces=4))):
+        out = sharded(f"{label} sharded", sphere, pcam, c, tile2, "mt_sweep",
+                      render_frame(sphere, pcam, c))
+        if not np.array_equal(u8(out), render_image(sphere, pcam, c)):
+            raise AssertionError(f"{label} sharded: pixels differ from "
+                                 "render_image's")
+        in_turns(label, sphere, pcam, c, tile2)
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        torch.cuda.set_device(dev)
+        s = {}
+        out = sharded("bunny-1080p-plain through a world-size-1 NCCL group",
+                      bunny, cam, cfg, make_mesh(1, 1, devices=[dev]),
+                      "megakernel", ref, k=2, stats=s, replicate_out=True)
+        starts, launch = sharded_starts(cfg, 1, 2)
+        if s["segments"] != covered_segments(per_px, starts, launch):
+            raise AssertionError("NCCL group: all-reduced segments differ")
+        log(f"NCCL group (backend {torch.distributed.get_backend()}): the "
+            f"frame all-gathered, {s['segments']} segments all-reduced")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main():
     global CARD
     import torch
@@ -1837,6 +2149,10 @@ def main():
     if sys.argv[1:] == ["--b1-public"]:
         log("card:", CARD)
         b1_public_main()
+        return
+    if sys.argv[1:] == ["--tuned-vs-shipped"]:
+        log("card:", CARD)
+        tuned_vs_shipped_main()
         return
     if sys.argv[1:] == ["--b3-public"]:
         log("card:", CARD)
@@ -1865,6 +2181,8 @@ def main():
     timed(phase17)
     b1_jitter = timed(phase18, bunny, b1)
     timed(phase19)
+    timed(phase20)
+    timed(phase21, bunny, b1)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -165,19 +165,24 @@ def test_cli_video_progressive_and_checkpoint(tmp_path, monkeypatch):
     np.testing.assert_array_equal(read_bmp("a.bmp"), render_image(scene, cam, cfg))
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0"], "A.6"),
-    (["--tile-devices", "2"], "A.6"), (["--sample-devices", "2"], "A.6"),
-    (["--overdecompose", "2"], "A.6"), (["--tuned"], "A.7"),
-    (["--two-devices"], "A.6"),
+@pytest.mark.parametrize("extra,message", [
+    (["--coordinator", "h:1", "--num-processes", "2"],
+     "--coordinator requires --num-processes and --process-id"),
+    (["--devices", "0", "--tile-devices", "2", "--sample-devices", "2"],
+     "decorrelated"),
+    (["--devices", "0", "--sample-devices", "2", "--seed-mode",
+      "decorrelated", "--rays-per-pixel", "3"], "not divisible"),
+    (["--devices", "0", "--overdecompose", "0"], "overdecompose must be >= 1"),
+    (["--devices", "0", "--overdecompose", "2", "--engine", "modular"],
+     "requires the mega engine's flat path"),
+    (["--devices", "1"], "no device with id 1"),
 ])
-def test_cli_refuses_what_is_not_ported(extra, item, monkeypatch):
-    if extra == ["--two-devices"]:
-        extra = []
-        monkeypatch.setattr(mesh, "select_devices", lambda spec, device: [
-            torch.device("cuda", 0), torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(TINY + extra)
+def test_cli_refuses_what_is_not_ported(extra, message, capsys):
+    """Every flag of tpurt's CLI is ported (the mesh, sharding, several
+    processes, --tuned); what the CLI still refuses is what tpurt's
+    refuses, with rc 2 and the reason on stderr."""
+    assert cli.main(TINY + extra) == 2
+    assert message in capsys.readouterr().err
 
 
 def test_cli_without_a_card_fails(monkeypatch, capsys):

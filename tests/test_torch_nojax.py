@@ -7,8 +7,9 @@ with bf16 node bounds, writes a video through tpurt_torch.anim (the
 yaw hook, then a static-hook pack) and reads its BMPs back through
 tpurt_torch.io, resumes a frame from a TileAccumulator, renders a
 jittered frame and a list quota, imports the application layer (cli,
-viewer, render.pick, scene.jsonscene, utils, parallel) and runs
-``cli.main(["--cpu", ...])`` on the default scene and on a JSON scene;
+viewer, render.pick, scene.jsonscene, utils, parallel, autotune),
+renders a frame over a two-position mesh through parallel.shard, and
+runs ``cli.main(["--cpu", ...])`` on the default scene and on a JSON scene;
 and no module of the port, nor chip_smoke.py, imports jax, flax or any
 module of tpurt."""
 
@@ -71,6 +72,13 @@ with tempfile.TemporaryDirectory() as d:
     from tpurt_torch.render import pick  # noqa: F401
     from tpurt_torch.scene import jsonscene  # noqa: F401
     from tpurt_torch.utils import profiling  # noqa: F401
+    from tpurt_torch import autotune  # noqa: F401
+    from tpurt_torch.parallel import shard
+    from tpurt_torch.render.renderer import render_frame
+    import torch
+    mesh = shard.make_mesh(2, devices=[torch.device("cpu")] * 2)
+    assert np.array_equal(shard.render_frame_sharded(scene, cam, cfg, mesh=mesh),
+                          render_frame(scene, cam, cfg))
     tiny = ["--cpu", "--width", "8", "--height", "8", "--rays-per-pixel", "1",
             "--max-bounces", "2"]
     assert cli.main(tiny + ["--object-path", "sphere0.obj",

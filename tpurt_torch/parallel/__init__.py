@@ -1,5 +1,7 @@
-"""Device inventory and selection (``mesh``). The device mesh and the
-sharded renderers (tpurt/parallel/mesh.make_mesh, shard.py) are not
-ported yet (ROADMAP A.6)."""
+"""Device inventory and selection, the device mesh (``mesh``) and frames
+rendered over it (``shard``)."""
 
-from tpurt_torch.parallel.mesh import device_inventory, select_devices  # noqa: F401
+from tpurt_torch.parallel.mesh import (  # noqa: F401
+    SAMPLE_AXIS, TILE_AXIS, Mesh, device_inventory, make_mesh, mesh_info,
+    select_devices)
+from tpurt_torch.parallel.shard import render_frame_sharded  # noqa: F401

@@ -49,6 +49,7 @@ import torch
 from tpurt_torch.core.camera import camera_scalars
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import megakernel as mk
+from tpurt_torch.scene.builder import MEGA_SLOT_BITS
 
 #: Kernel launches made by ``launch`` (incremented where a launch is
 #: made): the BVH instantiations, the dense one, and any instantiation of
@@ -61,6 +62,9 @@ JITTER_LAUNCHES = 0
 #: which ``launch`` names in MkCfg.deep (the kernel refuses a deeper
 #: budget without it).
 MAX_REGISTER_STACK = 64
+#: kSlotMask in the kernel: a stack entry keeps a node row's next child
+#: slot in MEGA_SLOT_BITS (6) bits, so a row holds at most 63 children.
+MAX_ARITY = (1 << MEGA_SLOT_BITS) - 1
 
 # (lane field, kind): kind f/i/u/b = f32 / i32 / u32 / bool; V3 fields
 # list x, y, z. Expanded to LANE_WORDS below.
@@ -289,6 +293,22 @@ def deep_stack(ctx: mk._Ctx) -> bool:
     return ctx.dense is None and ctx.s_depth > MAX_REGISTER_STACK
 
 
+def check_bank(ctx: mk._Ctx):
+    """Raise ValueError for a bank shape the kernel cannot take, on the
+    host before a launch: an illegal access on the card would poison the
+    context for every later launch (an autotune sweep's legs too), where
+    a ValueError leaves it usable. A node row above MAX_ARITY children,
+    and a stack budget above MAX_REGISTER_STACK outside the kDeep
+    instantiation (which the dense sweep does not have)."""
+    if not 2 <= ctx.arity <= MAX_ARITY:
+        raise ValueError(f"node arity {ctx.arity}: the megakernel takes 2 to "
+                         f"{MAX_ARITY} children a row")
+    if ctx.s_depth > MAX_REGISTER_STACK and not deep_stack(ctx):
+        raise ValueError(f"a stack budget of {ctx.s_depth} words needs the "
+                         "deep-stack instantiation, which the dense sweep "
+                         "does not have")
+
+
 def launch_config(dense: bool, device=None, tlas: bool = False,
                   bf16: bool = False, deep: bool = False,
                   jitter: bool = False) -> dict:
@@ -328,6 +348,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
                          f"not {words}")
     if ctx.jitter and ctx.camera is None:
         raise ValueError("a jittered launch needs the context's camera")
+    check_bank(ctx)
     rows = ctx.rows
     if rows.device != buf.device or rows.dtype != torch.float32 or not rows.is_contiguous():
         raise ValueError("row bank must be a contiguous f32 tensor on the buffer's device")

@@ -123,13 +123,15 @@ def _flat_coords(start: int, batch: int, width: int, height: int, device):
 
 def flat_batch_args(scene: Scene, camera: Camera, cfg: RenderConfig,
                     start: int, frame_index: int = 0, sample_offset: int = 0,
-                    frames: int = 1, cameras=None) -> dict:
+                    frames: int = 1, cameras=None,
+                    batch: Optional[int] = None) -> dict:
     """run_megakernel's arguments for the flat batch at ``start`` (less
     the scene and the backend). ``frames`` > 1 is the packed form: the
     lanes' quota covers ``frames`` frames of pixels_per_lane slots each,
     ``camera`` gives the entry rays and ``cameras`` (one per frame, or
-    None for ``camera`` in every frame) the slots' directions."""
-    b = _flat_batch_size(cfg)
+    None for ``camera`` in every frame) the slots' directions. ``batch``
+    lanes (default: the frame's, ``_flat_batch_size``)."""
+    b = batch or _flat_batch_size(cfg)
     xs, ys, pix = _flat_coords(start, b, cfg.width, cfg.height, scene.device)
     ro0, rd0 = make_ray(camera, pixel_uv(xs, ys, cfg.width, cfg.height))
     return dict(
@@ -166,12 +168,14 @@ def list_batch_args(scene: Scene, camera: Camera, cfg: RenderConfig,
 
 
 def render_batch_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
-                      start: int, frame_index: int = 0, sample_offset: int = 0):
+                      start: int, frame_index: int = 0, sample_offset: int = 0,
+                      batch: Optional[int] = None):
     """Mean radiance of one flat batch: pixels [start, start + B*P) in
-    row-major order, padded past the frame end. Returns ((B*P, 3)
-    radiance on the scene's device, exact segment count, loop trips)."""
+    row-major order, padded past the frame end, with B = ``batch`` lanes
+    (default: the frame's batch). Returns ((B*P, 3) radiance on the
+    scene's device, exact segment count, loop trips)."""
     args = flat_batch_args(scene, camera, cfg, start, frame_index,
-                           sample_offset)
+                           sample_offset, batch=batch)
     return run_megakernel(scene, body_backend=body_backend(cfg, scene), **args)
 
 

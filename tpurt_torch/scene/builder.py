@@ -605,7 +605,9 @@ class SceneBuilder:
         bounds_fmt = "bf16" if cfgmod.MEGA_BF16_BOUNDS else "u8"
         leaf_tris = int(cfgmod.MEGA_LEAF_TRIS)
         arity = int(cfgmod.MEGA_NODE_ARITY)
-        assert 2 <= arity <= (1 << MEGA_SLOT_BITS) - 1
+        if not 2 <= arity <= (1 << MEGA_SLOT_BITS) - 1:
+            raise ValueError(f"MEGA_NODE_ARITY={arity}: a node row holds 2 to "
+                             f"{(1 << MEGA_SLOT_BITS) - 1} children")
         row_width = mega_row_width(leaf_tris, arity, bounds_fmt)
         rows: List[np.ndarray] = []
         chain: List[Tuple[int, int, bool]] = []

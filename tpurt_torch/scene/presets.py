@@ -36,6 +36,10 @@ GRID_MATERIALS = (
     Material(type=MaterialType.SOLID, color=(0.9, 0.9, 0.2),
              emission_color=(1.0, 0.9, 0.7), emission_strength=2.0),
 )
+#: The headline's mesh (tpurt's bench "bunny"): a scan-like irregular
+#: blob of 69,120 triangles.
+BUNNY_OBJ = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "assets", "blob69k.obj")
 #: The one material of tpurt's many-instance probe (scripts/probe_r74.py).
 PROBE_MATERIAL = Material(type=MaterialType.SOLID, color=(0.9, 0.5, 0.3),
                           reflectiveness=0.5, specular_probability=0.4)
@@ -98,12 +102,21 @@ def bench_scene(kind: str, cfg: RenderConfig, device="cuda"
                 ) -> Tuple[Scene, Camera]:
     """A scene of tpurt's bench rows (bench.py ``build_scene``):
     "teapot" — the 6,144-triangle torus knot of the low-poly
-    brute-force row ``teapot-720p-bruteforce``; "sphere" — the
-    1,280-triangle icosphere of radius 100 of the parity row
-    ``parity-640x480-1spp``. Each at scale 0.5 in the Cornell box."""
+    brute-force row ``teapot-720p-bruteforce``; "knot" — the smooth
+    69,120-triangle torus knot; "bunny" — the irregular 69,120-triangle
+    ``assets/blob69k.obj`` of the headline ``bunny-1080p-plain``;
+    "sphere" — the 1,280-triangle icosphere of radius 100 of the parity
+    row ``parity-640x480-1spp``. Each at scale 0.5 in the Cornell box."""
     if kind == "teapot":
         pos, nrm = procedural.torus_knot(segments=96, sides=32, radius=80.0,
                                          tube=22.0)
+    elif kind == "knot":
+        pos, nrm = procedural.torus_knot(segments=540, sides=64, radius=80.0,
+                                         tube=22.0)
+    elif kind == "bunny":
+        from tpurt_torch.scene.obj import load_obj
+
+        pos, nrm = load_obj(BUNNY_OBJ)
     elif kind == "sphere":
         pos, nrm = procedural.icosphere(3, radius=100.0)
     else:
