@@ -149,6 +149,23 @@ Phases (each raises on failure, so any failure exits nonzero):
    tcp://127.0.0.1) through which the sharded bunny frame is
    all-gathered and its segments all-reduced; and the sharded frames
    timed against ``render_image`` in turns.
+22. The bench harness (``tpurt_torch.bench``) and its ladder's new
+   regimes. 2,048 samples a lane (cornell-256spp-1080p's count): the
+   ladder's sphere scene at 16x16, 256 spp, 4 bounces, P=8, tail 5 (256
+   lanes, the smallest flat batch), whose ~12,400 trips the plain version
+   cannot run whole, so ``compare_deep`` holds the lane fields after 1,
+   4 and 16 trips and over 16 trips of both backends from the kernel's
+   own state at a quarter, half and the end of its run, and the
+   kernel's frame against the same frame at one pixel a lane and the
+   modular engine's plain frame (pixels, segments). A quota of 16
+   (4k-anim-sweep's): the bunny at 128x72, 4 spp, against the plain
+   version as in phase 3. Each logs its trips and seconds. Then
+   ``bench.run_config`` (one block) on bunny-1080p-plain packed F = 2 (B1
+   launches counted) and teapot-720p-bruteforce (dense launches counted:
+   B2), each block's segments equal to ``render_image``'s over the same
+   frame indices and its Mrays/s its segments over its seconds; and
+   ``bench.run_sharding_efficiency(force=True)`` on cuda:0 in two
+   positions (plumbing only: the number means nothing on one card).
 
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
@@ -2135,6 +2152,151 @@ def phase21(bunny, b1):
         torch.distributed.destroy_process_group()
 
 
+def ladder_cfg(width, height, **kw):
+    """A row of tpurt_torch.bench's ladder: its common knobs (tile 256,
+    reference seeds, quota 8, tail 5, plain batches) under ``kw``."""
+    from tpurt_torch.config import RenderConfig
+
+    knobs = dict(tile_size=256, seed_mode="reference", pixels_per_lane=8,
+                 mega_interleave=4, mega_tail_passes=5, compaction_threshold=0)
+    return RenderConfig(width=width, height=height, **{**knobs, **kw})
+
+
+def compare_deep(name, scene, cam, cfg, k: int = 16):
+    """B1 against its plain version on a run too long for the plain
+    version's whole frame (at 2,048 samples a lane its ~10^4 trips took
+    over 950 s on an H100): the lane states after 1, 4 and 16 trips from
+    the start, then after ``k`` more trips of each backend from the
+    kernel's own state at a quarter, half and the end of its run (integer
+    fields on >= 99.5% of lanes); the kernel's frame against the same
+    frame at one pixel a lane and against the modular engine's plain
+    torch frame (dense_engine="exact", no kernel): pixels <= 0.5%, the
+    one-pixel-a-lane segments (no padding lane) within 0.5% of the
+    modular engine's."""
+    import torch
+
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render.megakernel import run_megakernel
+    from tpurt_torch.render.renderer import flat_batch_args, render_frame
+
+    log_depth(name, scene)
+    args = flat_batch_args(scene, cam, cfg, 0)
+
+    def check(label, a, b):
+        agree, err = mega_cuda.compare_lanes(a, b)
+        log(f"{name}: {label}, integer fields agree on {agree:.4%} of "
+            f"{args['pixel_index'].shape[0]} lanes, float max abs err {err:.3g}")
+        if agree < LANE_AGREE:
+            raise AssertionError(f"{name}: {label}: lane agreement {agree:.4%}")
+
+    for t in (1, 4, 16):
+        check(f"after {t} trips", *(
+            run_megakernel(scene, body_backend=b, max_iterations=t,
+                           return_state=True, **args) for b in ("plain", "cuda")))
+    kstats = {}
+    img = render_frame(scene, cam, cfg.replace(mega_body="pallas"), stats=kstats)
+    total = kstats["trips"]
+    for start in (total // 4, total // 2, total - k):
+        state = run_megakernel(scene, body_backend="cuda", max_iterations=start,
+                               return_state=True, **args)
+        out = {}
+        for b in ("plain", "cuda"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[b] = run_megakernel(scene, body_backend=b, initial_state=state,
+                                    max_iterations=k, return_state=True, **args)
+            torch.cuda.synchronize()
+            out[b + "_s"] = time.time() - t0
+        check(f"trips {start + 1}-{start + k} from the kernel's state (plain "
+              f"{out['plain_s'] / k * 1e3:.1f} ms a trip, kernel "
+              f"{out['cuda_s'] / k * 1e3:.2f})", out["plain"], out["cuda"])
+    one = {}
+    img1 = render_frame(scene, cam, cfg.replace(mega_body="pallas",
+                                                pixels_per_lane=1), stats=one)
+    t0 = time.time()
+    mod = {}
+    img_m = render_frame(scene, cam, cfg.replace(engine="modular",
+                                                 dense_engine="exact"), stats=mod)
+    mod_s = time.time() - t0
+    f1 = mostly_bitwise(img1, img, f"{name}: P=1 against P={cfg.pixels_per_lane}")
+    fm = mostly_bitwise(img_m, img, f"{name}: the modular engine against B1")
+    log(f"{name}: kernel {total} trips, {kstats['segments']} segments (padding "
+        f"lanes included); at one pixel a lane {one['trips']} trips, "
+        f"{one['segments']} segments, frame differs on {f1:.4%} of pixels; the "
+        f"modular engine's plain frame ({mod_s:.1f} s) {mod['segments']} "
+        f"segments, differs on {fm:.4%} of pixels")
+    if abs(one["segments"] - mod["segments"]) > SEG_TOL * mod["segments"]:
+        raise AssertionError(f"{name}: segments {one['segments']} against the "
+                             f"modular engine's {mod['segments']}")
+
+
+def phase22(bunny):
+    """tpurt_torch.bench on the card: B1 against its plain version in two
+    of the ladder's regimes, two bench rows against ``render_image``'s
+    segments, and the sharding row's measuring branch."""
+    import math
+
+    import torch
+
+    from tpurt_torch import bench
+    from tpurt_torch.render.renderer import render_image
+
+    # 256 spp at a quota of 8: 2,048 samples a lane, cornell-256spp-1080p's
+    # count, on the ladder's sphere scene.
+    t0 = time.time()
+    cfg = ladder_cfg(16, 16, rays_per_pixel=256, max_bounces=4)
+    scene, cam = bench.build_scene("sphere", cfg, "cuda")
+    compare_deep("cornell-16x16-256spp-P8", scene, cam, cfg)
+    log(f"cornell-16x16-256spp-P8: {time.time() - t0:.1f} s")
+    # A quota of 16, 4k-anim-sweep's.
+    t0 = time.time()
+    cfg = ladder_cfg(128, 72, rays_per_pixel=4, max_bounces=4,
+                     pixels_per_lane=16)
+    compare_backends("bunny-128x72-4spp-P16", bunny, camera_for(cfg), cfg)
+    log(f"bunny-128x72-4spp-P16: {time.time() - t0:.1f} s")
+
+    for name, kind, cfg, counter in (
+            ("bunny-1080p-plain", "bunny",
+             ladder_cfg(1920, 1080, rays_per_pixel=8, max_bounces=4,
+                        mega_frames_per_batch=2), "megakernel"),
+            ("teapot-720p-bruteforce", "teapot",
+             ladder_cfg(1280, 720, rays_per_pixel=8, max_bounces=4,
+                        mega_dense=True, rays_per_batch=230400,
+                        pixels_per_lane=4), "dense")):
+        reset_counts()
+        row = bench.run_config(name, kind, cfg, repeats=1)
+        launched = counts()
+        if launched[counter] < 1:
+            raise AssertionError(f"bench {name}: no {counter} launch ({launched})")
+        if not math.isclose(row["mrays"], row["avg_path"] * cfg.width
+                            * cfg.height * cfg.rays_per_pixel / row["seconds"]
+                            / 1e6, rel_tol=1e-12):
+            raise AssertionError(f"bench {name}: mrays is not segments / seconds")
+        scene, cam = bench.build_scene(kind, cfg, "cuda")
+        total = 0
+        for f in range(row["frames"]):
+            stats = {}
+            render_image(scene, cam, cfg, frame_index=f, stats=stats)
+            total += stats["segments"]
+        block = round(row["avg_path"] * cfg.width * cfg.height
+                      * cfg.rays_per_pixel * row["frames"])
+        if block != total:
+            raise AssertionError(f"bench {name}: the block's {block} segments, "
+                                 f"render_image's {total} over its frames")
+        log(f"bench {name}: {row}; launches {launched}; the block's {block} "
+            f"segments over {row['frames']} frames equal render_image's | {CARD}")
+
+    dev = torch.device("cuda", 0)
+    row = bench.run_sharding_efficiency(
+        ladder_cfg(1920, 1080, rays_per_pixel=8, max_bounces=4), repeats=1,
+        force=True, devices=[dev, dev])
+    if row["devices"] != 2 or not (math.isfinite(row["efficiency"])
+                                   and row["efficiency"] > 0):
+        raise AssertionError(f"bench sharding-efficiency: {row}")
+    log(f"bench sharding-efficiency on one card in 2 positions: {row} (plumbing "
+        f"only: the number means nothing on one card) | {CARD}")
+
+
 def main():
     global CARD
     import torch
@@ -2183,6 +2345,7 @@ def main():
     timed(phase19)
     timed(phase20)
     timed(phase21, bunny, b1)
+    timed(phase22, bunny)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 import tpurt_torch.config as _c
-from tpurt_torch import autotune, cli
+from tpurt_torch import autotune, bench, cli
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.io import read_bmp
 from tpurt_torch.render import mega_cuda
@@ -99,23 +99,44 @@ def test_autotune_sweep_and_cache(monkeypatch):
 
 def test_time_leg_packs_frames(monkeypatch):
     """The seed config's two frames a launch go through
-    render_batch_flat_frames as one pack, with the unpacked frames'
-    segments."""
+    render_batch_flat_frames as one pack (twice in the warm-up, then the
+    block), with the unpacked frames' segments; single frames (the
+    warm-up's two, the latency frame, an unpacked block) through
+    render_batch_flat."""
     scene, cam = bench_scene("sphere", CFG, device="cpu")
-    packs = []
+    packs, singles = [], []
     batch_frames = renderer.render_batch_flat_frames
+    batch = renderer.render_batch_flat
 
     def counting(scene, cameras, cfg, start, **kw):
         packs.append(len(cameras))
         return batch_frames(scene, cameras, cfg, start, **kw)
 
+    def counting_single(*a, **kw):
+        singles.append(1)
+        return batch(*a, **kw)
+
     monkeypatch.setattr(renderer, "render_batch_flat_frames", counting)
+    monkeypatch.setattr(renderer, "render_batch_flat", counting_single)
     packed = autotune._time_leg(scene, cam, CFG.replace(mega_frames_per_batch=2),
                                 frames=2)
-    assert packs == [2, 2] and packed["frames"] == 2  # warm-up, one block
+    assert packs == [2, 2, 2] and len(singles) == 3
+    assert packed["frames"] == 2
     single = autotune._time_leg(scene, cam, CFG, frames=2)
-    assert packs[2:] == [1] * 3
+    assert packs == [2, 2, 2] and len(singles) == 3 + 5
     assert packed["segments"] == single["segments"] > 0
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_time_leg_is_the_bench_timer(pack):
+    """A leg is bench.time_render_flat's block: the same frames and
+    segments for one config."""
+    cfg = CFG.replace(mega_frames_per_batch=pack)
+    scene, cam = bench_scene("sphere", cfg, device="cpu")
+    leg = autotune._time_leg(scene, cam, cfg, frames=2)
+    r = bench.time_render_flat(scene, cam, cfg, repeats=1, max_frames=2)
+    assert set(leg) == {"seconds", "segments", "frames"}
+    assert (leg["frames"], leg["segments"]) == (r["frames"], r["segments"])
 
 
 def test_refused_leg_is_recorded_and_skipped(monkeypatch):

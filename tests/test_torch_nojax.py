@@ -8,7 +8,8 @@ yaw hook, then a static-hook pack) and reads its BMPs back through
 tpurt_torch.io, resumes a frame from a TileAccumulator, renders a
 jittered frame and a list quota, imports the application layer (cli,
 viewer, render.pick, scene.jsonscene, utils, parallel, autotune),
-renders a frame over a two-position mesh through parallel.shard, and
+runs a bench row through tpurt_torch.bench.run_config, renders a frame
+over a two-position mesh through parallel.shard, and
 runs ``cli.main(["--cpu", ...])`` on the default scene and on a JSON scene;
 and no module of the port, nor chip_smoke.py, imports jax, flax or any
 module of tpurt."""
@@ -73,6 +74,10 @@ with tempfile.TemporaryDirectory() as d:
     from tpurt_torch.scene import jsonscene  # noqa: F401
     from tpurt_torch.utils import profiling  # noqa: F401
     from tpurt_torch import autotune  # noqa: F401
+    from tpurt_torch import bench
+    row = bench.run_config("tiny", "sphere", cfg.replace(rays_per_pixel=1),
+                           repeats=1, device="cpu")
+    assert row["avg_path"] > 0 and row["launches"] == 1, row
     from tpurt_torch.parallel import shard
     from tpurt_torch.render.renderer import render_frame
     import torch

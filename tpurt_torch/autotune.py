@@ -119,62 +119,14 @@ def apply(knobs: dict, cfg):
     return cfg.replace(**updates) if updates else cfg
 
 
-def _elapsed_ms(device: torch.device, fn):
-    """(fn(), its ms): CUDA events on the card, with one synchronise at
-    the end, the host's clock on the CPU."""
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        out = fn()
-        return out, (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize(device)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    out = fn()
-    e1.record()
-    torch.cuda.synchronize(device)
-    return out, e0.elapsed_time(e1)
-
-
-def _time_leg(scene, cam, cfg, frames: int = 3, repeats: int = 1) -> dict:
+def _time_leg(scene, cam, cfg, frames: int = 3) -> dict:
     """Steady-state seconds and segments a frame of the flat megakernel
-    path, in bench.time_render_flat's methodology: a block of frames with
-    distinct frame_index values dispatched back to back, packed
-    ``mega_frames_per_batch`` frames a launch through
-    ``render_batch_flat_frames`` where ``cross_frame_pack_ok`` allows
-    it, each batch tonemapped on the device, the block's segments summed
-    and one synchronisation at its end; a warm-up block first, then the
-    best of ``repeats`` blocks. The driver reads each launch's segment
-    count on the host as it returns, so the block synchronises per launch
-    as every frame does."""
-    from tpurt_torch.render.renderer import (
-        _flat_batch_size, cross_frame_pack_ok, render_batch_flat_frames)
-    from tpurt_torch.render.tonemap import tonemap
+    path: ``bench.time_render_flat`` with one block of at most ``frames``
+    frames (tpurt/autotune.py:119-126), packed where the config packs."""
+    from tpurt_torch import bench
 
-    total = cfg.width * cfg.height
-    b = _flat_batch_size(cfg) * cfg.pixels_per_lane  # pixels per launch
-    n_batches = -(-total // b)
-    pack = max(1, int(cfg.mega_frames_per_batch)) if cross_frame_pack_ok(cfg) else 1
-    frames = -(-max(frames, 1) // pack) * pack  # whole packs
-
-    def block(n_frames: int) -> int:
-        segs = 0
-        for f0 in range(0, n_frames, pack):
-            for i in range(n_batches):
-                mean, s, _trips = render_batch_flat_frames(
-                    scene, (cam,) * pack, cfg, i * b, frame_index=f0)
-                tonemap(mean)
-                segs += s
-        return segs
-
-    block(pack)  # warm-up
-    best = None
-    for _ in range(max(1, repeats)):
-        segs, ms = _elapsed_ms(scene.device, lambda: block(frames))
-        if best is None or ms < best[0]:
-            best = (ms, segs)
-    return {"seconds": best[0] / 1e3 / frames, "segments": best[1] / frames,
-            "frames": frames}
+    r = bench.time_render_flat(scene, cam, cfg, repeats=1, max_frames=frames)
+    return {k: r[k] for k in ("seconds", "segments", "frames")}
 
 
 def _build(cfg, scene_kind: str, device):

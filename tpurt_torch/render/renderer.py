@@ -192,12 +192,12 @@ def _mega_flat_multi(scene: Scene, cameras, cfg: RenderConfig, start: int,
 
 def cross_frame_pack_ok(cfg: RenderConfig) -> bool:
     """Single source of truth for cross-frame packing eligibility
-    (anim's video packs, render_batch_flat_frames' refusal, and a
-    benchmark's packed rows): packing runs the PLAIN flat megakernel
-    schedule with in-lane samples only — no per-sample jitter, no
-    staged/compaction schedule engaging at this batch size (tpurt's
-    answer, though the port runs plain batches), and a live bounce
-    loop."""
+    (anim's video packs, render_batch_flat_frames' refusal, and the
+    packed rows of ``tpurt_torch.bench.time_render_flat``): packing runs
+    the PLAIN flat megakernel schedule with in-lane samples only — no
+    per-sample jitter, no staged/compaction schedule engaging at this
+    batch size (tpurt's answer, though the port runs plain batches), and
+    a live bounce loop."""
     return (
         cfg.max_bounces > 0
         and not cfg.subpixel_jitter
