@@ -166,6 +166,31 @@ Phases (each raises on failure, so any failure exits nonzero):
    frame indices and its Mrays/s its segments over its seconds; and
    ``bench.run_sharding_efficiency(force=True)`` on cuda:0 in two
    positions (plumbing only: the number means nothing on one card).
+23. tpurt's staged drivers (``renderer._mega_finish_staged`` and family)
+   through B1. Small, with tpurt's test constants (stages of 48 trips,
+   cascade levels of 128 lanes): phase 3's Cornell sphere at 64x32, 8
+   spp, 5 bounces, P=8, 256 lanes, compaction_threshold=128 in five
+   schedules — respread, cascade (then its replay), P=1 (compaction,
+   then the uncapped stage), quota lanes compacted to 64 and 16 of 256
+   (their stride stays 256; at 4 spp, 3 bounces) — and the respread
+   batch on a small teapot through the dense instantiation and on the
+   K = 12 grid through the TLAS one: B1 and the plain version record equal plans and steps with
+   equal live counts, and give equal rows and segments, equal to the
+   plain schedule's rows through B1. Then bunny-1080p-bvh at tpurt's
+   staged knobs (bench.py:484, :674-680) through ``render_frame``, once
+   blocking (recording the plan) and once replayed (B1 launches counted
+   a frame), each bit for bit the plain schedule's frame with segments
+   in [1, 1.5] of its count; the plan and every step logged; the
+   blocking, replayed and plain ``render_image`` frames timed in turns;
+   the host cost of a resume and of a fresh start with no trips; the
+   plan's respread tail (a fresh P = 1 batch over the collected
+   stragglers), 16 trips of B1 against the plain version from its start,
+   its middle and its end, and B1 to completion (the kernels line's
+   ``b1_staged`` row); and, logged only, 16 trips from the first
+   stage's 262,144-lane state (the uncapped alternative). Phases 19 and
+   20's CLI frames (512x512 at a quota of 8: 32,768 lanes) run through
+   the staged driver too, as tpurt's do, and are timed in turns against
+   the plain schedule.
 
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
@@ -277,6 +302,34 @@ def cuda_ms(fn, reps: int = 1):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return out, times
+
+
+def staged_vs_plain(name, scene, cam, cfg):
+    """``render_image`` at ``cfg`` (its default compaction_threshold: the
+    staged schedule where the batch is wide enough) and at
+    compaction_threshold=0 (the plain schedule), timed in turns, best of
+    3, B1 launches a frame counted; the two frames equal bit for bit."""
+    import numpy as np
+
+    from tpurt_torch.render.renderer import render_image
+
+    scheds = {"default": cfg, "plain": cfg.replace(compaction_threshold=0)}
+    frames, launched, ms = {}, {}, {k: [] for k in scheds}
+    for k, c in scheds.items():
+        reset_counts()
+        frames[k] = render_image(scene, cam, c)
+        launched[k] = counts()["megakernel"]
+    if not np.array_equal(frames["default"], frames["plain"]):
+        raise AssertionError(f"{name}: the default schedule's frame differs "
+                             "from the plain schedule's")
+    for _ in range(3):
+        for k, c in scheds.items():
+            ms[k].extend(cuda_ms(lambda: render_image(scene, cam, c))[1])
+    log(f"{name} frame ms in turns (render_image, threshold "
+        f"{cfg.compaction_threshold}): " + "; ".join(
+            f"{k} {launched[k]} B1 launches, {[round(t, 3) for t in v]} best "
+            f"{min(v):.3f}" for k, v in ms.items())
+        + f"; frames equal bit for bit | {CARD}")
 
 
 def reset_counts():
@@ -457,12 +510,14 @@ def phase4():
     return scene
 
 
-def time_trips(scene, cam, cfg, k: int, label: str, args=None):
+def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
     """The full-size batch's first ``k`` trips through both backends from
     one lane state (agreement, kernel ms, plain ms, the lane work those
     k trips did), then the kernel alone to completion, twice (ms, trips,
     work), with its persistent launch configuration. ``args``: the
-    batch's run_megakernel arguments (default: the flat batch at 0)."""
+    batch's run_megakernel arguments (default: the flat batch at 0);
+    ``state``: a lane state to resume instead of the fresh lanes (``args``
+    then as ``renderer._mega_stage_more`` passes them)."""
     import torch
 
     from tpurt_torch.core.v3 import V3
@@ -471,7 +526,8 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None):
     from tpurt_torch.render.renderer import flat_batch_args
 
     log_depth(label, scene)
-    lane, ctx = mk.prepare(scene, **(args or flat_batch_args(scene, cam, cfg, 0)))
+    lane, ctx = mk.prepare(scene, **(args or flat_batch_args(scene, cam, cfg, 0)),
+                           initial_state=state)
     buf0 = mega_cuda.pack(lane)
     r = lane.done.shape[0]
     mega_cuda.launch(buf0.clone(), ctx, k)  # warm-up
@@ -1848,6 +1904,7 @@ def phase19():
         f"{cfg.object_path} stand-in): {wall:.2f} s with the scene build, "
         f"launches {launched}; output.bmp equals render_image's frame bit for "
         f"bit (mean pixel {got.mean():.3f}) | {CARD}")
+    staged_vs_plain("cli", scene, cam, cfg)
     small = ["--width", "64", "--height", "64", "--rays-per-pixel", "2",
              "--max-bounces", "3"]
     for what, extra, counter in (
@@ -1982,6 +2039,7 @@ def phase20():
             f"tail {tcfg.mega_tail_passes}, bank a{scene.mega_arity}-"
             f"l{scene.mega_leaf_tris}-{scene.mega_bounds_fmt}, launches "
             f"{launched}; output.bmp equals render_image's frame")
+        staged_vs_plain("cli --tuned", scene, cam, tcfg)
     finally:
         for k, v in saved.items():
             setattr(cfgmod, k, v)
@@ -2297,6 +2355,297 @@ def phase22(bunny):
         f"only: the number means nothing on one card) | {CARD}")
 
 
+#: tpurt's test constants for the staged drivers (tests/test_cascade.py):
+#: stages of 48 trips, a cascade first stage of 24, levels of 128 lanes,
+#: a cascade floor of 64 pixels.
+STAGED_SMALL = dict(_MEGA_STAGE_ITERS=48, _CASCADE_STAGE0=24, _CASCADE_W=128,
+                    _CASCADE_MIN=64)
+
+
+def clear_plans():
+    """Forget every recorded plan and curve; zero the replay counts."""
+    from tpurt_torch.render import renderer as R
+
+    R._SCHED_TRACES.clear()
+    R._RETIRE_CURVES.clear()
+    R._SPEC_STATS.update(replayed=0, fallback=0)
+
+
+def plan_of():
+    """The recorded plans by depth."""
+    from tpurt_torch.render import renderer as R
+
+    return sorted((k[-1], v) for k, v in R._SCHED_TRACES.items())
+
+
+def step_counts(stats):
+    """A stage_stats list less its wall times."""
+    return [{k: v for k, v in s.items() if k != "wall_s"} for s in stats]
+
+
+def staged_pair(name, scene, cam, cfg, replay: bool = False):
+    """A staged batch through B1 (mega_body="pallas") and through its
+    plain version ("xla"), each recording its plan from scratch: equal
+    plans and equal steps with equal live counts, radiance rows and
+    segments equal, the rows equal to the plain schedule's batch through
+    B1 (compaction_threshold=0) and the segments at least its count. With
+    ``replay`` a second batch of each backend replays its plan (no
+    fallback), equal again. Returns the steps."""
+    import torch
+
+    from tpurt_torch.render import renderer as R
+
+    out = {}
+    for body in ("pallas", "xla"):
+        clear_plans()
+        c = cfg.replace(mega_body=body)
+        stats = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        mean, segs, trips = R.render_batch_flat(scene, cam, c, 0,
+                                                stage_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if trips is not None:
+            raise AssertionError(f"{name}: the batch did not stage")
+        out[body] = (mean, segs, step_counts(stats), plan_of(), wall)
+        if replay:
+            again, asegs, _ = R.render_batch_flat(scene, cam, c, 0)
+            if (R._SPEC_STATS["replayed"] < 1 or R._SPEC_STATS["fallback"]
+                    or not torch.equal(again, mean) or asegs != segs):
+                raise AssertionError(f"{name} ({body}): the replay "
+                                     f"{R._SPEC_STATS} differs")
+    (km, ks, kst, kplan, kw), (pm, ps, pst, pplan, pw) = out["pallas"], out["xla"]
+    if kplan != pplan or kst != pst:
+        raise AssertionError(f"{name}: plans or steps differ: kernel {kplan} "
+                             f"{kst}, plain {pplan} {pst}")
+    if not torch.equal(km, pm) or ks != ps:
+        raise AssertionError(f"{name}: kernel and plain version differ "
+                             f"(segments {ks} and {ps})")
+    ref, rsegs, _ = R.render_batch_flat(
+        scene, cam, cfg.replace(mega_body="pallas", compaction_threshold=0), 0)
+    if not torch.equal(km, ref) or ks < rsegs:
+        raise AssertionError(f"{name}: the staged rows differ from the plain "
+                             f"schedule's (segments {ks} and {rsegs})")
+    log(f"{name}: plan {kplan}; steps {kst}; rows and segments ({ks}) of B1 "
+        f"and the plain version equal, and the rows equal the plain "
+        f"schedule's ({rsegs} segments); wall s kernel {kw:.2f}, plain "
+        f"{pw:.2f}{'; replayed equal' if replay else ''}")
+    return kst
+
+
+def phase23(bunny):
+    """tpurt's staged drivers (renderer._mega_finish_staged and family)
+    on the card: small, B1 against its plain version in five schedules
+    and the dense and TLAS instantiations; then bunny-1080p-bvh at tpurt's
+    staged knobs, blocking and replayed, against the plain schedule."""
+    import numpy as np
+
+    from tpurt_torch.config import RenderConfig
+    from tpurt_torch.render import renderer as R
+    from tpurt_torch.render.renderer import render_frame, render_image
+    from tpurt_torch.scene.presets import (bench_scene, cornell_sphere_scene,
+                                           grid_scene)
+
+    saved = {k: getattr(R, k) for k in (*STAGED_SMALL, "_STAGE_WIDTHS_OVERRIDE")}
+    try:
+        for k, v in STAGED_SMALL.items():
+            setattr(R, k, v)
+        small = RenderConfig(width=64, height=32, rays_per_pixel=8,
+                             max_bounces=5, rays_per_batch=256,
+                             pixels_per_lane=8, compaction_threshold=128)
+        scene, cam, _ = cornell_sphere_scene(2, small, device="cuda")
+        steps = staged_pair("staged respread", scene, cam,
+                            small.replace(mega_cascade=False))
+        if not any("respread" in s for s in steps):
+            raise AssertionError("staged respread: no respread step")
+        steps = staged_pair("staged cascade (and its replay)", scene, cam,
+                            small, replay=True)
+        if not any("cascade" in s for s in steps):
+            raise AssertionError("staged cascade: no cascade step")
+        staged_pair("staged P=1", scene, cam,
+                    small.replace(pixels_per_lane=1, rays_per_batch=2048))
+        if plan_of()[-1][1][-1] != ("uncapped",):
+            raise AssertionError(f"staged P=1: the plan {plan_of()} does not "
+                                 "end uncapped")
+        # Quota lanes compacted below their stride: the ladder overridden
+        # to 64 then 16 lanes of the 256, the respread off (4 spp, 3
+        # bounces: the plain version's 16-lane tail is long).
+        R._STAGE_WIDTHS_OVERRIDE = [64, 16]
+        staged_pair("staged compaction to 64 and 16 lanes", scene, cam,
+                    small.replace(mega_tail_respread=False, rays_per_pixel=4,
+                                  max_bounces=3))
+        if not {("compact", 64), ("compact", 16)} <= set(plan_of()[0][1]):
+            raise AssertionError(f"staged compaction: the plan {plan_of()} "
+                                 "does not compact to 64 and 16 lanes")
+        R._STAGE_WIDTHS_OVERRIDE = None
+        tcfg = small.replace(mega_dense=True, mega_cascade=False)
+        tscene, tcam = bench_scene("teapot", tcfg, device="cuda")
+        reset_counts()
+        staged_pair("staged respread, teapot dense", tscene, tcam, tcfg)
+        if counts()["dense"] < 1:
+            raise AssertionError(f"teapot dense: no dense launch ({counts()})")
+        gscene = grid_scene(12, device="cuda")
+        gcam = grid_camera(64, 32)
+        if not gscene.mega_tlas:
+            raise AssertionError("the K = 12 grid is not in the TLAS regime")
+        staged_pair("staged respread, grid-12 TLAS", gscene, gcam,
+                    small.replace(mega_cascade=False))
+    finally:
+        for k, v in saved.items():
+            setattr(R, k, v)
+        clear_plans()
+
+    # bunny-1080p-bvh: tpurt's staged knobs (bench.py:484, :674-680).
+    t_full = time.time()
+    cfg = ladder_cfg(1920, 1080, rays_per_pixel=8, max_bounces=4,
+                     compaction_threshold=32768)
+    cam = camera_for(cfg)
+    b = R._flat_batch_size(cfg)
+    frames = {}
+    launches = {}
+    for label in ("blocking", "replayed"):
+        reset_counts()
+        stats = {}
+        frames[label] = render_frame(bunny, cam, cfg, stats=stats)
+        launches[label] = counts()
+        frames[label + "_segs"] = stats["segments"]
+        if launches[label]["megakernel"] < 2:
+            raise AssertionError(f"bunny-1080p-bvh {label}: B1 launches "
+                                 f"{launches[label]}")
+        if label == "blocking":
+            plan = plan_of()
+            if R._SPEC_STATS != {"replayed": 0, "fallback": 0}:
+                raise AssertionError(f"blocking frame replayed: {R._SPEC_STATS}")
+    if R._SPEC_STATS["replayed"] < 1 or R._SPEC_STATS["fallback"]:
+        raise AssertionError(f"bunny-1080p-bvh replay: {R._SPEC_STATS}")
+    spec = dict(R._SPEC_STATS)
+    pstats = {}
+    plain = render_frame(bunny, cam, cfg.replace(compaction_threshold=0),
+                         stats=pstats)
+    for label in ("blocking", "replayed"):
+        if not np.array_equal(frames[label], plain):
+            raise AssertionError(f"bunny-1080p-bvh {label}: "
+                                 f"{int((frames[label] != plain).any(-1).sum())} "
+                                 "pixels differ from the plain schedule")
+        ratio = frames[label + "_segs"] / pstats["segments"]
+        if not 1.0 <= ratio <= 1.5:
+            raise AssertionError(f"bunny-1080p-bvh {label}: segments "
+                                 f"{frames[label + '_segs']} against plain "
+                                 f"{pstats['segments']}")
+    log(f"bunny-1080p-bvh: plan {plan}; B1 launches a frame blocking "
+        f"{launches['blocking']}, replayed {launches['replayed']} ({spec}); "
+        f"both frames equal the plain schedule's bit for bit; segments "
+        f"{frames['blocking_segs']} / {frames['replayed_segs']} against plain "
+        f"{pstats['segments']} ({frames['blocking_segs'] / pstats['segments']:.4f}x)")
+    stage_stats = []
+    R.render_batch_flat(bunny, cam, cfg, 0, stage_stats=stage_stats)
+    if plan_of() != plan:
+        raise AssertionError(f"bunny-1080p-bvh: the plan moved: {plan_of()}")
+    for st in stage_stats:
+        log(f"  bunny-1080p-bvh step: {st}")
+    # Frame times in turns, best of 3: blocking (speculation off), replayed,
+    # the plain schedule.
+    scheds = {"blocking": cfg.replace(mega_speculative=False),
+              "replayed": cfg, "plain": cfg.replace(compaction_threshold=0)}
+    ms = {k: [] for k in scheds}
+    for _ in range(3):
+        for k, c in scheds.items():
+            ms[k].extend(cuda_ms(lambda: render_image(bunny, cam, c))[1])
+    log(f"bunny-1080p-bvh frame ms (render_image, in turns): " + "; ".join(
+        f"{k} {[round(t, 3) for t in v]} best {min(v):.3f}" for k, v in ms.items())
+        + f" | {CARD}")
+    # The host cost of a launch: a resume of the first stage's 262,144
+    # lanes and a fresh start, each with a trip cap of 0.
+    p = cfg.pixels_per_lane
+    state, _ = R._mega_flat_start(bunny, cam, cfg, 0, 0, 0, R._first_cap(cfg, p), b)
+    _o, resume_ms = cuda_ms(lambda: R._mega_stage_more(
+        bunny, cam, cfg, state, 0, 0, 0, pixels_per_lane=p, pixel_stride=b), reps=3)
+    _o, fresh_ms = cuda_ms(lambda: R._mega_flat_start(bunny, cam, cfg, 0, 0, 0, 0, b),
+                           reps=3)
+    log(f"bunny-1080p-bvh host cost of a launch with no trips: resume "
+        f"{[round(t, 3) for t in resume_ms]} ms, fresh start "
+        f"{[round(t, 3) for t in fresh_ms]} ms | {CARD}")
+    # The plan's launches after the first stage: its respread tail, a
+    # fresh P = 1 batch over the collected stragglers (the kernels line's
+    # row; the first stage's first trips are phase 5's bunny batch).
+    tail_w, pixpack = respread_tail(bunny, cam, cfg, plan)
+    targs = dict(R._mega_statics(cfg, bunny), pixel_index=pixpack[:tail_w],
+                 frame_index=0, sample_offset=0, camera=cam)
+    del targs["body_backend"]
+    targs["ro0"], targs["rd0"] = R._rays_of(cam, targs["pixel_index"],
+                                            cfg.width, cfg.height)
+    tt = time_trips(bunny, cam, cfg, 16, "bunny-1080p-bvh respread tail",
+                    args=targs)
+    b_ms, b_by = megakernel_bound(bunny, tt, tt["work_k"], tt["adv_k"],
+                                  "respread tail, 16 trips")
+    f_ms, _f_by = megakernel_bound(bunny, tt, tt["work"], tt["adv"],
+                                   "respread tail, whole launch")
+    # Later trips of the tail through both backends, 16 from the kernel's
+    # own state at half and at the end of its run (the plain version's
+    # whole tail, ~1,300 trips at ~130 ms each on the card, is too long).
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render.megakernel import run_megakernel
+
+    total, errs = int(tt["trips"].max()), [tt["err"]]
+    for at in (total // 2, total - 16):
+        st = run_megakernel(bunny, body_backend="cuda", max_iterations=at,
+                            return_state=True, **targs)
+        k2, p2 = (run_megakernel(bunny, body_backend=be, initial_state=st,
+                                 max_iterations=16, return_state=True, **targs)
+                  for be in ("cuda", "plain"))
+        agree, err = mega_cuda.compare_lanes(p2, k2)
+        log(f"bunny-1080p-bvh respread tail, trips {at + 1}-{at + 16} from the "
+            f"kernel's state: integer fields agree on {agree:.4%} of lanes, "
+            f"float max abs err {err:.3g}")
+        if agree < LANE_AGREE:
+            raise AssertionError(f"respread tail trips {at + 1}-{at + 16}: lane "
+                                 f"agreement {agree:.4%}")
+        errs.append(err)
+    log(f"bunny-1080p-bvh respread tail ({tail_w} lanes, P=1): whole launch "
+        f"{tt['full_ms']:.3f} ms against its bound {f_ms:.3f} ms | {CARD}")
+    # The uncapped alternative: B1 from the first stage's 262,144-lane
+    # state (which the recorded plan does not run), for comparison only.
+    pix0 = state.pix - state.pixno.long() * b
+    args = dict(R.flat_batch_args(bunny, cam, cfg, 0), ro0=state.ro0,
+                rd0=state.rd0, pixel_index=pix0, pixel_stride=b)
+    time_trips(bunny, cam, cfg, 16, "bunny-1080p-bvh uncapped alternative "
+               "(first stage's state resumed)", args=args, state=state)
+    log(f"bunny-1080p-bvh full-width part: {time.time() - t_full:.1f} s")
+    return dict(name="b1_staged: megakernel (B1), the staged bunny-1080p-bvh "
+                "frame's respread tail (P=1; launches: the frame's B1 launches)",
+                route="cuda", source="tpurt_torch/csrc/megakernel.cu",
+                replaces="tpurt/render/mega_pallas.py:237",
+                launches=launches["replayed"]["megakernel"],
+                max_abs_err=max(errs), ms=tt["ms"],
+                plain_ms=tt["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def respread_tail(scene, cam, cfg, plan):
+    """The inputs of a recorded flat plan's respread tail: (tail width,
+    packed pixel list), from the first stage on through the plan's
+    stages and compactions, as the blocking driver collects them."""
+    from tpurt_torch.render import renderer as R
+
+    p = cfg.pixels_per_lane
+    b = R._flat_batch_size(cfg)
+    steps = dict(plan)[0]
+    state, _ = R._mega_flat_start(scene, cam, cfg, 0, 0, 0, R._first_cap(cfg, p), b)
+    for step in steps:
+        if step[0] == "stage":
+            state, _ = R._mega_stage_more(scene, cam, cfg, state, 0, 0, step[1],
+                                          pixels_per_lane=p, pixel_stride=b)
+        elif step[0] == "compact":
+            state, _ = R._mega_compact(state, step[1])
+        elif step[0] == "respread":
+            pixpack, _pos, _n = R._collect_tail_pixels(
+                state, 0, p, b, cfg.width * cfg.height,
+                R._respread_lanes_for(cfg, p, b))
+            return min(step[1], pixpack.shape[0]), pixpack
+    raise AssertionError(f"the plan {steps} has no respread tail")
+
+
 def main():
     global CARD
     import torch
@@ -2346,6 +2695,7 @@ def main():
     timed(phase20)
     timed(phase21, bunny, b1)
     timed(phase22, bunny)
+    b1_staged = timed(phase23, bunny)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2354,7 +2704,7 @@ def main():
     # for every kernel is CUDA events around the call, the host included.
     print(json.dumps({"kernels": [{k: b[k] for k in keys + ("device_ms",) if k in b}
                                   for b in (b1, b1_tlas, b1_packed, b1_deep,
-                                            b1_jitter, b2, b3)]}))
+                                            b1_jitter, b1_staged, b2, b3)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

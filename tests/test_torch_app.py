@@ -312,8 +312,9 @@ def test_terminal_session_scripted(view_scene, tmp_path, monkeypatch):
 def test_render_passes_double_buffered_bitwise(view_scene, monkeypatch):
     """Pass k+1 is dispatched before pass k is read back, and the result
     equals sequential render_pass calls bit for bit; a config off the
-    flat path falls back to sequential passes."""
-    cfg = VIEW.replace(rays_per_batch=256)
+    flat path falls back to sequential passes. The fast path needs no
+    compaction threshold, as tpurt's viewer gates it (its test sets 0)."""
+    cfg = VIEW.replace(rays_per_batch=256, compaction_threshold=0)
     seq = ViewerSession(view_scene, cfg)
     for _ in range(3):
         seq.render_pass()

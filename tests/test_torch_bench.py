@@ -10,7 +10,8 @@ bounces, a quota of 2 pixels a lane, 256 lanes a launch.
   CPU backend fuses multiply-adds the port rounds twice).
 * ``time_render_tiles`` through the modular engine, ``run_config_anim``
   at 2 frames (``avg_path``) and ``run_config`` (tpurt's result keys, plus
-  the port's ``launches`` on a flat row).
+  the port's ``launches`` on a flat row), also through tpurt's staged
+  schedule (more than one launch a frame).
 * ``run_sharding_efficiency``'s measuring branch on one CPU in three
   positions (tests/test_parallel.py::test_sharding_efficiency_branch_runs).
 * ``main``: the ladder's rows, names, configs and order equal tpurt's
@@ -113,13 +114,34 @@ def test_run_config_returns_tpurts_keys(engine):
         mine["avg_path"] * 32 * 16 * 2 / mine["seconds"] / 1e6)
 
 
-def test_run_config_names_the_plain_schedule():
-    """A config for which tpurt runs its staged schedule runs the plain
-    one here, and its record says so (a threshold of 0 adds no key:
-    test_run_config_returns_tpurts_keys)."""
-    _tcfg, cfg = configs(compaction_threshold=256)
+def test_run_config_names_the_plain_schedule(monkeypatch):
+    """A config for which tpurt runs its staged schedule runs it here too
+    (the name is from when the port ran such a row plain): with tpurt's
+    test stage constants in both renderers, so that the batch outlives
+    its first stage, the row has tpurt's keys (no trips: staged batches
+    report none) plus ``launches``, counts more than one launch a frame,
+    and its segments agree with tpurt's staged row within 0.5%."""
+    from tpurt.render import renderer as t_renderer
+    from tpurt_torch.render import renderer
+
+    for module in (t_renderer, renderer):
+        monkeypatch.setattr(module, "_MEGA_STAGE_ITERS", 48)
+        monkeypatch.setattr(module, "_CASCADE_STAGE0", 24)
+        monkeypatch.setattr(module, "_SCHED_TRACES", {})
+        monkeypatch.setattr(module, "_SPEC_STATS",
+                            {"replayed": 0, "fallback": 0})
+    # The same two frames in both blocks (a block's length follows its
+    # latency), so that their segments a frame are comparable.
+    for module in (t_bench, bench):
+        monkeypatch.setattr(module, "time_render_flat", functools.partial(
+            module.time_render_flat, max_frames=2))
+    tcfg, cfg = configs(compaction_threshold=256)
+    theirs = t_bench.run_config("staged", "sphere", tcfg, repeats=1)
     row = bench.run_config("staged", "sphere", cfg, repeats=1, device="cpu")
-    assert row["schedule"] == "plain" and row["launches"] == 1
+    assert set(row) == set(theirs) | {"launches"} and "schedule" not in row
+    assert row["frames"] == theirs["frames"] == 2 and row["launches"] > 1, row
+    assert renderer._SPEC_STATS["replayed"] > 0, renderer._SPEC_STATS
+    assert_segments_close(row["avg_path"], theirs["avg_path"])
 
 
 def test_sharding_efficiency_branch_runs():

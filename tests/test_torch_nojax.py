@@ -6,7 +6,8 @@ through both engines, renders a 9-instance grid in the TLAS regime
 with bf16 node bounds, writes a video through tpurt_torch.anim (the
 yaw hook, then a static-hook pack) and reads its BMPs back through
 tpurt_torch.io, resumes a frame from a TileAccumulator, renders a
-jittered frame and a list quota, imports the application layer (cli,
+jittered frame, a list quota and a staged batch (respread) equal to the
+plain batch, imports the application layer (cli,
 viewer, render.pick, scene.jsonscene, utils, parallel, autotune),
 runs a bench row through tpurt_torch.bench.run_config, renders a frame
 over a two-position mesh through parallel.shard, and
@@ -63,11 +64,23 @@ with tempfile.TemporaryDirectory() as d:
                           render_image(scene, cam, cfg))
     jit = render_image(scene, cam, cfg.replace(subpixel_jitter=True))
     assert jit.shape == (8, 8, 3) and (jit > 0).any()
+    import torch
     from tpurt_torch.render.megakernel import run_megakernel
     from tpurt_torch.render.renderer import list_batch_args
     mean, segs, _ = run_megakernel(scene, **list_batch_args(
         scene, cam, cfg.replace(pixels_per_lane=2), np.arange(64)[::-1].copy()))
     assert mean.shape == (64, 3) and segs > 0
+    from tpurt_torch.render import renderer
+    renderer._MEGA_STAGE_ITERS = 8  # the batch outlives its first stage
+    qcfg = cfg.replace(pixels_per_lane=2, compaction_threshold=128)
+    stats = []
+    staged, _, trips = renderer.render_batch_flat(scene, cam, qcfg, 0,
+                                                  stage_stats=stats)
+    assert trips is None and any("respread" in s for s in stats), stats
+    plain = renderer.render_batch_flat(
+        scene, cam, qcfg.replace(compaction_threshold=0), 0)[0]
+    assert torch.equal(staged[:64], plain[:64])  # rows past the frame: pads
+    renderer._MEGA_STAGE_ITERS = 384
     from tpurt_torch import cli, utils, viewer  # noqa: F401
     from tpurt_torch.parallel import device_inventory  # noqa: F401
     from tpurt_torch.render import pick  # noqa: F401

@@ -29,15 +29,14 @@ Where the port differs from tpurt's harness:
 * The kernels build (nvcc) before the first row, and their seconds are
   logged on a line of their own; each row's warm-up absorbs the rest of
   its set-up.
-* bunny-1080p-bvh asks for tpurt's staged schedule
-  (``compaction_threshold=32768``), which the port does not run (ROADMAP
-  A.5): the row runs the plain schedule, unpacked, and its record says
-  ``"schedule": "plain"``.
 * The JSON lines carry ``device`` where tpurt's carry its TPU target
   (``vs_baseline``); ``mega_interleave`` is accepted and ignored, as
   ``RenderConfig`` does.
-* A flat row's record adds ``launches``: kernel launches a frame in its
-  steady block.
+* A flat row's record adds ``launches``: runs of
+  ``megakernel.run_megakernel`` a frame in its steady block (counted in
+  ``megakernel.RUNS``; on the card each is one B1 launch), so a staged
+  row (bunny-1080p-bvh, tpurt's staged schedule) counts each of its
+  stages, compacted resumes and tail batches.
 """
 
 from __future__ import annotations
@@ -129,9 +128,12 @@ def time_render_flat(scene, cam, cfg, repeats=2, max_frames=32, strict=False):
     uint8 frame on the host. The block holds max(2, min(max_frames,
     3 s / latency + 1)) frames in whole packs, best of ``repeats``.
     Each launch synchronises (its counts come back to the host). Returns
-    a dict: seconds, segments, iters (loop trips) and launches per frame,
-    frames, latency_s, d2h_s, and with ``strict`` strict_seconds: the
-    block again with every frame's uint8 copied to the host."""
+    a dict: seconds, segments, iters (loop trips of the plain-schedule
+    launches: a staged batch reports none, as tpurt's does) and launches
+    (counted) per frame, frames, latency_s, d2h_s, and with ``strict``
+    strict_seconds: the block again with every frame's uint8 copied to
+    the host."""
+    from tpurt_torch.render import megakernel
     from tpurt_torch.render.renderer import (
         _flat_batch_size, cross_frame_pack_ok, render_batch_flat,
         render_batch_flat_frames)
@@ -159,7 +161,7 @@ def time_render_flat(scene, cam, cfg, repeats=2, max_frames=32, strict=False):
                 m, s, it = render_batch_flat(scene, cam, cfg, i * b,
                                              frame_index=f, sample_offset=g)
                 segs += s
-                trips += it
+                trips += it or 0
                 accs[i] = m if accs[i] is None else accs[i] + m
         if collect is not None:
             for m in accs:
@@ -222,15 +224,17 @@ def time_render_flat(scene, cam, cfg, repeats=2, max_frames=32, strict=False):
 
     best = None
     for _ in range(repeats):
+        runs = megakernel.RUNS
         (segs, trips), ms = _elapsed_ms(device, block)
+        launches = megakernel.RUNS - runs
         if best is None or ms < best[0]:
-            best = (ms, segs, trips)
-    ms, segs, trips = best
+            best = (ms, segs, trips, launches)
+    ms, segs, trips, launches = best
     out = {
         "seconds": ms / 1e3 / frames, "segments": segs / frames,
         "iters": trips / frames, "frames": frames,
         "latency_s": latency_s, "d2h_s": d2h_s,
-        "launches": n_batches * groups / pack,
+        "launches": launches / frames,
     }
     if strict:
         best_s = min(_elapsed_ms(device, lambda: block(to_host=True))[1]
@@ -372,8 +376,6 @@ def run_sharding_efficiency(cfg, repeats=2, force=False, scene_kind="bunny",
 
 
 def run_config(name, scene_kind, cfg, repeats=2, strict=False, device="cuda"):
-    from tpurt_torch.render.renderer import _flat_batch_size
-
     scene, cam = build_scene(scene_kind, cfg, device)
     log(f"[{name}] scene={scene_kind} tris={scene.num_triangles} "
         f"{cfg.width}x{cfg.height} spp={cfg.rays_per_pixel} "
@@ -381,13 +383,6 @@ def run_config(name, scene_kind, cfg, repeats=2, strict=False, device="cuda"):
         f"dense={cfg.dense_engine} bf_threshold={cfg.bruteforce_threshold}")
     extra = {}
     if cfg.engine == "mega" and cfg.rays_per_batch > 0 and cfg.max_bounces > 0:
-        if (cfg.compaction_threshold
-                and _flat_batch_size(cfg) >= cfg.compaction_threshold):
-            extra["schedule"] = "plain"
-            log(f"[{name}] tpurt runs this config through its staged "
-                f"schedule (compaction_threshold={cfg.compaction_threshold}), "
-                f"which is not ported (ROADMAP A.5): the plain schedule runs, "
-                f"unpacked")
         r = time_render_flat(scene, cam, cfg, repeats, strict=strict)
         dt, segments, iters = r["seconds"], r["segments"], r["iters"]
         extra.update({k: r[k] for k in ("frames", "latency_s", "d2h_s",

@@ -320,7 +320,8 @@ def _run(args) -> int:
         from tpurt_torch.viewer import run_terminal
 
         # Interactive sessions run the plain flat megakernel schedule
-        # (tpurt's choice; the port runs no other).
+        # (tpurt's choice: the staged drivers read counts on the host
+        # between stages).
         run_terminal(scene, cfg.replace(compaction_threshold=0),
                      preview_path="preview.bmp")
         return 0

@@ -108,8 +108,10 @@ class RenderConfig:
     #: ROADMAP A.5).
     sample_flatten: bool = False
 
-    #: Staged lane compaction in tpurt's drivers (ROADMAP A.5). The port
-    #: runs the plain schedule whatever its value.
+    #: Flat batches of at least this many lanes, and megakernel tiles of
+    #: at least this many pixels, run through the staged drivers
+    #: (render/renderer.py: capped stages, lane compaction, respread);
+    #: 0 = the plain schedule always.
     compaction_threshold: int = 32768
 
     #: "mega": the persistent-lane megakernel. "modular": the nested
@@ -135,7 +137,10 @@ class RenderConfig:
     #: TPU gather/body overlap schedules: bitwise no-ops, ignored.
     mega_schedule: str = "inline"
 
-    #: tpurt's staged-driver refinements (ROADMAP A.5); ignored.
+    #: The staged drivers' steps: re-trace a quota batch's incomplete
+    #: pixels as a P = 1 tail batch; as cascading list-quota levels
+    #: instead; replay a recorded plan without host reads of the live
+    #: counts.
     mega_tail_respread: bool = True
     mega_cascade: bool = True
     mega_speculative: bool = True

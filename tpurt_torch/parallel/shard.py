@@ -181,7 +181,9 @@ def render_frame_sharded(
                          "torch.distributed group")
 
     local_spp = cfg.rays_per_pixel // n_sample
-    lcfg = cfg.replace(rays_per_pixel=local_spp)
+    # Plain launches only, as tpurt's sharded paths run (its staged
+    # driver needs host reads between a batch's stages).
+    lcfg = cfg.replace(rays_per_pixel=local_spp, compaction_threshold=0)
     flat = (cfg.engine == "mega" and cfg.rays_per_batch > 0
             and cfg.max_bounces > 0)
     if flat:

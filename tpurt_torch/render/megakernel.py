@@ -1059,6 +1059,13 @@ def run_plain(lane: _Lane, ctx: _Ctx, max_iterations: Optional[int]) -> _Lane:
 # Driver
 # ---------------------------------------------------------------------------
 
+#: Loop runs of ``run_megakernel`` that returned: one kernel launch each
+#: on the card ("cuda"), one plain loop each on any device ("plain"),
+#: counted after the run, so a run that raised is not. The bench counts a
+#: frame's runs with it, on the card and on the CPU alike; the launch
+#: sites' own counts are ``mega_cuda.LAUNCHES`` and its siblings.
+RUNS = 0
+
 
 def run_megakernel(
     scene: Scene,
@@ -1143,17 +1150,16 @@ def run_megakernel(
         scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
         max_bounces, seed_mode, invisible_budget, sample_offset, camera,
         width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
-        frames_per_batch, cameras, subpixel_jitter, pixel_list,
-        None if initial_state is None else initial_state.lane0,
+        frames_per_batch, cameras, subpixel_jitter, pixel_list, initial_state,
     )
-    if initial_state is not None:
-        lane = initial_state
     if body_backend == "cuda":
         from tpurt_torch.render import mega_cuda
 
         final = mega_cuda.run(lane, ctx, max_iterations)
     else:
         final = run_plain(lane, ctx, max_iterations)
+    global RUNS
+    RUNS += 1
     if return_state:
         return final
     return finish(final, ctx)
@@ -1165,13 +1171,17 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             width: int = 0, height: int = 0, pixels_per_lane: int = 1,
             pixel_stride: Optional[int] = None, tail_passes: int = 1,
             dense: bool = False, frames_per_batch: int = 1, cameras=None,
-            subpixel_jitter: bool = False, pixel_list=None, lane0=None):
-    """The shared setup of both backends -> (fresh lane state, loop
+            subpixel_jitter: bool = False, pixel_list=None,
+            initial_state: Optional[_Lane] = None):
+    """The shared setup of both backends -> (lane state, loop
     invariants): chain and root tables (the dense sweep's table in
     brute-force mode, where no root expands), quota slot directions (and
-    in a cross-frame pack or a list quota the slot pixels, the latter
-    from ``lane0``, a resumed state's batch indices, when given), and
-    lanes seeded by the static stage and entered at chain entry 0."""
+    in a cross-frame pack or a list quota the slot pixels), and fresh
+    lanes seeded by the static stage and entered at chain entry 0 — or,
+    for a resumed run, ``initial_state`` itself. A resumed state may be a
+    compacted subset of the batch it started in: ``pixel_index`` is then
+    each lane's slot-0 pixel and ``pixel_stride`` the batch's width, and
+    a list quota's slot pixels come from the state's ``lane0``."""
     if not isinstance(ro0, V3):
         ro0 = v3lib.from_rows(ro0)
     if not isinstance(rd0, V3):
@@ -1264,9 +1274,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             # List quota: slot k's pixel is pixel_list[min(lane0 +
             # k*stride, N-1)]; row 0 (slot 0) is never read.
             plist = torch.as_tensor(pixel_list, device=dev).to(torch.int64)
-            if lane0 is None:
-                lane0 = torch.arange(r, dtype=_I32, device=dev)
-            l0 = lane0.to(torch.int64)
+            l0 = (torch.arange(r, device=dev) if initial_state is None
+                  else initial_state.lane0.to(torch.int64))
             pix_tab = torch.stack([
                 plist[torch.clamp_max(l0 + k * stride, plist.shape[0] - 1)]
                 for k in range(p_count)]) & 0xFFFFFFFF
@@ -1276,6 +1285,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
         ctx = ctx._replace(slot_rd=v3lib.from_rows(
             torch.stack(rows).contiguous()))
+    if initial_state is not None:
+        return initial_state, ctx
     pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
     lane = _initial_lane(ctx, ro0, rd0, pix)
     if list_mode:

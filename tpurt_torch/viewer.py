@@ -226,13 +226,15 @@ class ViewerSession:
         """Dispatch one whole-frame pass's device work WITHOUT reading
         it back (the radiance batch buffers stay on the device); None
         when the flat mega fast path does not apply (caller falls back to
-        the sequential render_pass). The port runs plain flat batches
-        whatever compaction_threshold says, so it does not gate this."""
+        the sequential render_pass), as when a compaction threshold is
+        set: the staged driver reads live counts on the host between
+        stages."""
         cfg = self.cfg
         fast = (
             cfg.engine == "mega" and cfg.rays_per_batch > 0
             and cfg.max_bounces > 0
             and not (cfg.sample_flatten and cfg.rays_per_pixel > 1)
+            and not cfg.compaction_threshold
         )
         if not fast:
             return None
