@@ -191,6 +191,20 @@ Phases (each raises on failure, so any failure exits nonzero):
    20's CLI frames (512x512 at a quota of 8: 32,768 lanes) run through
    the staged driver too, as tpurt's do, and are timed in turns against
    the plain schedule.
+24. tpurt's last public helpers on the card against the CPU, on the same
+   seeded inputs (65,536 rows): the AoS vector math (cross3, length3,
+   lerp3, reflect, refract, fresnel_reflectance, rotate), hsv2rgb and
+   to_rgba bit for bit; random_hemisphere_direction,
+   sample_hemisphere_cosine and random_direction_masked with their
+   states bit for bit (a masked lane's state unchanged) and directions
+   within 4 ulp at unit scale (log, cos and sin round differently on the
+   two devices). A freshly built bunny BVH (assets/blob69k.obj in the
+   Cornell box, as ``bench_scene`` builds it, not frozen again):
+   ``validate_bvh`` over the triangles of phase 4's scene, frozen on the
+   card, ``SceneBuilder.stats`` equal to ``bvh_stats``, that scene's
+   ``num_nodes`` equal to the builder's node count. A procedural torus knot written
+   from CUDA tensors by ``write_obj`` to a temporary directory reads back
+   through ``load_obj`` bit for bit. No kernel runs here.
 
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
@@ -2646,6 +2660,109 @@ def respread_tail(scene, cam, cfg, plan):
     raise AssertionError(f"the plan {steps} has no respread tail")
 
 
+def phase24(bunny):
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpurt_torch.accel import bvh_stats, validate_bvh
+    from tpurt_torch.core import rng, vecmath as vm
+    from tpurt_torch.render.tonemap import to_rgba
+    from tpurt_torch.scene import SceneBuilder
+    from tpurt_torch.scene.obj import load_obj, write_obj
+    from tpurt_torch.scene.presets import BUNNY_OBJ
+    from tpurt_torch.scene.procedural import torus_knot
+
+    assert bunny.device.type == "cuda"
+    n = 1 << 16
+    r = np.random.default_rng(24)
+    a, b, hsv = (r.standard_normal((n, 3)).astype(np.float32) for _ in range(3))
+    d = a / np.linalg.norm(a, axis=-1, keepdims=True)
+    nrm = b / np.linalg.norm(b, axis=-1, keepdims=True)
+    nrm = np.where((np.sum(d * nrm, -1) > 0)[:, None], -nrm, nrm)
+    nrm[:256] = (0.0, 0.0, 1.0)  # the hemisphere's other up vector
+    cpu = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in dict(
+        a=a, b=b, d=d.astype(np.float32), n=nrm.astype(np.float32),
+        t=r.random(n, dtype=np.float32),
+        ia=r.uniform(1.0, 2.0, n).astype(np.float32),
+        ib=r.uniform(1.0, 2.0, n).astype(np.float32),
+        h=hsv[:, 0] * np.float32(300.0), s=np.abs(hsv[:, 1]) - np.float32(0.2),
+        v=np.abs(hsv[:, 2]), u8=r.integers(0, 256, (n, 3), dtype=np.uint8),
+        seed=r.integers(0, 2 ** 32, n, dtype=np.int64),
+        mask=np.arange(n) % 3 == 0).items()}
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    m = vm.euler_rotation(0.3, -1.2, 2.0)
+    exact = {
+        "cross3": lambda x: vm.cross3(x["a"], x["b"]),
+        "length3": lambda x: vm.length3(x["a"]),
+        "lerp3": lambda x: vm.lerp3(x["a"], x["b"], x["t"]),
+        "reflect": lambda x: vm.reflect(x["d"], x["n"]),
+        "refract": lambda x: vm.refract(x["d"], x["n"], x["ia"], x["ib"]),
+        "fresnel_reflectance": lambda x: vm.fresnel_reflectance(
+            x["d"], x["n"], x["ia"], x["ib"]),
+        "rotate": lambda x: vm.rotate(m, x["a"]),
+        "hsv2rgb": lambda x: vm.hsv2rgb(x["h"], x["s"], x["v"]),
+        "to_rgba": lambda x: to_rgba(x["u8"]),
+    }
+    for name, fn in exact.items():
+        want, got = fn(cpu), fn(gpu)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: the card's result is not the CPU's")
+    draws = {
+        "random_hemisphere_direction": lambda x: rng.random_hemisphere_direction(
+            x["n"], x["seed"]),
+        "sample_hemisphere_cosine": lambda x: rng.sample_hemisphere_cosine(
+            x["n"], x["seed"]),
+        "random_direction_masked": lambda x: rng.random_direction_masked(
+            x["seed"], x["mask"]),
+    }
+    errs = {}
+    for name, fn in draws.items():
+        (s_cpu, d_cpu), (s_gpu, d_gpu) = fn(cpu), fn(gpu)
+        errs[name] = float((d_gpu.cpu() - d_cpu).abs().max()) / 2.0 ** -23
+        if not torch.equal(s_gpu.cpu(), s_cpu) or errs[name] > 4:
+            raise AssertionError(f"{name}: states differ or directions "
+                                 f"{errs[name]:.2f} ulp apart")
+    keep = ~cpu["mask"]
+    if not torch.equal(draws["random_direction_masked"](gpu)[0].cpu()[keep],
+                       cpu["seed"][keep]):
+        raise AssertionError("random_direction_masked moved a masked lane")
+    log(f"helpers: {len(exact)} bit for bit on {n} rows; directions "
+        + ", ".join(f"{k} {v:.2f}" for k, v in errs.items())
+        + " ulp at unit scale apart, states equal")
+
+    # A fresh builder, as bench_scene("bunny") builds it up to the freeze:
+    # its BVH and node count against phase 4's scene, frozen on the card.
+    t0 = time.time()
+    builder = SceneBuilder()
+    mesh = builder.load_obj(BUNNY_OBJ)
+    mesh.scale = 0.5
+    builder.add_cornell_box(mesh)
+    builder.add_mesh(mesh)
+    tris = torch.stack([bunny.tri_pos_a, bunny.tri_pos_b, bunny.tri_pos_c],
+                       1).cpu().numpy()
+    validate_bvh(builder.nodes, mesh.node_idx, mesh.first_tri, mesh.num_tris,
+                 tris)
+    stats = builder.stats(mesh)
+    if stats != bvh_stats(builder.nodes, mesh.node_idx) or (
+            bunny.num_nodes != len(builder.nodes)):
+        raise AssertionError(f"bunny BVH: stats {stats}, {bunny.num_nodes} "
+                             f"nodes against {len(builder.nodes)}")
+    log(f"bunny BVH: {mesh.num_tris} triangles, {bunny.num_nodes} scene nodes, "
+        f"{stats}; valid over the frozen scene's triangles; built and checked "
+        f"in {time.time() - t0:.1f} s")
+
+    pos, nrm_k = torus_knot(segments=64, sides=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "knot.obj")
+        write_obj(path, torch.from_numpy(pos).cuda(), torch.from_numpy(nrm_k).cuda())
+        back = load_obj(path)
+    if not (np.array_equal(back[0], pos) and np.array_equal(back[1], nrm_k)):
+        raise AssertionError("write_obj -> load_obj: the knot did not round-trip")
+    log(f"write_obj -> load_obj: {len(pos)} triangles round-trip bit for bit")
+
+
 def main():
     global CARD
     import torch
@@ -2696,6 +2813,7 @@ def main():
     timed(phase21, bunny, b1)
     timed(phase22, bunny)
     b1_staged = timed(phase23, bunny)
+    timed(phase24, bunny)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -44,10 +44,11 @@ from tpurt.scene.builder import SceneBuilder as TBuilder
 from tpurt.scene.presets import cornell_sphere_scene as t_cornell
 from tpurt.scene.types import MaterialType as TMT
 from tpurt_torch.core.v3 import V3
+from tpurt_torch.core.vecmath import cross3
 from tpurt_torch.render import mega_cuda
 from tpurt_torch.render import megakernel as mk
 from tpurt_torch.render import plucker_fused
-from tpurt_torch.render.plucker import component_rows, cross3
+from tpurt_torch.render.plucker import component_rows
 from tpurt_torch.render.renderer import flat_batch_args, render_frame
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder

@@ -13,7 +13,10 @@ runs a bench row through tpurt_torch.bench.run_config, renders a frame
 over a two-position mesh through parallel.shard, and
 runs ``cli.main(["--cpu", ...])`` on the default scene and on a JSON scene;
 and no module of the port, nor chip_smoke.py, imports jax, flax or any
-module of tpurt."""
+module of tpurt. The blocked interpreter imports tpurt_torch.accel, .core
+and .render first (importing them loads no kernel builder) and calls a
+helper of each of vecmath, rng, accel.bvh, SceneBuilder.stats, Scene,
+tonemap and scene.obj."""
 
 import os
 import re
@@ -26,6 +29,8 @@ import sys
 sys.path.insert(0, {root!r})
 for blocked in ("jax", "flax", "tpurt"):
     sys.modules[blocked] = None  # any import of these now raises ImportError
+import tpurt_torch.accel, tpurt_torch.core, tpurt_torch.render
+assert "tpurt_torch._build" not in sys.modules  # importing builds nothing
 from tpurt_torch.config import RenderConfig
 from tpurt_torch.render.renderer import render_image
 from tpurt_torch.scene.presets import cornell_sphere_scene
@@ -38,6 +43,32 @@ for engine in ("mega", "modular"):
                                                dense_engine="pallas"))
     assert img.shape == (8, 8, 3) and str(img.dtype) == "uint8", img.shape
     assert (img > 0).any()
+import tempfile
+import numpy as np
+import torch
+from tpurt_torch.accel import (  # noqa: F401
+    BVHNodes, build_bvh, bvh_stats, thread_links, validate_bvh)
+from tpurt_torch.core import Camera, make_camera_rays, rng, vecmath  # noqa: F401
+from tpurt_torch.render import (  # noqa: F401
+    Hit, intersect_scene, render_frame, render_tile, trace_paths)
+from tpurt_torch.render.tonemap import to_rgba
+from tpurt_torch.scene import SceneBuilder
+from tpurt_torch.scene.obj import load_obj, write_obj
+from tpurt_torch.scene.procedural import icosphere
+assert vecmath.hsv2rgb(120.0, 1.0, 1.0, device="cpu").tolist() == [0, 1, 0]
+up = torch.tensor([[0.0, 0.0, 1.0]])
+_, d = rng.sample_hemisphere_cosine(up, rng.make_seed(torch.arange(1), 0, 0))
+assert float(d[0, 2]) >= 0.0
+builder = SceneBuilder()
+pos, nrm = icosphere(1)
+mesh = builder.add_triangles(pos, nrm)
+assert builder.stats(mesh) == bvh_stats(builder.nodes, mesh.node_idx)
+validate_bvh(builder.nodes, mesh.node_idx, 0, len(pos), pos)
+assert scene.num_nodes == scene.node_min.shape[0]
+assert to_rgba(torch.from_numpy(img))[..., 3].eq(255).all()
+with tempfile.TemporaryDirectory() as d:
+    write_obj(d + "/m.obj", pos, torch.from_numpy(nrm))
+    assert np.array_equal(load_obj(d + "/m.obj")[0], pos)
 import tpurt_torch.config as config
 from tpurt_torch.scene.presets import grid_scene
 config.MEGA_BF16_BOUNDS = True
@@ -46,8 +77,6 @@ assert grid.mega_tlas and grid.mega_bounds_fmt == "bf16"
 img = render_image(grid, cam, cfg.replace(rays_per_pixel=1, max_bounces=2))
 assert img.shape == (8, 8, 3) and str(img.dtype) == "uint8", img.shape
 config.MEGA_BF16_BOUNDS = False
-import tempfile
-import numpy as np
 from tpurt_torch import anim
 from tpurt_torch.io import TileAccumulator, read_bmp
 with tempfile.TemporaryDirectory() as d:

@@ -13,6 +13,7 @@ packages build the same trees (src/readobj.hpp:96-267 semantics):
 
 ``thread_links`` adds the stackless depth-first threading the modular
 engine's walk follows (hit -> first child, miss / leaf done -> skip link).
+``bvh_stats`` and ``validate_bvh`` read a built tree on the host.
 """
 
 from __future__ import annotations
@@ -230,3 +231,70 @@ def thread_links(
                 stack.append((a + 1, exit_to))
                 stack.append((a, a + 1))
     return hit, miss
+
+
+def bvh_stats(nodes: BVHNodes, root: int) -> dict:
+    """PrintDebugBVH equivalent (readobj.hpp:175-204): leaf count,
+    internal count, average tris/leaf, max depth."""
+    leaves = internals = 0
+    tri_total = 0
+    max_depth = 0
+    stack = [(root, 1)]
+    while stack:
+        idx, depth = stack.pop()
+        if nodes.ntris[idx] > 0:
+            leaves += 1
+            tri_total += nodes.ntris[idx]
+            max_depth = max(max_depth, depth)
+        else:
+            internals += 1
+            stack.append((nodes.child[idx], depth + 1))
+            stack.append((nodes.child[idx] + 1, depth + 1))
+    return {
+        "leaf_count": leaves,
+        "internal_count": internals,
+        "avg_tris_per_leaf": tri_total / leaves if leaves else 0.0,
+        "max_depth": max_depth,
+        "max_leaf_tris": max(
+            (nodes.ntris[i] for i in _subtree(nodes, root)), default=0
+        ),
+    }
+
+
+def _subtree(nodes: BVHNodes, root: int):
+    stack = [root]
+    while stack:
+        idx = stack.pop()
+        yield idx
+        if nodes.ntris[idx] == 0:
+            stack.append(nodes.child[idx])
+            stack.append(nodes.child[idx] + 1)
+
+
+def validate_bvh(
+    nodes: BVHNodes, root: int, first_tri: int, num_tris: int, tri_pos: np.ndarray
+) -> None:
+    """Structural invariants used by the test suite: every triangle of
+    the range lands in exactly one leaf; child bounds nest in parents;
+    siblings are adjacent; leaf bounds contain their triangles."""
+    covered = np.zeros(num_tris, bool)
+    stack = [root]
+    while stack:
+        idx = stack.pop()
+        if nodes.ntris[idx] > 0:
+            f, n = nodes.first[idx], nodes.ntris[idx]
+            rel = np.arange(f - first_tri, f - first_tri + n)
+            assert (rel >= 0).all() and (rel < num_tris).all(), "leaf outside range"
+            assert not covered[rel].any(), "triangle in two leaves"
+            covered[rel] = True
+            verts = tri_pos[f : f + n]
+            assert (verts.min(axis=(0, 1)) >= nodes.bmin[idx] - 1e-4).all()
+            assert (verts.max(axis=(0, 1)) <= nodes.bmax[idx] + 1e-4).all()
+        else:
+            a = nodes.child[idx]
+            for c in (a, a + 1):
+                assert (nodes.bmin[c] >= nodes.bmin[idx] - 1e-4).all(), "child escapes"
+                assert (nodes.bmax[c] <= nodes.bmax[idx] + 1e-4).all(), "child escapes"
+            stack.append(a)
+            stack.append(a + 1)
+    assert covered.all(), "triangle in no leaf"

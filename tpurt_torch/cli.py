@@ -308,8 +308,8 @@ def _run(args) -> int:
     else:
         scene, camera, _ = default_scene(cfg, device)
     print(
-        f"Scene: {scene.num_triangles} triangles, {scene.node_min.shape[0]} "
-        f"BVH nodes, {scene.num_meshes} meshes"
+        f"Scene: {scene.num_triangles} triangles, {scene.num_nodes} BVH "
+        f"nodes, {scene.num_meshes} meshes"
     )
 
     live = sys.stderr.isatty()

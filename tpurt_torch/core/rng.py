@@ -124,6 +124,35 @@ def random_direction(state: torch.Tensor):
     return state, torch.stack([x, y, z], dim=-1)
 
 
+def random_hemisphere_direction(normal: torch.Tensor, state: torch.Tensor):
+    """Sign-flipped sphere sample (Trace.cl:202-207) -> (new_state, d)."""
+    from tpurt_torch.core.vecmath import dot3
+
+    state, d = random_direction(state)
+    return state, torch.where((dot3(d, normal) < 0.0)[..., None], -d, d)
+
+
+def sample_hemisphere_cosine(normal: torch.Tensor, state: torch.Tensor):
+    """Cosine-weighted hemisphere sample about ``normal`` (Trace.cl:238-257)
+    -> (new_state, unit (..., 3) direction)."""
+    from tpurt_torch.core.vecmath import cross3, normalize3
+
+    state, r1 = rand01(state)
+    state, r2 = rand01(state)
+    r = sqrt(r1)
+    phi = _TAU32 * r2
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = sqrt(torch.clamp_min(1.0 - r1, 0.0))
+    z_up = torch.tensor([0.0, 0.0, 1.0], device=normal.device)
+    x_up = torch.tensor([1.0, 0.0, 0.0], device=normal.device)
+    up = torch.where(normal[..., 2:3].abs() < 0.999, z_up, x_up)
+    t = normalize3(cross3(up, normal))
+    b = cross3(normal, t)
+    d = t * x[..., None] + b * y[..., None] + normal * z[..., None]
+    return state, normalize3(d)
+
+
 def random_value_masked(state, mask):
     new_state, x = random_value(state)
     return torch.where(mask, new_state, state), x
@@ -132,6 +161,11 @@ def random_value_masked(state, mask):
 def rand01_masked(state, mask):
     new_state, x = rand01(state)
     return torch.where(mask, new_state, state), x
+
+
+def random_direction_masked(state, mask):
+    new_state, d = random_direction(state)
+    return torch.where(mask, new_state, state), d
 
 
 def random_direction_masked_soa(state, mask):

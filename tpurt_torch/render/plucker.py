@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.config import EPSILON
+from tpurt_torch.core.vecmath import cross3
 
 _F32 = torch.float32
 _INF = float("inf")
@@ -50,13 +51,6 @@ class PluckerTable(NamedTuple):
     orient: torch.Tensor  # (Tpad,) f32 ±1 authored-normal vs winding sign
     tri_id: torch.Tensor  # (Tpad,) int64 global triangle id (-1 = pad)
     count: int
-
-
-def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
-                        ax * by - ay * bx], dim=-1)
 
 
 def _sum3(a: torch.Tensor) -> torch.Tensor:

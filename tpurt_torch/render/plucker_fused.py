@@ -39,7 +39,8 @@ import torch
 
 from tpurt_torch.config import EPSILON
 from tpurt_torch.core.v3 import V3
-from tpurt_torch.render.plucker import component_rows, cross3, orientation
+from tpurt_torch.core.vecmath import cross3
+from tpurt_torch.render.plucker import component_rows, orientation
 from tpurt_torch.scene.types import MaterialType, Scene
 
 _F32 = torch.float32

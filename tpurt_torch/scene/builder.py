@@ -30,7 +30,7 @@ import torch
 from tpurt_torch import _native
 from tpurt_torch import config as cfgmod
 from tpurt_torch.accel.bvh import (
-    DEFAULT_LEAF_CAP, BVHNodes, build_bvh, thread_links)
+    DEFAULT_LEAF_CAP, BVHNodes, build_bvh, bvh_stats, thread_links)
 from tpurt_torch.config import CORNELL_BREATHING_ROOM
 from tpurt_torch.scene.obj import load_obj as _load_obj_file
 from tpurt_torch.scene.obj import parse_obj
@@ -791,3 +791,7 @@ class SceneBuilder:
             mesh_mat_slot=tuple(mesh_mat_slot),
             mat_slot_rep=tuple(mat_slot_rep),
         )
+
+    def stats(self, handle: MeshHandle) -> dict:
+        """bvh_stats of the mesh's BVH (PrintDebugBVH)."""
+        return bvh_stats(self.nodes, handle.node_idx)

@@ -15,6 +15,7 @@ import sys
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def parse_obj(text: str, warn=None) -> Tuple[np.ndarray, np.ndarray]:
@@ -74,3 +75,28 @@ def parse_obj(text: str, warn=None) -> Tuple[np.ndarray, np.ndarray]:
 def load_obj(path: str, warn=None) -> Tuple[np.ndarray, np.ndarray]:
     with open(path, "r") as f:
         return parse_obj(f.read(), warn=warn)
+
+
+def _host_tris(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32).reshape(-1, 3, 3)
+
+
+def write_obj(path: str, pos, nrm) -> None:
+    """Write a triangle soup (numpy arrays or tensors, (T, 3, 3)) as OBJ:
+    every vertex and normal at ``%.9g``, one ``f a//a b//b c//c`` face
+    per triangle; the same bytes as tpurt's write_obj."""
+    pos, nrm = _host_tris(pos), _host_tris(nrm)
+    lines = []
+    for tri in pos:
+        for v in tri:
+            lines.append(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}")
+    for tri in nrm:
+        for n in tri:
+            lines.append(f"vn {n[0]:.9g} {n[1]:.9g} {n[2]:.9g}")
+    for i in range(len(pos)):
+        a, b, c = 3 * i + 1, 3 * i + 2, 3 * i + 3
+        lines.append(f"f {a}//{a} {b}//{b} {c}//{c}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

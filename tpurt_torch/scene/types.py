@@ -136,6 +136,10 @@ class Scene:
         return self.tri_pos_a.shape[0]
 
     @property
+    def num_nodes(self) -> int:
+        return self.node_index.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.mega_rows.device
 
