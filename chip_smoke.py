@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py                # from the repository root, one card
     python3 chip_smoke.py --b3-public    # B3's parity launches and frames only
-    python3 chip_smoke.py --b1-public    # B1's headline batch only
+    python3 chip_smoke.py --b1-public    # B1's batches and the headline row only
+    python3 chip_smoke.py --b1-turns DIR # the same in DIR (an older tree)
+                                         # and here, in turns
     python3 chip_smoke.py --tuned-vs-shipped  # the card's autotune cache
                                               # against the shipped knobs
 
@@ -209,9 +211,14 @@ Phases (each raises on failure, so any failure exits nonzero):
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
 ``render_image`` and read just after. ``--b1-public`` builds B1 alone
-and times the bunny-1080p batch through ``mega_cuda.launch`` on the
-device (16 trips, then to completion), calls every version of the port
-has, so the same script times an earlier tree's headline kernel.
+and times its batches on the main paths through ``mega_cuda.launch`` on
+the device (bunny-1080p: 16 trips and to completion; its jitter and
+packed forms, grid-64 TLAS, deep-stack-256, the dense teapot and the
+staged respread tail, to completion) and the headline ladder row, with
+calls every version of the port with the staged drivers has, so the script
+times an earlier tree's B1; ``--b1-turns DIR`` copies the script into
+the unpacked older tree DIR and runs ``--b1-public`` there and here in
+turns.
 ``--b3-public`` builds B3 alone
 and times it through the public entry ``mt_sweep.mt_sweep`` on phase
 9's full-width rays and on the parity frame's launches (rebuilt from
@@ -393,6 +400,8 @@ def phase2():
             if any(k in line for k in ("entry function", "registers", "spill",
                                        "stack frame")):
                 log(f"  ptxas {name}:", line.strip())
+    for name in names[:2]:
+        log_sass_memory(name, _build.lib_path(name))
 
 
 def log_depth(name, scene):
@@ -401,7 +410,7 @@ def log_depth(name, scene):
 
     words = 2 * scene.mega_stack_depth
     where = ("global memory (deep-stack instantiation)"
-             if words > mega_cuda.MAX_REGISTER_STACK else "the lane's array")
+             if words > mega_cuda.MAX_SHARED_STACK else "a shared-memory ring")
     log(f"{name}: mega_stack_depth {scene.mega_stack_depth}, {words} stack "
         f"words a lane in {where}")
 
@@ -575,13 +584,14 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
         full.extend(ms)
     launch = mega_cuda.launch_config(ctx.dense is not None, tlas=ctx.tlas,
                                      bf16=ctx.bf16, deep=mega_cuda.deep_stack(ctx),
-                                     jitter=ctx.jitter)
+                                     jitter=ctx.jitter, s_depth=ctx.s_depth)
     blocks = min(launch["blocks_per_sm"] * launch["sms"],
                  -(-r // launch["threads"]))
     log(f"{label} persistent launch: {blocks} blocks x {launch['threads']} "
         f"threads ({launch['blocks_per_sm']} resident per SM x {launch['sms']} "
-        f"SMs = {launch['resident_lanes']} resident lanes) for {r} lanes, "
-        f"{r / (blocks * launch['threads']):.2f} lanes per thread")
+        f"SMs = {launch['resident_lanes']} resident lanes, "
+        f"{launch['smem_bytes']} bytes of dynamic shared memory a block) for "
+        f"{r} lanes, {r / (blocks * launch['threads']):.2f} lanes per thread")
     log(f"{label} batch to completion: kernel ms {full}, {int(trips.max())} "
         f"trips for the slowest lane, mean {float(trips.float().mean()):.2f}, "
         f"{int(trips.long().sum())} lane trips | {CARD}")
@@ -1040,12 +1050,10 @@ def time_b3_public(scene, launches, what: str, reps: int = 5) -> float:
     return total
 
 
-def sass_summary(lib: str) -> dict:
-    """{kernel entry: (instructions, sha1 of its opcode sequence)} of a
-    built library, from ``cuobjdump -sass``: two builds whose opcode
-    sequences hash alike run the same instructions, whatever registers
-    and parameter offsets they use."""
-    import hashlib
+def sass_opcodes(lib: str) -> dict:
+    """{kernel entry: [opcode, ...]} of a built library, from
+    ``cuobjdump -sass``; a megakernel entry is named by its template
+    arguments (``megakernel<kDense,kTlas,kBf16,kDeep>``, 0/1)."""
     import re
 
     from tpurt_torch import _build
@@ -1057,40 +1065,171 @@ def sass_summary(lib: str) -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1)
+            t = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            fn = f"megakernel<{','.join(t.groups())}>" if t else m.group(1)
             ops[fn] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if fn and m:
             ops[fn].append(m.group(1))
+    return ops
+
+
+def sass_summary(lib: str) -> dict:
+    """{kernel entry: (instructions, sha1 of its opcode sequence)} of a
+    built library: two builds whose opcode sequences hash alike run the
+    same instructions, whatever registers and parameter offsets they
+    use."""
+    import hashlib
+
     return {f: (len(o), hashlib.sha1(" ".join(o).encode()).hexdigest()[:12])
-            for f, o in ops.items()}
+            for f, o in sass_opcodes(lib).items()}
+
+
+#: The memory instructions ``sass_memory`` counts: local loads and stores
+#: (spills and local arrays), global loads (LDG; the row loads among
+#: them), shared loads and stores, and generic loads and stores.
+SASS_MEMORY = ("LDL", "STL", "LDG", "LDS", "STS", "LD", "ST")
+
+
+def sass_memory(lib: str) -> dict:
+    """{kernel entry: {opcode: static count}} of ``SASS_MEMORY`` in a
+    built library's SASS, and of the 128-bit global loads (``LDG.128``)."""
+    out = {}
+    for fn, ops in sass_opcodes(lib).items():
+        base = [op.split(".")[0] for op in ops]
+        n = {k: base.count(k) for k in SASS_MEMORY}
+        n["LDG.128"] = sum(op.startswith("LDG") and ".128" in op for op in ops)
+        out[fn] = n
+    return out
+
+
+def log_sass_memory(name: str, lib: str):
+    for fn, n in sass_memory(lib).items():
+        log(f"  SASS {name} {fn}: " + ", ".join(f"{k} {v}" for k, v in n.items()))
+
+
+def b1_batch_inputs():
+    """[(batch, scene, lane state, context, trips)] of B1's batches on the
+    port's main paths, each from its first lane state: bunny-1080p-plain's
+    batch (its first 16 trips, and to completion), its jitter and packed
+    F = 2 forms, grid-64-720p-tlas, deep-stack-256, teapot-720p-bruteforce
+    (the dense instantiation) and the staged bunny-1080p-bvh frame's
+    respread tail. Calls that every version of the port with the staged
+    drivers has."""
+    from tpurt_torch.render import megakernel as mk
+    from tpurt_torch.render import renderer as R
+    from tpurt_torch.render.renderer import flat_batch_args, render_frame
+    from tpurt_torch.scene.presets import (PROBE_MATERIAL, bench_scene,
+                                           deep_stack_scene, grid_scene)
+
+    out = []
+
+    def add(name, scene, args, trips=None):
+        lane, ctx = mk.prepare(scene, **args)
+        out.append((name, scene, lane, ctx, trips))
+
+    cfg = bunny_cfg(1920, 1080)
+    bunny, cam = bunny_scene(cfg)
+    add("bunny 16 trips", bunny, flat_batch_args(bunny, cam, cfg, 0), 16)
+    add("bunny", bunny, flat_batch_args(bunny, cam, cfg, 0))
+    jcfg = cfg.replace(subpixel_jitter=True)
+    add("bunny jitter", bunny, flat_batch_args(bunny, cam, jcfg, 0))
+    pcfg = cfg.replace(mega_frames_per_batch=2)
+    add("bunny packed F = 2", bunny, flat_batch_args(bunny, cam, pcfg, 0, frames=2))
+    gcfg = grid_cfg(1280, 720, rays_per_batch=230400)
+    grid = grid_scene(64, subdivisions=1, materials=(PROBE_MATERIAL,), device="cuda")
+    add("grid-64 TLAS", grid, flat_batch_args(grid, grid_camera(1280, 720), gcfg, 0))
+    from tpurt_torch.config import RenderConfig
+
+    dcfg = RenderConfig(width=256, height=256, rays_per_pixel=2, max_bounces=3,
+                        pixels_per_lane=2, mega_tail_passes=2, tile_size=24)
+    deep, dcam = deep_stack_scene(dcfg, device="cuda")
+    add("deep-stack-256", deep, flat_batch_args(deep, dcam, dcfg, 0))
+    tcfg = teapot_cfg(1280, 720)
+    teapot, tcam = bench_scene("teapot", tcfg, device="cuda")
+    add("teapot dense", teapot, flat_batch_args(teapot, tcam, tcfg, 0))
+    scfg = ladder_cfg(1920, 1080, rays_per_pixel=8, max_bounces=4,
+                      compaction_threshold=32768)
+    scam = camera_for(scfg)
+    clear_plans()
+    render_frame(bunny, scam, scfg)
+    tail_w, pixpack = respread_tail(bunny, scam, scfg, plan_of())
+    targs = dict(R._mega_statics(scfg, bunny), pixel_index=pixpack[:tail_w],
+                 frame_index=0, sample_offset=0, camera=scam)
+    del targs["body_backend"]
+    targs["ro0"], targs["rd0"] = R._rays_of(scam, targs["pixel_index"],
+                                            scfg.width, scfg.height)
+    add("staged respread tail", bunny, targs)
+    return out
 
 
 def b1_public_main():
-    """``--b1-public``: the bunny-1080p batch through B1's public entry,
-    16 trips and to completion, best of 5 and of 3 on the device; the
-    SASS of each megakernel instantiation (``sass_summary``)."""
-    from tpurt_torch import _build
+    """``--b1-public``: B1's batches (``b1_batch_inputs``) through its
+    public entry ``mega_cuda.launch``, best of 3 on the device; the
+    headline ladder row (``bench.run_config`` on bunny-1080p-plain
+    packed F = 2); the SASS of each megakernel instantiation
+    (``sass_summary``, ``sass_memory``). The last line is JSON."""
+    from tpurt_torch import _build, bench
     from tpurt_torch.render import mega_cuda
-    from tpurt_torch.render import megakernel as mk
-    from tpurt_torch.render.renderer import flat_batch_args
 
-    _build.build_all(["megakernel", "tpurt_native"])
-    for fn, (n, digest) in sass_summary(_build.lib_path("megakernel")).items():
-        log(f"B1 SASS {fn}: {n} instructions, opcode sequence {digest}")
-    cfg = bunny_cfg(1920, 1080)
-    scene, cam = bunny_scene(cfg)
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
-    buf0 = mega_cuda.pack(lane)
-    for trips, reps in ((16, 5), (None, 3)):
+    _build.build_all(["megakernel", "megakernel_jitter", "tpurt_native"])
+    for name in ("megakernel", "megakernel_jitter"):
+        lib = _build.lib_path(name)
+        for fn, (n, digest) in sass_summary(lib).items():
+            log(f"B1 SASS {name} {fn}: {n} instructions, opcode sequence {digest}")
+        log_sass_memory(name, lib)
+    batches = {}
+    for name, _scene, lane, ctx, trips in b1_batch_inputs():
+        buf0 = mega_cuda.pack(lane)
         mega_cuda.launch(buf0.clone(), ctx, trips)  # warm-up
-        bufs = [buf0.clone() for _ in range(reps)]
-        it = iter(bufs)
-        _out, ms = device_ms(lambda: mega_cuda.launch(next(it), ctx, trips), reps)
-        log(f"B1 public entry, bunny-1080p batch, "
-            f"{'16 trips' if trips else 'to completion'}: device ms "
+        bufs = iter([buf0.clone() for _ in range(3)])
+        _out, ms = device_ms(lambda: mega_cuda.launch(next(bufs), ctx, trips), 3)
+        batches[name] = min(ms)
+        log(f"B1 public entry, {name} ({buf0.shape[1]} lanes): device ms "
             f"{[round(t, 3) for t in ms]} (best {min(ms):.3f}) | {CARD}")
+    row = bench.run_config("bunny-1080p-plain", "bunny", ladder_cfg(
+        1920, 1080, rays_per_pixel=8, max_bounces=4, mega_frames_per_batch=2),
+        repeats=2)
+    log(f"headline bunny-1080p-plain: {row['seconds'] * 1e3:.3f} ms a frame, "
+        f"{row['mrays']:.1f} Mrays/s | {CARD}")
+    print(json.dumps({"card": CARD, "b1_ms": batches,
+                      "headline": {"ms": row["seconds"] * 1e3, "mrays": row["mrays"]}}))
+
+
+def b1_turns_main(other: str):
+    """``--b1-turns DIR``: ``--b1-public`` in an unpacked older tree
+    ``DIR`` (this script copied into it) and in this one, in turns (older,
+    this, this, older), each in its own process; then each batch's and
+    the headline's times side by side."""
+    import shutil
+
+    shutil.copy(os.path.abspath(__file__), os.path.join(other, "chip_smoke.py"))
+    trees = {"parent": os.path.abspath(other), "change": ROOT}
+    runs = {k: [] for k in trees}
+    for k in ("parent", "change", "change", "parent"):
+        t = time.time()
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--b1-public"],
+                              cwd=trees[k], capture_output=True, text=True)
+        for line in proc.stdout.splitlines()[:-1]:
+            if "device ms" in line or "headline" in line:
+                log(f"  {k}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"--b1-public in {trees[k]} failed:\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        runs[k].append(json.loads(proc.stdout.splitlines()[-1]))
+        log(f"{k} --b1-public: {time.time() - t:.1f} s")
+    for batch in runs["change"][0]["b1_ms"]:
+        vals = {k: [r["b1_ms"][batch] for r in v] for k, v in runs.items()}
+        log(f"B1 {batch} in turns, device ms best of 3: parent "
+            f"{[round(t, 3) for t in vals['parent']]}, change "
+            f"{[round(t, 3) for t in vals['change']]} | {CARD}")
+    for key in ("ms", "mrays"):
+        vals = {k: [r["headline"][key] for r in v] for k, v in runs.items()}
+        log(f"headline bunny-1080p-plain {key} in turns: parent "
+            f"{[round(t, 3) for t in vals['parent']]}, change "
+            f"{[round(t, 3) for t in vals['change']]} | {CARD}")
+    print(json.dumps({"card": CARD, "runs": runs}))
 
 
 def tuned_vs_shipped_main():
@@ -1718,8 +1857,8 @@ def phase16():
         "render_image of each frame")
     shutil.rmtree(out)
     dscene, dcam = deep_stack_scene(cfg, device="cuda")
-    # Its primary rays hold 67 entries after trip 34, past the register
-    # stack's 64: compared there, and with the budget cut to 66 words
+    # Its primary rays hold 67 entries after trip 34, past the shared
+    # ring's 64 words: compared there, and with the budget cut to 66 words
     # (still kDeep), where each of them drops its bottom entry. One
     # sample a pixel: the plain version takes a step per trip, and each
     # sample's walk down and back up the chain is ~140 trips.
@@ -1728,7 +1867,7 @@ def phase16():
     lane, ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, one, 0))
     held = int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max())
     lane, ctx = lane._replace(stack=lane.stack[:66]), ctx._replace(s_depth=66)
-    if held <= mega_cuda.MAX_REGISTER_STACK or not mega_cuda.deep_stack(ctx):
+    if held <= mega_cuda.MAX_SHARED_STACK or not mega_cuda.deep_stack(ctx):
         raise AssertionError(f"deep-stack-64 holds {held} entries")
     for k in (34, 100, None):
         buf = mega_cuda.pack(lane)
@@ -2777,6 +2916,10 @@ def main():
     if sys.argv[1:] == ["--b1-public"]:
         log("card:", CARD)
         b1_public_main()
+        return
+    if sys.argv[1:2] == ["--b1-turns"] and len(sys.argv) == 3:
+        log("card:", CARD)
+        b1_turns_main(sys.argv[2])
         return
     if sys.argv[1:] == ["--tuned-vs-shipped"]:
         log("card:", CARD)

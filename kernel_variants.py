@@ -4,14 +4,26 @@ against the shipped kernels on one CUDA card.
 
     python3 kernel_variants.py                # every kernel, one card
     python3 kernel_variants.py mt_sweep       # only csrc/mt_sweep.cu's
+    python3 kernel_variants.py megakernel --only=b1-stack-local --rounds=3
+                                              # named variants, 3 rounds
 
 A variant is a copy of csrc/megakernel.cu, csrc/dense_sweep.cu or
 csrc/mt_sweep.cu with one of its launch constants changed (threads a
 block, the least resident blocks per SM that ``__launch_bounds__`` asks
 for, a sweep's unroll factor; B3's rays a thread, rows a stage and most
-threads a ray set), or with the persistent grid replaced by one thread
-per lane ("grid": as many blocks as the lanes need, so that each thread
-runs one lane and no thread takes a second). Each is built with the
+threads a ray set), with the persistent grid replaced by one thread per
+lane ("grid": as many blocks as the lanes need, so that each thread
+runs one lane and no thread takes a second), with one element of B1's
+design taken back: its lanes' cold words in the state buffer or in
+registers instead of shared memory ("b1-cold-buffer", "b1-cold-regs";
+the dense instantiation's in the state buffer instead of registers,
+"dense-cold-buffer"), its shading and static stage compiled as calls
+("b1-rare-noinline"), its bank rows read with 32-bit loads instead of
+128-bit ones ("b1-scalar-rows"), its stack ring in a local-memory
+array instead of shared memory ("b1-stack-local"), or with
+warp-coherent stepping added ("b1-coherent": where a warp holds lanes
+at leaf rows and lanes elsewhere, it steps one class a pass, in turns;
+each lane's trips are unchanged). Each is built with the
 package's own nvcc flags beside the shipped library and swapped in for
 it while it runs, so the wrappers (``mega_cuda.launch``,
 ``sweep_entry_local``, ``mt_sweep.sweep``) run it unchanged. Workloads,
@@ -27,20 +39,25 @@ at full size:
   rows, and on one tile's 65,536 (chip_smoke.py's phase 9 inputs).
 
 The shipped build and its variants run in turns (in order, then in
-reverse), each timed on the card (``chip_smoke.device_ms``), best of the
-two; every variant's results (lane words, trips,
+reverse, ``--rounds`` times), each timed on the card
+(``chip_smoke.device_ms``), every time logged and the best kept; every
+variant's results (lane words, trips,
 work counts, columns and t) must equal the shipped build's word for
-word. ptxas's register and spill report and each megakernel variant's
-launch are printed, with every time beside the card's name and power
-limit. The last line is a JSON summary.
+word. ptxas's register and spill report, each megakernel build's static
+memory instructions (``chip_smoke.sass_memory``: LDL, STL, LDG, LDS,
+STS) and each megakernel variant's launch are printed, with every time
+beside the card's name and power limit. The last line is a JSON
+summary.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,26 +76,82 @@ def _const(name: str, old: int, new: int):
     return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
 
 
+def _set(name: str, new) -> tuple:
+    """A patch setting ``constexpr <type> name`` to ``new`` whatever its
+    shipped value."""
+    return (re.compile(rf"constexpr (int|bool|ColdAt) {name} = [^;]+;"),
+            lambda m: f"constexpr {m.group(1)} {name} = {new};")
 
 
-#: label -> (source, [(text, replacement), ...]); the shipped constants
-#: are kThreads 128 x kMinBlocks 9, kDenseThreads 256 x kDenseMinBlocks
-#: 4, kDenseSweepUnroll 1 (megakernel.cu), kUnroll 4 (dense_sweep.cu) and
-#: kThreads 128, kRays 4, kChunk 256, kMaxGroup 4, kUnroll 2, kMinBlocks 7,
-#: kWaves 4 (mt_sweep.cu); "b3-dettest-first" puts B3's det test back
+#: label -> (source, [(text or compiled pattern, replacement), ...]).
+#: B1's variants set its constants whatever their shipped values
+#: (``_set``), so "b1-min4" ... "b1-min10" (4 to 10 least resident
+#: blocks: 128 down to 48 registers) apply to the source before B1's
+#: redesign (kMinBlocks 9, a 64-entry stack array in local memory) and
+#: after it; "b1-stack22", the stack array cut to the bunny bank's 22
+#: words (the stack's footprint alone), only before. A variant whose
+#: text is not in the source is skipped with a line saying so: copy this
+#: file into an unpacked older tree to time that tree's variants. The
+#: shipped constants of the other sources: kUnroll 4 (dense_sweep.cu) and
+#: kThreads 128, kRays 4, kChunk 256, kMaxGroup 4, kUnroll 2, kMinBlocks
+#: 7, kWaves 4 (mt_sweep.cu); "b3-dettest-first" puts B3's det test back
 #: beside the pre-test, before the branch.
 VARIANTS = {
     "grid": (_MK, [_GRID]),
-    "b1-min8": (_MK, [_const("kMinBlocks", 9, 8)]),
-    "b1-min10": (_MK, [_const("kMinBlocks", 9, 10)]),
-    "b1-t64": (_MK, [_const("kThreads", 128, 64), _const("kMinBlocks", 9, 18)]),
-    "b1-t256": (_MK, [_const("kThreads", 128, 256), _const("kMinBlocks", 9, 4)]),
-    "dense-t128": (_MK, [_const("kDenseThreads", 256, 128),
-                         _const("kDenseMinBlocks", 4, 8)]),
-    "dense-min3": (_MK, [_const("kDenseMinBlocks", 4, 3)]),
-    "dense-min5": (_MK, [_const("kDenseMinBlocks", 4, 5)]),
-    "mk-unroll2": (_MK, [_const("kDenseSweepUnroll", 1, 2)]),
-    "mk-unroll4": (_MK, [_const("kDenseSweepUnroll", 1, 4)]),
+    "b1-stack22": (_MK, [("constexpr int kMaxStack = 64;",
+                          "constexpr int kMaxStack = 22;")]),
+    "b1-min4": (_MK, [_set("kMinBlocks", 4)]),
+    "b1-min5": (_MK, [_set("kMinBlocks", 5)]),
+    "b1-min6": (_MK, [_set("kMinBlocks", 6)]),
+    "b1-min7": (_MK, [_set("kMinBlocks", 7)]),
+    "b1-min8": (_MK, [_set("kMinBlocks", 8)]),
+    "b1-min10": (_MK, [_set("kMinBlocks", 10)]),
+    "b1-t64": (_MK, [_set("kThreads", 64), _set("kMinBlocks", 18)]),
+    "b1-t256": (_MK, [_set("kThreads", 256), _set("kMinBlocks", 4)]),
+    "b1-cold-buffer": (_MK, [_set("kColdAt", "kColdInBuffer")]),
+    "b1-cold-regs": (_MK, [_set("kColdAt", "kColdInRegisters")]),
+    "dense-cold-buffer": (_MK, [_set("kDenseColdAt", "kColdInBuffer")]),
+    "b1-rare-noinline": (_MK, [(
+        "#define TPURT_MK_RARE __device__ __forceinline__",
+        "#define TPURT_MK_RARE __device__ __noinline__")]),
+    "b1-scalar-rows": (_MK, [(
+        "{ return __ldg(p); }",
+        "{\n  const float* f = reinterpret_cast<const float*>(p);\n"
+        "  return make_float4(__ldg(f), __ldg(f + 1), __ldg(f + 2), __ldg(f + 3));\n}")]),
+    "b1-coherent": (_MK, [(
+        """      int trips = 0;
+      do {
+        const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
+        trip_tail<kTlas>(x, L, in_chain);
+        ++trips;
+      } while (!L.done && trips < c.max_trips);""",
+        """      int trips = 0;
+      bool last_leaf = false;
+      do {
+        const bool at_leaf = E > 0 && L.entry < E && L.cur >= 0 && L.cur_leaf;
+        const unsigned active = __activemask();
+        const unsigned leaves = __ballot_sync(active, at_leaf);
+        const bool step_leaves =
+            leaves != 0 && leaves != active ? !last_leaf : leaves != 0;
+        last_leaf = step_leaves;
+        if (at_leaf == step_leaves) {
+          const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
+          trip_tail<kTlas>(x, L, in_chain);
+          ++trips;
+        }
+      } while (!L.done && trips < c.max_trips);""")]),
+    "b1-stack-local": (_MK, [
+        ("uint32_t* ring = dyn + tid;",
+         "uint32_t local_ring[kMaxSharedStack];\n  uint32_t* ring = local_ring;"),
+        ("Lane<kDeep, T> L;", "Lane<kDeep, 1> L;"),
+        ("return (deep ? 0 : s_depth) +", "return 0 * s_depth * deep +"),
+        ("uint32_t* cold_rows = dyn + (kDeep ? 0 : c.s_depth) * T + tid;",
+         "uint32_t* cold_rows = dyn + tid;")]),
+    "dense-t128": (_MK, [_set("kDenseThreads", 128), _set("kDenseMinBlocks", 8)]),
+    "dense-min3": (_MK, [_set("kDenseMinBlocks", 3)]),
+    "dense-min5": (_MK, [_set("kDenseMinBlocks", 5)]),
+    "mk-unroll2": (_MK, [_set("kDenseSweepUnroll", 2)]),
+    "mk-unroll4": (_MK, [_set("kDenseSweepUnroll", 4)]),
     "sweep-unroll1": (_SW, [_const("kUnroll", 4, 1)]),
     "sweep-unroll2": (_SW, [_const("kUnroll", 4, 2)]),
     "sweep-unroll8": (_SW, [_const("kUnroll", 4, 8)]),
@@ -102,18 +175,33 @@ VARIANTS = {
 }
 
 
-def build_variant(label: str) -> tuple:
-    """Compile the variant's patched copy of its source; returns (library
-    path, ptxas's register and spill lines)."""
+def patched(label: str):
+    """The variant's patched copy of its source, or None where a patch's
+    text is not once in the source (a variant of another version)."""
     from tpurt_torch import _build
 
     name, patches = VARIANTS[label]
     with open(os.path.join(_build.CSRC, name + ".cu")) as f:
         src = f.read()
     for old, new in patches:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{label}: {old!r} is not once in {name}.cu")
-        src = src.replace(old, new)
+        if isinstance(old, str):
+            if src.count(old) != 1:
+                return None
+            src = src.replace(old, new)
+        else:
+            if len(old.findall(src)) != 1:
+                return None
+            src = old.sub(new, src)
+    return src
+
+
+def build_variant(label: str) -> tuple:
+    """Compile the variant's patched copy of its source; returns (library
+    path, ptxas's register and spill lines)."""
+    from tpurt_torch import _build
+
+    name, _patches = VARIANTS[label]
+    src = patched(label)
     out_dir = os.path.join(_build.BUILD_DIR, "variants", label)
     os.makedirs(out_dir, exist_ok=True)
     cu, lib = os.path.join(out_dir, name + ".cu"), os.path.join(out_dir, f"lib{name}.so")
@@ -197,11 +285,15 @@ def workloads(sources):
                 buf = buf0.clone()
                 return (buf, *mega_cuda.launch(buf, ctx, trips))
 
-            def info(dense=ctx.dense is not None, r=buf0.shape[1]):
-                c = mega_cuda.launch_config(dense)
+            def info(dense=ctx.dense is not None, r=buf0.shape[1], depth=ctx.s_depth):
+                # An older tree's launch_config takes no stack budget.
+                kw = ({"s_depth": depth} if "s_depth" in inspect.signature(
+                    mega_cuda.launch_config).parameters else {})
+                c = mega_cuda.launch_config(dense, **kw)
                 blocks = min(c["blocks_per_sm"] * c["sms"], -(-r // c["threads"]))
                 return (f"{c['threads']} threads x {c['blocks_per_sm']} blocks per SM, "
-                        f"{blocks} blocks")
+                        f"{blocks} blocks, {c.get('smem_bytes', 0)} bytes of dynamic "
+                        "shared memory a block")
 
             out.append((name, _MK, run, info))
     if _SW in sources:
@@ -220,8 +312,19 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: torch.cuda.is_available() is false")
-    sources = tuple(sys.argv[1:]) or (_MK, _SW, _MT)
-    variants = [v for v, (src, _p) in VARIANTS.items() if src in sources]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    opts = dict(a[2:].split("=", 1) for a in sys.argv[1:] if a.startswith("--"))
+    sources = tuple(args) or (_MK, _SW, _MT)
+    only = opts["only"].split(",") if "only" in opts else None
+    rounds = int(opts.get("rounds", 1))
+    variants = []
+    for v, (src, _p) in VARIANTS.items():
+        if src not in sources or (only is not None and v not in only):
+            continue
+        if patched(v) is None:
+            cs.log(f"variant {v}: written for another version of {src}.cu; skipped")
+        else:
+            variants.append(v)
     cs.CARD = cs.smi()
     t0 = time.time()
     with ThreadPoolExecutor(len(variants) + len(sources)) as pool:
@@ -235,11 +338,16 @@ def main():
     for label, (_path, lines) in built.items():
         for line in lines:
             cs.log(f"  ptxas {label}: {line}")
+    if _MK in sources:
+        cs.log_sass_memory("shipped", _build.lib_path(_MK))
+        for label, (path, _lines) in built.items():
+            if VARIANTS[label][0] == _MK:
+                cs.log_sass_memory(label, path)
     libs = {label: ctypes.CDLL(path) for label, (path, _l) in built.items()}
     libs["shipped"] = None
     summary = {}
     for cell, source, run, info in workloads(sources):
-        labels = ["shipped"] + [v for v, (s, _p) in VARIANTS.items() if s == source]
+        labels = ["shipped"] + [v for v in built if VARIANTS[v][0] == source]
         for label in labels:  # warm-up, and each variant's launch
             with swapped(source, libs[label]):
                 run()
@@ -247,7 +355,7 @@ def main():
         with swapped(source, None):
             ref = run()
         times = {label: [] for label in labels}
-        for label in labels + labels[::-1]:
+        for label in (labels + labels[::-1]) * rounds:
             with swapped(source, libs[label]):
                 res, ms = cs.device_ms(run, reps=1)
             times[label].extend(ms)

@@ -158,10 +158,64 @@ def test_check_bank_refuses_before_launch():
     with pytest.raises(ValueError, match="2 to 63 children"):
         mega_cuda.check_bank(ctx._replace(arity=64))
     # The dense sweep has no deep-stack instantiation.
-    dense = ctx._replace(dense=object(), s_depth=mega_cuda.MAX_REGISTER_STACK + 2)
+    dense = ctx._replace(dense=object(), s_depth=mega_cuda.MAX_SHARED_STACK + 2)
     with pytest.raises(ValueError, match="deep-stack"):
         mega_cuda.check_bank(dense)
-    mega_cuda.check_bank(ctx._replace(s_depth=mega_cuda.MAX_REGISTER_STACK + 2))
+    mega_cuda.check_bank(ctx._replace(s_depth=mega_cuda.MAX_SHARED_STACK + 2))
+
+
+def _preset(name):
+    """(scene, camera, config) of a preset that chip_smoke.py drives on
+    the card, frozen on the CPU at a small frame size."""
+    from tpurt_torch.core.camera import Camera
+    from tpurt_torch.scene.presets import (cornell_sphere_scene, deep_stack_scene,
+                                           grid_scene)
+
+    cfg = CFG.replace(width=16, height=8)
+    if name == "cornell":
+        scene, cam, _ = cornell_sphere_scene(2, cfg, device="cpu")
+    elif name in ("bunny", "teapot"):
+        cfg = cfg.replace(mega_dense=name == "teapot")
+        scene, cam = bench_scene(name, cfg, device="cpu")
+    elif name == "grid-64":
+        scene = grid_scene(64, subdivisions=1, device="cpu")
+        cam = Camera.create(position=(0.0, 150.0, 380.0), pitch=-0.1, yaw=np.pi,
+                            fov_degrees=90.0, aspect_ratio=2.0, device="cpu")
+    else:
+        scene, cam = deep_stack_scene(cfg, device="cpu")
+    return scene, cam, cfg
+
+
+@pytest.mark.parametrize("name, words, shared", [
+    ("cornell", 12, True), ("bunny", 22, True), ("teapot", 16, True),
+    ("grid-64", 16, True), ("deep-stack", 72, False)])
+def test_stack_placement_rule(name, words, shared):
+    """Where B1 keeps each preset's traversal stacks: a budget up to
+    MAX_SHARED_STACK words is a ring in the block's dynamic shared memory
+    (s_depth words a thread, in the BVH and the dense instantiations);
+    a deeper one is the kDeep instantiation's global scratch, with no
+    shared memory for it."""
+    scene, cam, cfg = _preset(name)
+    _lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    assert ctx.s_depth == words == 2 * scene.mega_stack_depth
+    assert (ctx.dense is not None) == (name == "teapot")
+    assert (words <= mega_cuda.MAX_SHARED_STACK) == shared
+    assert mega_cuda.deep_stack(ctx) == (not shared)
+    for threads in (128, 256):
+        assert mega_cuda.shared_stack_bytes(ctx, threads) == (
+            4 * words * threads if shared else 0)
+    mega_cuda.check_bank(ctx)
+    # The threshold itself: 64 words still fit, 65 take the kDeep scratch
+    # (a dense context has no kDeep instantiation and is refused instead).
+    at = ctx._replace(s_depth=mega_cuda.MAX_SHARED_STACK)
+    past = ctx._replace(s_depth=mega_cuda.MAX_SHARED_STACK + 1)
+    assert mega_cuda.MAX_SHARED_STACK == 64 and not mega_cuda.deep_stack(at)
+    assert mega_cuda.shared_stack_bytes(at, 128) == 4 * 64 * 128
+    if ctx.dense is None:
+        assert mega_cuda.deep_stack(past) and mega_cuda.shared_stack_bytes(past, 128) == 0
+    else:
+        with pytest.raises(ValueError, match="deep-stack"):
+            mega_cuda.check_bank(past)
 
 
 def test_main_cpu_writes_the_cpu_cache(monkeypatch, capsys, tmp_path):

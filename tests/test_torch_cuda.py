@@ -303,6 +303,52 @@ def test_deep_stack_overflow_matches_plain(cuda_scene):
         assert agree == 1.0, (trips, agree)
 
 
+def _shared_ring_lanes(depth):
+    """The deep-stack scene's lanes with their budget cut to ``depth``
+    words, which the shared-memory ring holds (not kDeep)."""
+    cfg = CFG.replace(width=32, height=32)
+    scene, cam = deep_stack_scene(cfg, device="cuda")
+    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    lane, ctx = lane._replace(stack=lane.stack[:depth]), ctx._replace(s_depth=depth)
+    assert not mega_cuda.deep_stack(ctx)
+    return lane, ctx
+
+
+def test_shared_ring_overflow_matches_plain(cuda_scene):
+    """A full stack ring in shared memory drops its bottom entry as the
+    plain version's shift register does: the deep-stack scene with its
+    budget cut to 60 words, below the 67 entries its primary rays push,
+    so each of those lanes' rings wraps."""
+    lane, ctx = _shared_ring_lanes(60)
+    assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) == 60
+    for trips in (34, 100, None):
+        buf = mega_cuda.pack(lane)
+        mega_cuda.launch(buf, ctx, trips)
+        kern = mega_cuda.unpack(buf, ctx, lane.iters + (trips or 0))
+        agree, _err = mega_cuda.compare_lanes(mk.run_plain(lane, ctx, trips), kern)
+        assert agree == 1.0, (trips, agree)
+
+
+@pytest.mark.parametrize("trips", [1, 4, 16])
+def test_resumed_mid_stack_matches_plain(cuda_scene, trips):
+    """Lanes stopped at ``trips`` and resumed by the next launch from the
+    state buffer, again and again, with their stacks part full (and, at
+    60 words, wrapped): every field, the stack slots included, equals the
+    plain version stepped as far after each launch."""
+    lane, ctx = _shared_ring_lanes(60)
+    buf = mega_cuda.pack(lane)
+    plain = lane
+    held = []
+    for k in range(1, 49 // trips + 1):
+        mega_cuda.launch(buf, ctx, trips)
+        plain = mk.run_plain(plain, ctx, trips)
+        kern = mega_cuda.unpack(buf, ctx, plain.iters)
+        agree, _err = mega_cuda.compare_lanes(plain, kern)
+        assert agree == 1.0, (k * trips, agree)
+        held.append(int(mk.stack_entries(kern).max()))
+    assert 0 < min(held) and max(held) == 60, held
+
+
 @pytest.mark.parametrize("seed_mode", ["reference", "decorrelated"])
 @pytest.mark.parametrize("which", ["cornell", "grid", "dense"])
 def test_jittered_kernel_matches_plain(cuda_scene, which, seed_mode):
@@ -453,7 +499,7 @@ def test_persistent_megakernel_matches_plain(request, which, dense, size):
     to the segments each lane added."""
     scene, cam = request.getfixturevalue(
         {"sphere": "cuda_scene", "chain": "cuda_chain"}[which])
-    launch = mega_cuda.launch_config(dense)
+    launch = mega_cuda.launch_config(dense, s_depth=2 * scene.mega_stack_depth)
     n = {"below_block": launch["threads"] // 2 + 3,
          "below_resident": launch["resident_lanes"] // 7 + 5,
          "above_resident": launch["resident_lanes"] + 3 * launch["threads"] + 5,

@@ -19,7 +19,7 @@ retries and the deep-stack scene, on the CPU against tpurt.
   ``render_image`` of each frame, and a static-hook video packed two
   frames a launch is byte for byte the unpacked video.
 * The deep-stack scene (presets.deep_stack_scene: mega_stack_depth 36,
-  a budget of 72 stack words, above kernel B1's register stack, of
+  a budget of 72 stack words, above kernel B1's shared stack ring, of
   which its primary rays hold 67) freezes to tpurt's bank, and its
   frame matches tpurt's.
 """
@@ -296,8 +296,8 @@ def test_deep_stack_scene_matches_tpurt():
                        mega_tail_passes=1, rays_per_pixel=1)
     scene, cam = deep_stack_scene(cfg, device="cpu")
     assert scene.mega_stack_depth == 36  # > 32: a budget of 72 stack words
-    assert 2 * scene.mega_stack_depth > mega_cuda.MAX_REGISTER_STACK
-    # Past the kernel's 64-entry register stack in earnest: the primary
+    assert 2 * scene.mega_stack_depth > mega_cuda.MAX_SHARED_STACK
+    # Past the kernel's 64-word shared stack ring in earnest: the primary
     # rays hold 67 entries at the bottom of the chain, after trip 34.
     lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
     assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) == 67

@@ -21,12 +21,40 @@
 // slowest lane runs ~9x the mean trips). A lane's evolution depends only
 // on its own words, so which thread runs it, and when, changes no bit.
 //
-// What bounds it on the card: divergent per-lane row loads (each trip
-// reads one 256-byte row at a data-dependent address; the bank, ~7 MB
-// for the 69k-triangle mesh, stays resident in the 50 MB L2) and
-// register pressure (the lane state is ~70 words plus a local-memory
-// traversal stack). Warps diverge where lanes take different branches;
-// reordering rays into coherent wavefronts is later work.
+// What bounds it on the card: a trip is a chain of dependent loads at
+// data-dependent addresses (the lane's bank row; the bank, ~7 MB for the
+// 69k-triangle mesh, stays in the 50 MB L2), and under load the lanes
+// wait on the SM's memory path (L1, local memory, shared memory), not on
+// arithmetic. The earlier design kept the whole ~75-word lane and a
+// 64-entry stack array in registers and local memory (a 920-byte stack
+// frame at 56 registers), which spilled through L1 to L2. So:
+//  - the traversal stack is a ring of s_depth words a thread in the
+//    block's dynamic shared memory, laid out [entry][thread] (conflict-
+//    free whatever depths a warp's lanes hold). A push onto a full ring
+//    overwrites its bottom entry, tpurt's drop-bottom rule, without
+//    shifting. Budgets above kMaxSharedStack words keep the ring in a
+//    global scratch buffer instead (kDeep, below);
+//  - only the 17 lane words that the traversal step touches every trip
+//    live in registers (is_hot; the TLAS frame too). The 52 others
+//    (ray origins and directions, the accumulators, the path's state,
+//    the hit records, the cache), which only a chain entry's fold, an
+//    instance step and the tail passes touch, live in [word][thread]
+//    rows of shared memory after the rings (kColdAt), each an immediate
+//    offset from one register, copied in when a thread takes a lane and
+//    out when it retires it. The dense instantiation's 256 threads keep
+//    them in registers and local memory, as before (kDenseColdAt);
+//  - a bank row is read with 128-bit read-only loads and decoded from
+//    registers: a u8 node row in 2 + 3 per 4 children loads (a bf16 one
+//    in 2 + 1 a child), a leaf row in 19 per 4 triangles (rows are 32-
+//    byte aligned, and every fourth triangle starts a 16-byte word);
+//  - everything a trip runs is inlined into the trip loop: calls (the
+//    shading, the static stage) cost more in spills around them than
+//    they save.
+// kernel_variants.py times each of these against the alternative it
+// replaced; PERF.md (§5, §6) has those times, ptxas's registers and
+// spills and the static memory instructions of each instantiation. The
+// remaining limit is divergence: a warp's lanes take different branches
+// and rows. Reordering rays into coherent wavefronts is later work.
 //
 // Numerics: built with -fmad=false and without fast math, so every
 // a*b+c stays a rounded multiply and a rounded add, divisions and
@@ -71,11 +99,11 @@
 //          when the marker pops, exits it (the instance's best hit folds
 //          to world space, and the world ray is recomputed with the
 //          enter step's exact operations). Six lane words after N_FIXED
-//          (enum TlasField) carry the instance frame.
-//   kDeep  the traversal stack lives in a scratch buffer in global
-//          memory, (s_depth, R) words, instead of a kMaxStack-entry
-//          array: for scenes whose stack budget (2 * mega_stack_depth)
-//          exceeds kMaxStack. The other instantiations keep their array.
+//          (enum TlasField) carry the instance frame, in registers.
+//   kDeep  the traversal stack's ring lives in a scratch buffer in
+//          global memory, (s_depth, R) words, instead of shared memory:
+//          for scenes whose stack budget (2 * mega_stack_depth) exceeds
+//          kMaxSharedStack (mega_cuda.MAX_SHARED_STACK).
 //
 // Cross-frame packing (frames > 1, render_batch_flat_frames) is read at
 // run time from the launch configuration, only where a lane advances to
@@ -107,10 +135,15 @@
 #ifndef TPURT_MK_JITTER
 #define TPURT_MK_JITTER 0
 #endif
+// How the per-segment work that takes no lane registers (shading, the
+// static stage) is compiled into the trip loop.
+#define TPURT_MK_RARE __device__ __forceinline__
 
 namespace {
 
-constexpr int kMaxStack = 64;
+// Stack budgets up to this many words a lane take the ring in shared
+// memory; deeper ones the kDeep instantiation (mega_cuda.MAX_SHARED_STACK).
+constexpr int kMaxSharedStack = 64;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr uint32_t kTag = 0x80000000u;
 constexpr uint32_t kITag = 1u << 28;  // TLAS: an instance-row target
@@ -127,13 +160,23 @@ constexpr float kTau = 6.28318530717958647692f;
 // __launch_bounds__ asks of the register allocator, for each
 // instantiation, and the unroll factor of the block sweep's column loop
 // in megakernel<true>: the fastest of the variants timed on the bunny
-// and teapot batches (kernel_variants.py; PERF.md). Without a minimum
-// nvcc gives both instantiations over 150 registers and 3 blocks per SM.
+// and teapot batches (kernel_variants.py; PERF.md).
 constexpr int kThreads = 128;
-constexpr int kMinBlocks = 9;
+constexpr int kMinBlocks = 6;
 constexpr int kDenseThreads = 256;
 constexpr int kDenseMinBlocks = 4;
 constexpr int kDenseSweepUnroll = 1;
+// Where a lane's cold words (those that are not is_hot below) live while
+// a thread runs it: in the state buffer, read and written in place; in
+// [word][thread] rows of the block's dynamic shared memory after the
+// stack rings; or in a per-thread array that the compiler keeps in
+// registers and local memory. The shared and register placements copy
+// them in when the thread takes the lane and out when it retires it.
+// The dense instantiation's 256 threads leave no shared memory for them
+// beside the block sweep's.
+enum ColdAt : int { kColdInBuffer, kColdInShared, kColdInRegisters };
+constexpr ColdAt kColdAt = kColdInShared;
+constexpr ColdAt kDenseColdAt = kColdInRegisters;
 
 // One enumerator per 32-bit word of a lane, in buffer order. After
 // N_FIXED come 3*P quota accumulators (P > 1 only) and the S stack
@@ -163,6 +206,18 @@ enum TlasField : int {
 // Where the quota accumulators start.
 template <bool kTlas>
 constexpr int kAccBase = kTlas ? N_TLAS_END : N_FIXED;
+
+// The words of enum Field that the traversal step reads or writes on
+// every trip, held in registers (struct Lane) from a lane's load to its
+// retirement; the TLAS words are hot too. The others are cold.
+__host__ __device__ constexpr bool is_hot(int f) {
+  return f == DONE || (f >= ENTRY && f <= LT) || f == LMESH || f == W_DST;
+}
+// A cold word's row among the cold words, in buffer order.
+__host__ __device__ constexpr int cold_row(int f) {
+  return f - (f > DONE) - (f > LT ? LT - ENTRY + 1 : 0) - (f > LMESH) - (f > W_DST);
+}
+constexpr int kColdWords = cold_row(N_FIXED);
 
 }  // namespace
 
@@ -196,7 +251,7 @@ struct MkCfg {
 namespace {
 
 struct Tables {
-  const float* rows;     // (N, row_width) bank
+  const float* rows;     // (N, row_width) bank, rows 16-byte aligned
   const float* chain;    // (E, 21) chain params
   const float* mats;     // (K, 11) materials
   const float* srows;    // (n_static, 19) static triangles
@@ -368,154 +423,103 @@ __device__ __forceinline__ float fresnel(V d, V n, float a, float b) {
 
 // ---------------------------------------------------------- lane state
 
-// A lane's traversal stack, entry 0 at the bottom: a kMaxStack-entry
-// array (local memory), or (kDeep) the lane's column of the launch's
-// global scratch, entry k at stack[k * R + lane].
-template <bool kDeep>
-struct Stack {
-  uint32_t e[kMaxStack];
-  __device__ void bind(uint32_t*, int, int) {}
-  __device__ uint32_t& operator[](int k) { return e[k]; }
-  __device__ uint32_t operator[](int k) const { return e[k]; }
-};
-template <>
-struct Stack<true> {
+// A lane's words where they are kept (ColdAt kAt). The state buffer:
+// word f of lane i at p[f * n + i]. The cold rows in shared memory: word
+// f at p[cold_row(f) * kThreads], p already at the thread's column, so
+// that every word is an immediate offset from one register. Registers:
+// a[cold_row(f)].
+template <int kAt>
+struct Cols {
   uint32_t* p;
-  int n;
-  __device__ void bind(uint32_t* base, int n_lanes, int i) { p = base + i; n = n_lanes; }
-  __device__ uint32_t& operator[](int k) { return p[(size_t)k * n]; }
-  __device__ uint32_t operator[](int k) const { return p[(size_t)k * n]; }
-};
-
-template <bool kDeep>
-struct Lane {
-  V ro0, rd0;
-  uint32_t pix;
-  int pixno, sample;
-  V acc;
-  uint32_t rng;
-  bool done;
-  int segments;
-  V origin, direction, throughput, light;
-  int bounces, invis, entry, cur;
-  bool cur_leaf;
-  int cur_slot;
-  V lo, ld, lid;
-  float lt;
-  V lnrm;
-  bool lback;
-  int lmesh;
-  bool w_valid;
-  float w_dst;
-  V w_point, w_normal;
-  bool w_back;
-  int w_mesh;
-  bool c_set, c_valid;
-  V c_point, c_normal;
-  bool c_back;
-  int c_mesh;
-  float c_dst;
-  // TLAS regime (kTlas only): inside an instance; cur is an instance
-  // row; the instance's owner mesh, scale, cull policy and OneSided flag.
-  bool in_inst, cur_inst, inst_cull, inst_os;
-  int inst_mesh;
-  float inst_scale;
-  int sp;  // stack entries; stk[sp - 1] is the top
-  // This launch's work on the lane (not lane state): child-box tests,
-  // leaf rows (dense: entry sweeps), segment completions, instance
-  // enters and exits.
-  int n_box, n_leaf, n_seg, n_enter, n_exit;
-  Stack<kDeep> stk;
-};
-
-struct Words {
-  uint32_t* p;
-  int n;  // lanes (the row stride)
-  int i;  // this lane
-  __device__ uint32_t& w(int f) const { return p[(size_t)f * n + i]; }
+  int n;  // the row stride (the state buffer)
+  int i;  // this lane's column (the state buffer)
+  mutable uint32_t a[kAt == kColdInRegisters ? kColdWords : 1];
+  __device__ uint32_t& w(int f) const {
+    if constexpr (kAt == kColdInShared) {
+      return p[cold_row(f) * kThreads];
+    } else if constexpr (kAt == kColdInRegisters) {
+      return a[cold_row(f)];
+    } else {
+      return p[(size_t)f * n + i];
+    }
+  }
   __device__ float f(int f) const { return __uint_as_float(w(f)); }
   __device__ V v(int f) const { return v3(this->f(f), this->f(f + 1), this->f(f + 2)); }
   __device__ void put(int f, float x) const { w(f) = __float_as_uint(x); }
   __device__ void put(int f, V a) const { put(f, a.x); put(f + 1, a.y); put(f + 2, a.z); }
 };
+using Words = Cols<kColdInBuffer>;
 
-template <bool kTlas, class Ln>
-__device__ void load_lane(Ln& L, const Words& s, int stack_base, int s_depth, uint32_t* scratch) {
-  L.ro0 = s.v(RO0_X); L.rd0 = s.v(RD0_X);
-  L.pix = s.w(PIX); L.pixno = (int)s.w(PIXNO); L.sample = (int)s.w(SAMPLE);
-  L.acc = s.v(ACC_X);
-  L.rng = s.w(RNG); L.done = s.w(DONE) != 0; L.segments = (int)s.w(SEGMENTS);
-  L.origin = s.v(ORIGIN_X); L.direction = s.v(DIRECTION_X);
-  L.throughput = s.v(THROUGHPUT_X); L.light = s.v(LIGHT_X);
-  L.bounces = (int)s.w(BOUNCES); L.invis = (int)s.w(INVIS);
-  L.entry = (int)s.w(ENTRY); L.cur = (int)s.w(CUR);
-  L.cur_leaf = s.w(CUR_LEAF) != 0; L.cur_slot = (int)s.w(CUR_SLOT);
-  L.lo = s.v(LO_X); L.ld = s.v(LD_X); L.lid = s.v(LID_X);
-  L.lt = s.f(LT); L.lnrm = s.v(LNRM_X); L.lback = s.w(LBACK) != 0; L.lmesh = (int)s.w(LMESH);
-  L.w_valid = s.w(W_VALID) != 0; L.w_dst = s.f(W_DST);
-  L.w_point = s.v(W_POINT_X); L.w_normal = s.v(W_NORMAL_X);
-  L.w_back = s.w(W_BACK) != 0; L.w_mesh = (int)s.w(W_MESH);
-  L.c_set = s.w(C_SET) != 0; L.c_valid = s.w(C_VALID) != 0;
-  L.c_point = s.v(C_POINT_X); L.c_normal = s.v(C_NORMAL_X);
-  L.c_back = s.w(C_BACK) != 0; L.c_mesh = (int)s.w(C_MESH); L.c_dst = s.f(C_DST);
-  if constexpr (kTlas) {
-    L.in_inst = s.w(IN_INST) != 0; L.cur_inst = s.w(CUR_INST) != 0;
-    L.inst_mesh = (int)s.w(INST_MESH); L.inst_scale = s.f(INST_SCALE);
-    L.inst_cull = s.w(INST_CULL) != 0; L.inst_os = s.w(INST_OS) != 0;
+// A lane's hot words (is_hot) in registers, its traversal stack, and
+// this launch's work on it. kStride: the block's threads, the stride of
+// the shared stack rings.
+template <bool kDeep, int kStride>
+struct Lane {
+  V lo, ld, lid;
+  float lt, w_dst;
+  int entry, cur, cur_slot, lmesh;
+  bool done, cur_leaf;
+  // Whether the cold acc words may differ from acc + 0: the plain
+  // version adds a zero contribution to acc on every tail pass that ends
+  // no path, and x + 0 turns -0 into +0. True from the lane's load and
+  // after a path's end; the next such pass adds the zero once and clears
+  // it, since x + 0 + 0 == x + 0.
+  bool acc_raw;
+  // TLAS regime (kTlas only): inside an instance; cur is an instance
+  // row; the instance's owner mesh, scale, cull policy and OneSided flag.
+  bool in_inst, cur_inst, inst_cull, inst_os;
+  int inst_mesh;
+  float inst_scale;
+  // The traversal stack, a ring of s_depth entries: entry k at
+  // stk[k * kStride] (the thread's column of the block's shared ring
+  // array) or kDeep stk[k * stride] (the lane's column of the global
+  // scratch). head is the entry the next push writes, sp the entries
+  // held.
+  uint32_t* stk;
+  int stride, head, sp;
+  // This launch's work on the lane (not lane state): child-box tests,
+  // leaf rows (dense: entry sweeps), segment completions, instance
+  // enters and exits.
+  int n_box, n_leaf, n_seg, n_enter, n_exit;
+  __device__ uint32_t& slot(int k) {
+    if constexpr (kDeep) {
+      return stk[(size_t)k * stride];
+    } else {
+      return stk[k * kStride];
+    }
   }
-  // Slot k of the buffer is the k-th entry from the top; the entries
-  // are contiguous from slot 0 (pushes and pops shift the whole stack).
-  L.stk.bind(scratch, s.n, s.i);
-  int sp = 0;
-  while (sp < s_depth && s.w(stack_base + sp) != kEmpty) ++sp;
-  for (int k = 0; k < sp; ++k) L.stk[sp - 1 - k] = s.w(stack_base + k);
-  L.sp = sp;
-  L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = 0;
-}
+};
 
-template <bool kTlas, class Ln>
-__device__ void store_lane(const Ln& L, const Words& s, int stack_base, int s_depth) {
-  s.put(RO0_X, L.ro0); s.put(RD0_X, L.rd0);
-  s.w(PIX) = L.pix; s.w(PIXNO) = (uint32_t)L.pixno; s.w(SAMPLE) = (uint32_t)L.sample;
-  s.put(ACC_X, L.acc);
-  s.w(RNG) = L.rng; s.w(DONE) = L.done; s.w(SEGMENTS) = (uint32_t)L.segments;
-  s.put(ORIGIN_X, L.origin); s.put(DIRECTION_X, L.direction);
-  s.put(THROUGHPUT_X, L.throughput); s.put(LIGHT_X, L.light);
-  s.w(BOUNCES) = (uint32_t)L.bounces; s.w(INVIS) = (uint32_t)L.invis;
-  s.w(ENTRY) = (uint32_t)L.entry; s.w(CUR) = (uint32_t)L.cur;
-  s.w(CUR_LEAF) = L.cur_leaf; s.w(CUR_SLOT) = (uint32_t)L.cur_slot;
-  s.put(LO_X, L.lo); s.put(LD_X, L.ld); s.put(LID_X, L.lid);
-  s.put(LT, L.lt); s.put(LNRM_X, L.lnrm); s.w(LBACK) = L.lback; s.w(LMESH) = (uint32_t)L.lmesh;
-  s.w(W_VALID) = L.w_valid; s.put(W_DST, L.w_dst);
-  s.put(W_POINT_X, L.w_point); s.put(W_NORMAL_X, L.w_normal);
-  s.w(W_BACK) = L.w_back; s.w(W_MESH) = (uint32_t)L.w_mesh;
-  s.w(C_SET) = L.c_set; s.w(C_VALID) = L.c_valid;
-  s.put(C_POINT_X, L.c_point); s.put(C_NORMAL_X, L.c_normal);
-  s.w(C_BACK) = L.c_back; s.w(C_MESH) = (uint32_t)L.c_mesh; s.put(C_DST, L.c_dst);
-  if constexpr (kTlas) {
-    s.w(IN_INST) = L.in_inst; s.w(CUR_INST) = L.cur_inst;
-    s.w(INST_MESH) = (uint32_t)L.inst_mesh; s.put(INST_SCALE, L.inst_scale);
-    s.w(INST_CULL) = L.inst_cull; s.w(INST_OS) = L.inst_os;
-  }
-  for (int k = 0; k < s_depth; ++k)
-    s.w(stack_base + k) = k < L.sp ? L.stk[L.sp - 1 - k] : kEmpty;
-}
-
-// Push on top; a full stack drops its bottom entry, as tpurt's
-// fixed-depth shift register does.
+// Push on top. A full ring's next entry is its bottom, so a push onto a
+// full stack overwrites the bottom entry: tpurt's fixed-depth shift
+// register drops it the same way.
 template <class Ln>
-__device__ __forceinline__ void push(Ln& L, uint32_t e, int s_depth) {
-  if (L.sp == s_depth) {
-    for (int k = 1; k < s_depth; ++k) L.stk[k - 1] = L.stk[k];
-    L.sp = s_depth - 1;
-  }
-  L.stk[L.sp++] = e;
+__device__ __forceinline__ void push(Ln& L, uint32_t e, int depth) {
+  L.slot(L.head) = e;
+  L.head = L.head + 1 == depth ? 0 : L.head + 1;
+  L.sp += L.sp < depth ? 1 : 0;
+}
+template <class Ln>
+__device__ __forceinline__ uint32_t pop(Ln& L, int depth) {
+  L.head = L.head == 0 ? depth - 1 : L.head - 1;
+  --L.sp;
+  return L.slot(L.head);
 }
 
+// What a trip reads and writes besides the lane's registers: the launch
+// configuration, the tables, the state buffer at the lane's column, and
+// the lane's cold words (kAt).
+template <int kAt>
 struct Ctx {
+  static constexpr bool kColdRows = kAt != kColdInBuffer;
   const MkCfg& c;
   const Tables& tb;
   Words s;
+  Cols<kAt> cold;
+  __device__ void take(int i) {
+    s.i = i;
+    if constexpr (kAt == kColdInBuffer) cold.i = i;
+  }
   __device__ const int* chain_root() const { return tb.meta; }
   __device__ const int* chain_leaf() const { return tb.meta + c.e_count; }
   __device__ const int* chain_mesh() const { return tb.meta + 2 * c.e_count; }
@@ -526,8 +530,75 @@ struct Ctx {
   __device__ const int* mesh_cull() const { return s_owner() + c.n_static; }
 };
 
+// Loads the lane at x.s's column: its hot words into registers, its cold
+// words into their rows (shared memory or registers), its stack into the ring
+// (``ring``; kDeep: the scratch column).
+template <bool kTlas, bool kDeep, int kS, class X>
+__device__ __forceinline__ void load_lane(Lane<kDeep, kS>& L, const X& x, int stack_base,
+                                          uint32_t* ring) {
+  const Words& s = x.s;
+  L.done = s.w(DONE) != 0;
+  L.entry = (int)s.w(ENTRY); L.cur = (int)s.w(CUR);
+  L.cur_leaf = s.w(CUR_LEAF) != 0; L.cur_slot = (int)s.w(CUR_SLOT);
+  L.lo = s.v(LO_X); L.ld = s.v(LD_X); L.lid = s.v(LID_X);
+  L.lt = s.f(LT); L.lmesh = (int)s.w(LMESH); L.w_dst = s.f(W_DST);
+  L.acc_raw = true;
+  if constexpr (kTlas) {
+    L.in_inst = s.w(IN_INST) != 0; L.cur_inst = s.w(CUR_INST) != 0;
+    L.inst_mesh = (int)s.w(INST_MESH); L.inst_scale = s.f(INST_SCALE);
+    L.inst_cull = s.w(INST_CULL) != 0; L.inst_os = s.w(INST_OS) != 0;
+  }
+  if constexpr (X::kColdRows) {
+#pragma unroll
+    for (int f = 0; f < N_FIXED; ++f)
+      if (!is_hot(f)) x.cold.w(f) = s.w(f);
+  }
+  if constexpr (kDeep) {
+    L.stk = x.tb.stack + s.i;
+    L.stride = s.n;
+  } else {
+    L.stk = ring;
+  }
+  // Slot k of the buffer is the k-th entry from the top; the entries
+  // are contiguous from slot 0. The top goes to ring entry sp - 1.
+  const int depth = x.c.s_depth;
+  int sp = 0;
+  while (sp < depth && s.w(stack_base + sp) != kEmpty) ++sp;
+  for (int k = 0; k < sp; ++k) L.slot(sp - 1 - k) = s.w(stack_base + k);
+  L.sp = sp;
+  L.head = sp == depth ? 0 : sp;
+  L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = 0;
+}
+
+template <bool kTlas, bool kDeep, int kS, class X>
+__device__ __forceinline__ void store_lane(Lane<kDeep, kS>& L, const X& x, int stack_base) {
+  const Words& s = x.s;
+  s.w(DONE) = L.done;
+  s.w(ENTRY) = (uint32_t)L.entry; s.w(CUR) = (uint32_t)L.cur;
+  s.w(CUR_LEAF) = L.cur_leaf; s.w(CUR_SLOT) = (uint32_t)L.cur_slot;
+  s.put(LO_X, L.lo); s.put(LD_X, L.ld); s.put(LID_X, L.lid);
+  s.put(LT, L.lt); s.w(LMESH) = (uint32_t)L.lmesh; s.put(W_DST, L.w_dst);
+  if constexpr (kTlas) {
+    s.w(IN_INST) = L.in_inst; s.w(CUR_INST) = L.cur_inst;
+    s.w(INST_MESH) = (uint32_t)L.inst_mesh; s.put(INST_SCALE, L.inst_scale);
+    s.w(INST_CULL) = L.inst_cull; s.w(INST_OS) = L.inst_os;
+  }
+  if constexpr (X::kColdRows) {
+#pragma unroll
+    for (int f = 0; f < N_FIXED; ++f)
+      if (!is_hot(f)) s.w(f) = x.cold.w(f);
+  }
+  const int depth = x.c.s_depth;
+  int e = L.head;
+  for (int k = 0; k < depth; ++k) {
+    e = e == 0 ? depth - 1 : e - 1;  // the k-th entry from the top
+    s.w(stack_base + k) = k < L.sp ? L.slot(e) : kEmpty;
+  }
+}
+
 // WorldToLocalRay (Trace.cl:118-137) for chain entry ``entry``.
-__device__ __forceinline__ void enter(const Ctx& x, int entry, V origin, V direction,
+template <class X>
+__device__ __forceinline__ void enter(const X& x, int entry, V origin, V direction,
                                       V& lo, V& ld, V& lid, int& root, bool& leaf) {
   int ec = min(entry, x.c.e_count - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
@@ -539,7 +610,8 @@ __device__ __forceinline__ void enter(const Ctx& x, int entry, V origin, V direc
   leaf = x.chain_leaf()[ec] != 0;
 }
 
-__device__ __forceinline__ bool pretest(const Ctx& x, int entry, V lo, V lid, float w_dst) {
+template <class X>
+__device__ __forceinline__ bool pretest(const X& x, int entry, V lo, V lid, float w_dst) {
   const float* cp = x.tb.chain + min(entry, x.c.e_count - 1) * kCpWidth;
   return aabb(lo, lid, ld3(cp + 15), ld3(cp + 18), w_dst / safe_scale(cp[12]) * kGrow);
 }
@@ -563,8 +635,8 @@ struct TwoBest {
 };
 
 // Root-node test of expanded entry ``e`` at enter time (_expand_root).
-template <class Ln>
-__device__ void expand_root(const Ctx& x, Ln& L, int e) {
+template <class Ln, class X>
+__device__ __forceinline__ void expand_root(const X& x, Ln& L, int e) {
   const int arity = x.c.arity;
   const float* rf = x.tb.roots_f + e * (1 + 6 * arity);
   const int* ri = x.tb.roots_i + e * arity;
@@ -586,21 +658,26 @@ __device__ void expand_root(const Ctx& x, Ln& L, int e) {
     L.cur_leaf = (b.first_meta & 1) == 1;
     // Entering lanes hold an empty stack (see megakernel._expand_root).
     L.sp = 0;
+    L.head = 0;
     if (b.hits >= 3)
-      L.stk[L.sp++] = ((uint32_t)x.chain_root()[e] << kSlotBits) | (uint32_t)(b.second_prio + 1);
-    if (b.hits >= 2) L.stk[L.sp++] = kTag | (uint32_t)b.second_meta;
+      push(L, ((uint32_t)x.chain_root()[e] << kSlotBits) | (uint32_t)(b.second_prio + 1),
+           x.c.s_depth);
+    if (b.hits >= 2) push(L, kTag | (uint32_t)b.second_meta, x.c.s_depth);
   } else {
     L.cur = -1;
     L.cur_leaf = false;
   }
 }
 
-// Dense MT of the inline static triangles for a fresh ray.
-__device__ void static_stage(const Ctx& x, V origin, V direction, bool& valid, float& dst,
-                             V& point, V& normal, bool& back, int& mesh) {
-  valid = false; dst = INFINITY; point = normal = v3(0.0f, 0.0f, 0.0f);
-  back = false; mesh = -1;
-  if (x.c.n_static == 0) return;
+// Dense MT of the inline static triangles for a fresh ray: the w words
+// of its nearest static hit (none: invalid at infinity); returns its
+// distance.
+template <class X>
+TPURT_MK_RARE float static_stage(const X& x, V origin, V direction) {
+  const auto& C = x.cold;
+  C.w(W_VALID) = 0u; C.put(W_POINT_X, v3(0.0f, 0.0f, 0.0f));
+  C.put(W_NORMAL_X, v3(0.0f, 0.0f, 0.0f)); C.w(W_BACK) = 0u; C.w(W_MESH) = (uint32_t)-1;
+  if (x.c.n_static == 0) return INFINITY;
   V ld = normalize(direction);
   float lt = INFINITY;
   V lnrm = v3(0.0f, 0.0f, 0.0f);
@@ -618,27 +695,28 @@ __device__ void static_stage(const Ctx& x, V origin, V direction, bool& valid, f
     if (x.s_onesided()[s] && bf) continue;
     if (t < lt) { lt = t; lnrm = n; lback = bf; lmesh = x.s_owner()[s]; }
   }
-  if (lmesh < 0) return;
-  valid = true;
-  point = origin + ld * lt;
-  normal = normalize(lnrm);
-  dst = length(point - origin);
-  back = lback;
-  mesh = lmesh;
+  if (lmesh < 0) return INFINITY;
+  const V point = origin + ld * lt;
+  C.w(W_VALID) = 1u; C.put(W_POINT_X, point); C.put(W_NORMAL_X, normalize(lnrm));
+  C.w(W_BACK) = lback; C.w(W_MESH) = (uint32_t)lmesh;
+  return length(point - origin);
 }
 
 // One material interaction of a lane at the shading stage
-// (shading.shade_hit_soa with enabled = true).
-template <class Ln>
-__device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible) {
-  const float* m = x.tb.mats + kMatWidth * max(L.w_mesh, 0);
+// (shading.shade_hit_soa with enabled = true), on its cold words.
+// Returns kContinuing | kInvisible flags.
+constexpr int kContinuing = 1, kInvisible = 2;
+template <class X>
+TPURT_MK_RARE int shade_hit(const X& x) {
+  const auto& C = x.cold;
+  const float* m = x.tb.mats + kMatWidth * max((int)C.w(W_MESH), 0);
   float mtype = m[0], ior = m[1];
   V color = ld3(m + 2), em_color = ld3(m + 5);
   float em_strength = m[8], refl = m[9], spec_prob = m[10];
-  V hp = L.w_point, hn = L.w_normal, dir = L.direction;
+  V hp = C.v(W_POINT_X), hn = C.v(W_NORMAL_X), dir = C.v(DIRECTION_X);
 
-  bool a_hit = L.w_valid;
-  invisible = a_hit && mtype == 2.0f;
+  bool a_hit = C.w(W_VALID) != 0;
+  const bool invisible = a_hit && mtype == 2.0f;
   bool scatter = a_hit && !invisible;
   bool is_checker = scatter && mtype == 1.0f;
   if (is_checker) {
@@ -649,7 +727,7 @@ __device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible
     em_strength = 0.0f;
   }
   bool mask_cs = is_checker || (scatter && mtype == 0.0f);
-  uint32_t rng = L.rng;
+  uint32_t rng = C.w(RNG);
   V dir_cs = dir;
   if (mask_cs) {
     float rv;
@@ -667,8 +745,9 @@ __device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible
   V new_dir = mask_cs ? dir_cs : dir;
   float glassy_w = 1.0f;
   if (is_glassy) {
-    float ior_cur = L.w_back ? ior : 1.0f;
-    float ior_next = L.w_back ? 1.0f : ior;
+    const bool w_back = C.w(W_BACK) != 0;
+    float ior_cur = w_back ? ior : 1.0f;
+    float ior_next = w_back ? 1.0f : ior;
     float rw = fresnel(dir, hn, ior_cur, ior_next);
     float r01;
     rng = rand01(rng, r01);
@@ -676,17 +755,18 @@ __device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible
     new_dir = will_reflect ? reflect(dir, hn) : refract(dir, hn, ior_cur, ior_next);
     glassy_w = will_reflect ? rw : 1.0f - rw;
   }
-  V tn = L.throughput * glassy_w;
+  V tn = C.v(THROUGHPUT_X) * glassy_w;
 
   // Common tail (Trace.cl:574-591), add-zero / mul-one forms kept.
   V contrib = tn * (em_color * em_strength);
   V zero = v3(0.0f, 0.0f, 0.0f);
-  V light_new = L.light + sel(scatter, contrib, zero);
-  V origin_new = scatter ? hp + new_dir * kEps : L.origin;
+  V light_new = C.v(LIGHT_X) + sel(scatter, contrib, zero);
+  V origin_new = scatter ? hp + new_dir * kEps : C.v(ORIGIN_X);
   if (invisible) origin_new = hp + dir * kEps;
   tn = tn * sel(scatter, color, v3(1.0f, 1.0f, 1.0f));
   float p = maxp(maxp(tn.x, tn.y), tn.z);
-  bool rr = scatter && L.bounces > 3;
+  const int bounces = (int)C.w(BOUNCES);
+  bool rr = scatter && bounces > 3;
   float q = maxp(1.0f - p, 0.05f);
   bool killed = false;
   if (rr) {
@@ -695,14 +775,36 @@ __device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible
     killed = r01 < q;
     if (!killed) tn = tn / (1.0f - q);
   }
-  int bounces_new = L.bounces + (scatter ? 1 : 0);
-  continuing = a_hit && !killed && bounces_new < x.c.max_bounces;
-  L.origin = origin_new;
-  if (scatter) L.direction = new_dir;
-  L.throughput = tn;
-  L.light = light_new;
-  L.rng = rng;
-  L.bounces = bounces_new;
+  int bounces_new = bounces + (scatter ? 1 : 0);
+  const bool continuing = a_hit && !killed && bounces_new < x.c.max_bounces;
+  C.put(ORIGIN_X, origin_new);
+  if (scatter) C.put(DIRECTION_X, new_dir);
+  C.put(THROUGHPUT_X, tn);
+  C.put(LIGHT_X, light_new);
+  C.w(RNG) = rng;
+  C.w(BOUNCES) = (uint32_t)bounces_new;
+  return (continuing ? kContinuing : 0) | (invisible ? kInvisible : 0);
+}
+
+// A candidate hit folded to world space: kept where it is nearer than
+// the lane's best (the w words).
+template <class Ln, class X>
+__device__ __forceinline__ void keep_nearer(const X& x, Ln& L, V point_w, V n_w) {
+  const auto& C = x.cold;
+  float dst = length(point_w - C.v(ORIGIN_X));
+  if (dst < L.w_dst) {
+    C.w(W_VALID) = 1u; L.w_dst = dst; C.put(W_POINT_X, point_w); C.put(W_NORMAL_X, n_w);
+    C.w(W_BACK) = C.w(LBACK); C.w(W_MESH) = (uint32_t)L.lmesh;
+  }
+}
+
+// The l words' reset after a fold or an instance exit.
+template <class Ln, class X>
+__device__ __forceinline__ void clear_local_hit(const X& x, Ln& L) {
+  L.lt = INFINITY;
+  x.cold.put(LNRM_X, v3(0.0f, 0.0f, 0.0f));
+  x.cold.w(LBACK) = 0u;
+  L.lmesh = -1;
 }
 
 // Next mesh: fold a finished entry (cur < 0) to world space and advance
@@ -710,8 +812,8 @@ __device__ void shade_hit(const Ctx& x, Ln& L, bool& continuing, bool& invisible
 // the start of the trip: the entry's, or in the TLAS regime the
 // instance's where the lane was inside one (``in_inst``, ``inst_scale``
 // as they were then). Returns in_chain.
-template <bool kTlas, class Ln>
-__device__ bool fold(const Ctx& x, Ln& L, bool in_inst, float inst_scale) {
+template <bool kTlas, class Ln, class X>
+__device__ __forceinline__ bool fold(const X& x, Ln& L, bool in_inst, float inst_scale) {
   const int E = x.c.e_count;
   if (!(L.entry < E && L.cur < 0)) return false;
   const float* cp = x.tb.chain + min(L.entry, E - 1) * kCpWidth;
@@ -719,37 +821,29 @@ __device__ bool fold(const Ctx& x, Ln& L, bool in_inst, float inst_scale) {
   if constexpr (kTlas) {
     if (in_inst) scale_e = inst_scale;
   }
-  bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && L.lback) && scale_e > kEps;
-  if (lvalid) {
-    V point_w = rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp);
-    V n_w = normalize(rot_fwd(cp + 3, L.lnrm));
-    float dst = length(point_w - L.origin);
-    if (dst < L.w_dst) {
-      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
-      L.w_back = L.lback; L.w_mesh = L.lmesh;
-    }
-  }
+  bool lvalid = L.lmesh >= 0 && !(cp[13] != 0.0f && x.cold.w(LBACK) != 0) && scale_e > kEps;
+  if (lvalid)
+    keep_nearer(x, L, rot_fwd(cp + 3, (L.lo + L.ld * L.lt) * scale_e) + ld3(cp),
+                normalize(rot_fwd(cp + 3, x.cold.v(LNRM_X))));
   L.entry += 1;
-  L.lt = INFINITY;
-  L.lnrm = v3(0.0f, 0.0f, 0.0f);
-  L.lback = false;
-  L.lmesh = -1;
+  clear_local_hit(x, L);
   return L.entry < E;
 }
 
 // A trip on an instance row (kTlas; megakernel._instance_step): enter
 // it or, when its exit marker brought the lane back, exit it. Returns
 // whether the lane pops its stack.
-template <class Ln>
-__device__ bool instance_step(const Ctx& x, Ln& L, const float* row) {
+template <class Ln, class X>
+__device__ __forceinline__ bool instance_step(const X& x, Ln& L, const float* row) {
+  const auto& C = x.cold;
   const float scale = row[12];
   const float safe = safe_scale(scale);
   if (!L.in_inst) {
     ++L.n_enter;
     // WorldToLocalRay with the baked transform, in enter()'s op order,
     // then the root pretest; a degenerate scale skips the instance.
-    V lo = rot_t(row + 3, L.origin - ld3(row)) / safe;
-    V ld = normalize(rot_t(row + 3, L.direction) / safe);
+    V lo = rot_t(row + 3, C.v(ORIGIN_X) - ld3(row)) / safe;
+    V ld = normalize(rot_t(row + 3, C.v(DIRECTION_X)) / safe);
     V lid = v3(1.0f / ld.x, 1.0f / ld.y, 1.0f / ld.z);
     if (!(aabb(lo, lid, ld3(row + 16), ld3(row + 19), L.w_dst / safe * kGrow) &&
           scale > kEps))
@@ -770,29 +864,91 @@ __device__ bool instance_step(const Ctx& x, Ln& L, const float* row) {
   }
   ++L.n_exit;
   // LocalToWorldHit of the instance's best, in fold()'s op order.
-  if (L.lmesh >= 0 && !(L.inst_os && L.lback)) {
-    V point_w = rot_fwd(row + 3, (L.lo + L.ld * L.lt) * scale) + ld3(row);
-    V n_w = normalize(rot_fwd(row + 3, L.lnrm));
-    float dst = length(point_w - L.origin);
-    if (dst < L.w_dst) {
-      L.w_valid = true; L.w_dst = dst; L.w_point = point_w; L.w_normal = n_w;
-      L.w_back = L.lback; L.w_mesh = L.lmesh;
-    }
-  }
+  if (L.lmesh >= 0 && !(L.inst_os && C.w(LBACK) != 0))
+    keep_nearer(x, L, rot_fwd(row + 3, (L.lo + L.ld * L.lt) * scale) + ld3(row),
+                normalize(rot_fwd(row + 3, C.v(LNRM_X))));
   L.in_inst = false;
   int root;
   bool leaf;
-  enter(x, L.entry, L.origin, L.direction, L.lo, L.ld, L.lid, root, leaf);
-  L.lt = INFINITY;
-  L.lnrm = v3(0.0f, 0.0f, 0.0f);
-  L.lback = false;
-  L.lmesh = -1;
+  enter(x, L.entry, C.v(ORIGIN_X), C.v(DIRECTION_X), L.lo, L.ld, L.lid, root, leaf);
+  clear_local_hit(x, L);
   return true;
 }
 
+// A 16-byte word of a bank row, through the read-only data path.
+__device__ __forceinline__ float4 ld_row4(const float4* p) { return __ldg(p); }
+
+// Triangle J (0-3) of a group of four in a leaf row: words [19 J, 19 J +
+// 19) of the group's 76, which start at ``g4`` (every fourth triangle
+// starts a 16-byte word). Its float4s are loaded, the first from
+// ``carry`` where the previous triangle's last one holds it, and the
+// triangle is tested against the lane's nearest in the plain version's
+// order; a nearer hit goes to lt, lmesh and (hn, hb).
+template <int J, bool kTlas, class Ln, class X>
+__device__ __forceinline__ void leaf_tri(const X& x, Ln& L, const float4* g4, float4& carry,
+                                         bool is_static, bool cull_mesh_e, int entry_mesh,
+                                         bool in_inst, bool& hit, V& hn, bool& hb) {
+  constexpr int w0 = 19 * J, first = w0 / 4, last = (w0 + 18) / 4, o = w0 - 4 * first;
+  float t[4 * (last - first + 1)];
+#pragma unroll
+  for (int q = 0; q <= last - first; ++q) {
+    const float4 v = (J > 0 && q == 0) ? carry : ld_row4(g4 + first + q);
+    t[4 * q] = v.x; t[4 * q + 1] = v.y; t[4 * q + 2] = v.z; t[4 * q + 3] = v.w;
+    carry = v;
+  }
+  int aux = __float_as_int(t[o + 18]);
+  bool cull = cull_mesh_e;
+  if (is_static)
+    cull = (aux >= 0 && aux < x.c.num_meshes) ? x.mesh_cull()[aux] != 0 : true;
+  if constexpr (kTlas) {
+    if (in_inst) cull = L.inst_cull;
+  }
+  const V pa = v3(t[o], t[o + 1], t[o + 2]);
+  float tt;
+  V n;
+  bool bf;
+  if (mt(L.lo, L.ld, pa, v3(t[o + 3], t[o + 4], t[o + 5]) - pa,
+         v3(t[o + 6], t[o + 7], t[o + 8]) - pa, v3(t[o + 9], t[o + 10], t[o + 11]),
+         v3(t[o + 12], t[o + 13], t[o + 14]), v3(t[o + 15], t[o + 16], t[o + 17]), cull, tt,
+         n, bf) &&
+      tt < L.lt) {
+    L.lt = tt; hn = n; hb = bf; hit = true;
+    L.lmesh = in_inst ? L.inst_mesh : (is_static ? aux : entry_mesh);
+  }
+}
+
+// A child slot of a node row (its words w0, w1, w2 and its meta): the
+// box test for the slots the resumed node still visits.
+template <bool kBf16, class Ln>
+__device__ __forceinline__ void node_slot(Ln& L, TwoBest& b, int slot, int arity, bool fwd,
+                                          V go, V gs, float limit, float f0, float f1,
+                                          float f2, float fmeta) {
+  const int meta = __float_as_int(fmeta);
+  const int prio = fwd ? slot : arity - 1 - slot;
+  if (meta == 0 || prio < L.cur_slot) return;
+  ++L.n_box;
+  uint32_t w0 = __float_as_uint(f0), w1 = __float_as_uint(f1);
+  V bmin, bmax;
+  if constexpr (kBf16) {
+    uint32_t w2 = __float_as_uint(f2);
+    bmin = v3(__uint_as_float(w0 << 16), __uint_as_float(w0 & 0xFFFF0000u),
+              __uint_as_float(w1 << 16));
+    bmax = v3(__uint_as_float(w1 & 0xFFFF0000u), __uint_as_float(w2 << 16),
+              __uint_as_float(w2 & 0xFFFF0000u));
+  } else {
+    V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
+                (float)(int)((w0 >> 16) & 255u));
+    V q_hi = v3((float)(int)((w0 >> 24) & 255u), (float)(int)(w1 & 255u),
+                (float)(int)((w1 >> 8) & 255u));
+    bmin = go + q_lo * gs;
+    bmax = go + q_hi * gs;
+  }
+  if (aabb(L.lo, L.lid, bmin, bmax, limit)) b.add(prio, meta);
+}
+
 // The BVH trip's traversal step — one bank row — then the fold.
-template <bool kTlas, bool kBf16, class Ln>
-__device__ bool traverse_rows(const Ctx& x, Ln& L) {
+template <bool kTlas, bool kBf16, class Ln, class X>
+__device__ __forceinline__ bool traverse_rows(const X& x, Ln& L) {
   const int E = x.c.e_count;
   const int ec = min(L.entry, E - 1);
   const float* cp = x.tb.chain + ec * kCpWidth;
@@ -805,76 +961,84 @@ __device__ bool traverse_rows(const Ctx& x, Ln& L) {
   }
   if (L.entry < E && L.cur >= 0) {
     const float* row = x.tb.rows + (size_t)L.cur * x.c.row_width;
-    float limit = minp(L.lt, L.w_dst / safe_scale(in_inst ? inst_scale : cp[12]) * kGrow);
-    bool pop;
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    bool pop_top;
     bool inst_row = false;
     if constexpr (kTlas) inst_row = L.cur_inst;
     if (inst_row) {
-      pop = instance_step(x, L, row);
+      pop_top = instance_step(x, L, row);
     } else if (L.cur_leaf) {
       ++L.n_leaf;
-      int entry_mesh = x.chain_mesh()[ec];
-      bool is_static = entry_mesh < 0;
-      bool cull_mesh_e = cp[14] != 0.0f;
-      for (int k = 0; k < x.c.leaf_tris; ++k) {
-        const float* t = row + 19 * k;
-        int aux = __float_as_int(t[18]);
-        bool cull = cull_mesh_e;
-        if (is_static)
-          cull = (aux >= 0 && aux < x.c.num_meshes) ? x.mesh_cull()[aux] != 0 : true;
-        if constexpr (kTlas) {
-          if (in_inst) cull = L.inst_cull;
-        }
-        V pa = ld3(t);
-        float tt;
-        V n;
-        bool bf;
-        if (mt(L.lo, L.ld, pa, ld3(t + 3) - pa, ld3(t + 6) - pa, ld3(t + 9), ld3(t + 12),
-               ld3(t + 15), cull, tt, n, bf) &&
-            tt < L.lt) {
-          L.lt = tt; L.lnrm = n; L.lback = bf;
-          L.lmesh = in_inst ? L.inst_mesh : (is_static ? aux : entry_mesh);
-        }
+      const int entry_mesh = x.chain_mesh()[ec];
+      const bool is_static = entry_mesh < 0;
+      const bool cull_mesh_e = cp[14] != 0.0f;
+      const int n_tris = x.c.leaf_tris;
+      bool hit = false, hb = false;
+      V hn = v3(0.0f, 0.0f, 0.0f);
+      for (int g = 0; g < n_tris; g += 4) {
+        const float4* g4 = r4 + 19 * (g >> 2);
+        float4 carry = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        leaf_tri<0, kTlas>(x, L, g4, carry, is_static, cull_mesh_e, entry_mesh, in_inst, hit,
+                           hn, hb);
+        if (g + 1 < n_tris)
+          leaf_tri<1, kTlas>(x, L, g4, carry, is_static, cull_mesh_e, entry_mesh, in_inst, hit,
+                             hn, hb);
+        if (g + 2 < n_tris)
+          leaf_tri<2, kTlas>(x, L, g4, carry, is_static, cull_mesh_e, entry_mesh, in_inst, hit,
+                             hn, hb);
+        if (g + 3 < n_tris)
+          leaf_tri<3, kTlas>(x, L, g4, carry, is_static, cull_mesh_e, entry_mesh, in_inst, hit,
+                             hn, hb);
       }
-      pop = true;
+      if (hit) {
+        x.cold.put(LNRM_X, hn);
+        x.cold.w(LBACK) = hb;
+      }
+      pop_top = true;
     } else {
       // Node row: arity children, visited in direction-signed priority
-      // order; cur_slot floors the priority of a resumed node. u8: child
-      // boxes quantised on the node's grid, 3 words a slot; bf16:
-      // absolute bounds, 4 words a slot.
+      // order; cur_slot floors the priority of a resumed node. Words 0-6
+      // (grid origin, grid step, split axis) and word 7, slot 0's first,
+      // come in two float4s; then u8: 3 words a slot, four slots in
+      // three float4s, a slot's first word carried from the float4
+      // before; bf16: absolute bounds, 4 words a slot, one float4 each.
       const int arity = x.c.arity;
-      V go = ld3(row), gs = ld3(row + 3);
-      int axis = __float_as_int(row[6]);
+      const float limit =
+          minp(L.lt, L.w_dst / safe_scale(in_inst ? inst_scale : cp[12]) * kGrow);
+      const float4 h0 = ld_row4(r4), h1 = ld_row4(r4 + 1);
+      const V go = v3(h0.x, h0.y, h0.z), gs = v3(h0.w, h1.x, h1.y);
+      const int axis = __float_as_int(h1.z);
+      float carry = h1.w;
       float dcomp = axis == 0 ? L.ld.x : (axis == 1 ? L.ld.y : L.ld.z);
       bool fwd = dcomp >= 0.0f;
       TwoBest b;
       b.init(arity);
-      for (int slot = 0; slot < arity; ++slot) {
-        const float* w = row + 7 + (kBf16 ? 4 : 3) * slot;
-        int meta = __float_as_int(w[kBf16 ? 3 : 2]);
-        int prio = fwd ? slot : arity - 1 - slot;
-        if (meta == 0 || prio < L.cur_slot) continue;
-        ++L.n_box;
-        uint32_t w0 = __float_as_uint(w[0]), w1 = __float_as_uint(w[1]);
-        V bmin, bmax;
-        if constexpr (kBf16) {
-          uint32_t w2 = __float_as_uint(w[2]);
-          bmin = v3(__uint_as_float(w0 << 16), __uint_as_float(w0 & 0xFFFF0000u),
-                    __uint_as_float(w1 << 16));
-          bmax = v3(__uint_as_float(w1 & 0xFFFF0000u), __uint_as_float(w2 << 16),
-                    __uint_as_float(w2 & 0xFFFF0000u));
-        } else {
-          V q_lo = v3((float)(int)(w0 & 255u), (float)(int)((w0 >> 8) & 255u),
-                      (float)(int)((w0 >> 16) & 255u));
-          V q_hi = v3((float)(int)((w0 >> 24) & 255u), (float)(int)(w1 & 255u),
-                      (float)(int)((w1 >> 8) & 255u));
-          bmin = go + q_lo * gs;
-          bmax = go + q_hi * gs;
+      if constexpr (kBf16) {
+        for (int slot = 0; slot < arity; ++slot) {
+          const float4 q = ld_row4(r4 + 2 + slot);
+          node_slot<true>(L, b, slot, arity, fwd, go, gs, limit, carry, q.x, q.y, q.z);
+          carry = q.w;
         }
-        if (aabb(L.lo, L.lid, bmin, bmax, limit)) b.add(prio, meta);
+      } else {
+        const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int g = 0; g < arity; g += 4) {
+          const float4* g4 = r4 + 2 + 3 * (g >> 2);
+          // Only the float4s the row's slots reach are loaded.
+          const float4 qa = ld_row4(g4);
+          const float4 qb = g + 1 < arity ? ld_row4(g4 + 1) : none;
+          const float4 qc = g + 3 < arity ? ld_row4(g4 + 2) : none;
+          node_slot<false>(L, b, g, arity, fwd, go, gs, limit, carry, qa.x, 0.0f, qa.y);
+          if (g + 1 < arity)
+            node_slot<false>(L, b, g + 1, arity, fwd, go, gs, limit, qa.z, qa.w, 0.0f, qb.x);
+          if (g + 2 < arity)
+            node_slot<false>(L, b, g + 2, arity, fwd, go, gs, limit, qb.y, qb.z, 0.0f, qb.w);
+          if (g + 3 < arity)
+            node_slot<false>(L, b, g + 3, arity, fwd, go, gs, limit, qc.x, qc.y, 0.0f, qc.z);
+          carry = qc.w;
+        }
       }
-      pop = b.best_prio >= arity;
-      if (!pop) {
+      pop_top = b.best_prio >= arity;
+      if (!pop_top) {
         // The 2nd-nearest hit child goes on top RESOLVED (tag set); a
         // (row, slot) resume entry below it only when a third exists.
         if (b.hits >= 3)
@@ -890,12 +1054,12 @@ __device__ bool traverse_rows(const Ctx& x, Ln& L) {
         L.cur_slot = 0;
       }
     }
-    if (pop) {
+    if (pop_top) {
       if (L.sp == 0) {
         L.cur = -1;
         if constexpr (kTlas) L.cur_inst = false;
       } else {
-        uint32_t top = L.stk[--L.sp];
+        uint32_t top = pop(L, x.c.s_depth);
         bool resolved = (top & kTag) != 0;
         uint32_t meta = top & 0x7FFFFFFFu;
         if constexpr (kTlas) {
@@ -916,8 +1080,8 @@ __device__ bool traverse_rows(const Ctx& x, Ln& L) {
 // sweep resolved (winner ``col``, -1 on a miss, at ``t_sw``): acceptance
 // and t from the sweep; normal, backface and the cull verdict from the
 // exact test on the winner (megakernel._dense_hit). Then the fold.
-template <class Ln>
-__device__ bool traverse_swept(const Ctx& x, Ln& L, int col, float t_sw) {
+template <class Ln, class X>
+__device__ __forceinline__ bool traverse_swept(const X& x, Ln& L, int col, float t_sw) {
   ++L.n_leaf;
   L.lt = t_sw;
   L.lmesh = -1;
@@ -929,8 +1093,8 @@ __device__ bool traverse_swept(const Ctx& x, Ln& L, int col, float t_sw) {
     bool bf;
     if (mt(L.lo, L.ld, pa, ld3(r + 3) - pa, ld3(r + 6) - pa, ld3(r + 9), ld3(r + 12),
            ld3(r + 15), x.tb.dt.cull[col] != 0.0f, te, n, bf)) {
-      L.lnrm = n;
-      L.lback = bf;
+      x.cold.put(LNRM_X, n);
+      x.cold.w(LBACK) = bf;
       L.lmesh = x.tb.dt.owner[col];
     }
   }
@@ -967,90 +1131,123 @@ __device__ __forceinline__ int slot_frame(const MkCfg& c, int pixno) {
 }
 
 // Segment completion: shade -> accumulate/advance -> restart -> static
-// stage -> chain enter (pretest, chain skip, root expansion).
-template <bool kTlas, class Ln>
-__device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
+// stage -> chain enter (pretest, chain skip, root expansion). A pass on a
+// lane that completes no segment touches no cold word but, once after
+// a path's end, acc (Lane::acc_raw), unless it enters the next chain
+// entry.
+template <bool kTlas, class Ln, class X>
+__device__ __forceinline__ void tail(const X& x, Ln& L, bool entering_in, bool do_expand) {
   const MkCfg& c = x.c;
+  const auto& C = x.cold;
   const int E = c.e_count;
-  const bool shade = !L.done && L.entry >= E;
-  if (shade && c.use_cache && !L.c_set && L.bounces == 0 && L.sample == 0) {
-    L.c_set = true; L.c_valid = L.w_valid; L.c_point = L.w_point;
-    L.c_normal = L.w_normal; L.c_back = L.w_back; L.c_mesh = L.w_mesh; L.c_dst = L.w_dst;
-  }
-  bool continuing = false, invisible = false;
-  if (shade) {
-    L.segments += 1;
-    ++L.n_seg;
-    shade_hit(x, L, continuing, invisible);
-    if (invisible) L.invis += 1;
-    continuing = continuing && !(invisible && L.invis > c.invisible_budget);
-  }
-  const bool cont = shade && continuing;
-  const bool path_end = shade && !continuing;
-  V zero = v3(0.0f, 0.0f, 0.0f);
-  L.acc = L.acc + sel(path_end, L.light, zero);
-  if (path_end) L.sample += 1;
-  const bool pix_done = path_end && L.sample >= c.rays_per_pixel;
-  bool retire = pix_done, advance = false;
-  if (c.p_count > 1 && pix_done) {
-    bool last_pix = L.pixno >= c.p_count - 1;
-    retire = last_pix;
-    advance = !last_pix;
-    x.s.put(kAccBase<kTlas> + 3 * L.pixno, L.acc);  // bank into the quota slot
-    L.acc = zero;
-    L.sample = 0;
-    if (advance) {
-      L.pixno += 1;
-      int row = L.pixno - 1;
-      if (c.frames > 1) {
-        // The table advance: slot pixno % ppf's pixel, and the direction
-        // table's row (pixno - 1) % rd_rows.
-        L.pix = x.tb.slot_pix[(size_t)(L.pixno % c.ppf) * x.s.n + x.s.i];
-        row %= c.rd_rows;
-      } else {
-        L.pix = (uint32_t)min((int)L.pix + c.pixel_stride, c.width * c.height - 1);
-      }
-      const float* sr = x.tb.slot_rd + (size_t)row * x.s.n + x.s.i;
-      size_t comp = (size_t)c.rd_rows * x.s.n;
-      L.rd0 = v3(sr[0], sr[comp], sr[2 * comp]);
+  const V zero = v3(0.0f, 0.0f, 0.0f);
+  V origin, direction;
+  if (L.done || L.entry < E) {
+    if (L.acc_raw) {
+      C.put(ACC_X, C.v(ACC_X) + zero);
+      L.acc_raw = false;
     }
-  }
-  L.done = L.done || retire;
-  const bool new_sample = path_end && !retire;
-  if (!c.seed_reference) {
-    if (new_sample)
-      L.rng = make_seed(L.pix, slot_frame(c, L.pixno),
-                        (uint32_t)L.sample + (uint32_t)c.sample_offset);
-  } else if (advance) {
-    // Reference mode: one seed per PIXEL (Trace.cl:632-641).
-    L.rng = make_seed(L.pix, slot_frame(c, L.pixno), 0u);
-  }
-  if (new_sample) {
+    if (E == 0 || !entering_in) return;
+    origin = C.v(ORIGIN_X);
+    direction = C.v(DIRECTION_X);
+  } else {
+    int sample = (int)C.w(SAMPLE);
+    if (c.use_cache && C.w(C_SET) == 0 && C.w(BOUNCES) == 0 && sample == 0) {
+      C.w(C_SET) = 1u; C.w(C_VALID) = C.w(W_VALID); C.put(C_POINT_X, C.v(W_POINT_X));
+      C.put(C_NORMAL_X, C.v(W_NORMAL_X)); C.w(C_BACK) = C.w(W_BACK);
+      C.w(C_MESH) = C.w(W_MESH); C.put(C_DST, L.w_dst);
+    }
+    C.w(SEGMENTS) += 1u;
+    ++L.n_seg;
+    const int shaded = shade_hit(x);
+    bool continuing = (shaded & kContinuing) != 0;
+    if (shaded & kInvisible) {
+      const int invis = (int)C.w(INVIS) + 1;
+      C.w(INVIS) = (uint32_t)invis;
+      continuing = continuing && !(invis > c.invisible_budget);
+    }
+    const bool path_end = !continuing;
+    V acc = C.v(ACC_X);
+    if (path_end) {
+      acc = acc + C.v(LIGHT_X);
+      sample += 1;
+    } else if (L.acc_raw) {
+      acc = acc + zero;
+    }
+    L.acc_raw = path_end;
+    const bool pix_done = path_end && sample >= c.rays_per_pixel;
+    bool retire = pix_done, advance = false;
+    int pixno = (int)C.w(PIXNO);
+    uint32_t pix = C.w(PIX);
+    if (c.p_count > 1 && pix_done) {
+      bool last_pix = pixno >= c.p_count - 1;
+      retire = last_pix;
+      advance = !last_pix;
+      x.s.put(kAccBase<kTlas> + 3 * pixno, acc);  // bank into the quota slot
+      acc = zero;
+      L.acc_raw = false;
+      sample = 0;
+      if (advance) {
+        pixno += 1;
+        int row = pixno - 1;
+        if (c.frames > 1) {
+          // The table advance: slot pixno % ppf's pixel, and the direction
+          // table's row (pixno - 1) % rd_rows.
+          pix = x.tb.slot_pix[(size_t)(pixno % c.ppf) * x.s.n + x.s.i];
+          row %= c.rd_rows;
+        } else {
+          pix = (uint32_t)min((int)pix + c.pixel_stride, c.width * c.height - 1);
+        }
+        const float* sr = x.tb.slot_rd + (size_t)row * x.s.n + x.s.i;
+        size_t comp = (size_t)c.rd_rows * x.s.n;
+        C.put(RD0_X, v3(sr[0], sr[comp], sr[2 * comp]));
+        C.w(PIX) = pix;
+        C.w(PIXNO) = (uint32_t)pixno;
+      }
+    }
+    C.put(ACC_X, acc);
+    C.w(SAMPLE) = (uint32_t)sample;
+    L.done = retire;
+    const bool new_sample = path_end && !retire;
+    if (!c.seed_reference) {
+      if (new_sample)
+        C.w(RNG) = make_seed(pix, slot_frame(c, pixno),
+                             (uint32_t)sample + (uint32_t)c.sample_offset);
+    } else if (advance) {
+      // Reference mode: one seed per PIXEL (Trace.cl:632-641).
+      C.w(RNG) = make_seed(pix, slot_frame(c, pixno), 0u);
+    }
+    if (new_sample) {
 #if TPURT_MK_JITTER
-    primary_ray(c, L.pix, L.sample, L.origin, L.direction);
+      primary_ray(c, pix, sample, origin, direction);
 #else
-    L.origin = L.ro0; L.direction = L.rd0;
+      origin = C.v(RO0_X);
+      direction = C.v(RD0_X);
 #endif
-    L.throughput = v3(1.0f, 1.0f, 1.0f); L.light = zero;
-    L.bounces = 0; L.invis = 0;
+      C.put(ORIGIN_X, origin); C.put(DIRECTION_X, direction);
+      C.put(THROUGHPUT_X, v3(1.0f, 1.0f, 1.0f)); C.put(LIGHT_X, zero);
+      C.w(BOUNCES) = 0u; C.w(INVIS) = 0u;
+    } else {
+      origin = C.v(ORIGIN_X);
+      direction = C.v(DIRECTION_X);
+    }
+    bool replay = false;
+    if (c.use_cache) {
+      if (advance) C.w(C_SET) = 0u;
+      replay = new_sample && C.w(C_SET) != 0;
+    }
+    const bool restart = continuing || (new_sample && !replay);
+    if (restart) { L.entry = 0; L.sp = 0; }
+    C.w(W_VALID) = 0u; L.w_dst = INFINITY; C.w(W_MESH) = (uint32_t)-1;
+    if (restart) L.w_dst = static_stage(x, origin, direction);
+    if (replay) {
+      L.entry = E;
+      C.w(W_VALID) = C.w(C_VALID); L.w_dst = C.f(C_DST); C.put(W_POINT_X, C.v(C_POINT_X));
+      C.put(W_NORMAL_X, C.v(C_NORMAL_X)); C.w(W_BACK) = C.w(C_BACK);
+      C.w(W_MESH) = C.w(C_MESH);
+    }
+    if (E == 0 || !(entering_in || restart)) return;
   }
-  bool replay = false;
-  if (c.use_cache) {
-    if (advance) L.c_set = false;
-    replay = new_sample && L.c_set;
-  }
-  const bool restart = cont || (new_sample && !replay);
-  if (restart) { L.entry = 0; L.sp = 0; }
-  if (shade) { L.w_valid = false; L.w_dst = INFINITY; L.w_mesh = -1; }
-  if (restart)
-    static_stage(x, L.origin, L.direction, L.w_valid, L.w_dst, L.w_point, L.w_normal,
-                 L.w_back, L.w_mesh);
-  if (replay) {
-    L.entry = E;
-    L.w_valid = L.c_valid; L.w_dst = L.c_dst; L.w_point = L.c_point;
-    L.w_normal = L.c_normal; L.w_back = L.c_back; L.w_mesh = L.c_mesh;
-  }
-  if (E == 0 || !(entering_in || restart)) return;
   if constexpr (kTlas) {
     // An entering lane starts at the entry's root (a node row) in the
     // world frame.
@@ -1063,7 +1260,7 @@ __device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
   int cur_e = L.entry, root;
   bool leaf;
   V lo, ld, lid;
-  enter(x, cur_e, L.origin, L.direction, lo, ld, lid, root, leaf);
+  enter(x, cur_e, origin, direction, lo, ld, lid, root, leaf);
   bool ok = pretest(x, cur_e, lo, lid, L.w_dst);
   bool pend = !ok;
   for (int k = 0; k < c.n_skip && pend; ++k) {
@@ -1073,7 +1270,7 @@ __device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
       V lo3, ld3_, lid3;
       int root3;
       bool leaf3;
-      enter(x, cur_e, L.origin, L.direction, lo3, ld3_, lid3, root3, leaf3);
+      enter(x, cur_e, origin, direction, lo3, ld3_, lid3, root3, leaf3);
       bool ok3 = pretest(x, cur_e, lo3, lid3, L.w_dst);
       lo = lo3; ld = ld3_; lid = lid3; root = root3; leaf = leaf3; ok = ok3;
       pend = !ok3;
@@ -1089,11 +1286,13 @@ __device__ void tail(const Ctx& x, Ln& L, bool entering_in, bool do_expand) {
 }
 
 // One loop trip after the traversal step: tail_passes segment
-// completions (megakernel._body_math).
-template <bool kTlas, class Ln>
-__device__ __forceinline__ void trip_tail(const Ctx& x, Ln& L, bool in_chain) {
-  tail<kTlas>(x, L, in_chain, x.c.expand_passes >= 1);
-  for (int p = 1; p < x.c.tail_passes; ++p) tail<kTlas>(x, L, false, p < x.c.expand_passes);
+// completions (megakernel._body_math), at least one; the first enters
+// the next chain entry where the fold advanced to one. One loop, so the
+// inlined tail appears once.
+template <bool kTlas, class Ln, class X>
+__device__ __forceinline__ void trip_tail(const X& x, Ln& L, bool in_chain) {
+  for (int p = 0; p == 0 || p < x.c.tail_passes; ++p)
+    tail<kTlas>(x, L, p == 0 && in_chain, p < x.c.expand_passes);
 }
 
 // The next unstarted lane index from the queue; the threads of a warp
@@ -1114,10 +1313,10 @@ struct Out {
 };
 
 // Stores a retired lane (its state is final for this launch).
-template <bool kTlas, class Ln>
-__device__ void retire(const Ctx& x, const Ln& L, int trips, const Out& o, int stack_base) {
+template <bool kTlas, class Ln, class X>
+__device__ __forceinline__ void retire(const X& x, Ln& L, int trips, const Out& o, int stack_base) {
   const int i = x.s.i, n = x.c.n_lanes;
-  store_lane<kTlas>(L, x.s, stack_base, x.c.s_depth);
+  store_lane<kTlas>(L, x, stack_base);
   o.trips[i] = trips;
   o.work[i] = L.n_box;
   o.work[n + i] = L.n_leaf;
@@ -1130,13 +1329,14 @@ __device__ void retire(const Ctx& x, const Ln& L, int trips, const Out& o, int s
 
 // Takes lanes from the queue until one needs a trip (retiring any that
 // need none); false when the queue is empty.
-template <bool kTlas, class Ln>
-__device__ bool take_live(Ctx& x, Ln& L, const Out& o, int stack_base) {
+template <bool kTlas, class Ln, class X>
+__device__ __forceinline__ bool take_live(X& x, Ln& L, const Out& o, int stack_base,
+                                          uint32_t* ring) {
   for (;;) {
     const int i = take_lane(o.queue);
     if (i >= x.c.n_lanes) return false;
-    x.s.i = i;
-    load_lane<kTlas>(L, x.s, stack_base, x.c.s_depth, x.tb.stack);
+    x.take(i);
+    load_lane<kTlas>(L, x, stack_base, ring);
     if (!L.done && x.c.max_trips > 0) return true;
     retire<kTlas>(x, L, 0, o, stack_base);
   }
@@ -1145,14 +1345,21 @@ __device__ bool take_live(Ctx& x, Ln& L, const Out& o, int stack_base) {
 // Ends a trip of the dense megakernel's lane: a lane that is done or
 // at max_trips retires and the thread takes the next. Returns whether
 // the thread holds a live lane.
-template <class Ln>
-__device__ __forceinline__ bool end_trip(Ctx& x, Ln& L, int& trips, const Out& o,
-                                         int stack_base) {
+template <class Ln, class X>
+__device__ __forceinline__ bool end_trip(X& x, Ln& L, int& trips, const Out& o, int stack_base,
+                                         uint32_t* ring) {
   ++trips;
   if (!L.done && trips < x.c.max_trips) return true;
   retire<false>(x, L, trips, o, stack_base);
   trips = 0;
-  return take_live<false>(x, L, o, stack_base);
+  return take_live<false>(x, L, o, stack_base, ring);
+}
+
+// The words of dynamic shared memory a thread takes: its stack ring
+// (none in kDeep) and, where they are in shared memory, its cold rows.
+__host__ __device__ constexpr int shared_words(bool dense, bool deep, int s_depth) {
+  return (deep ? 0 : s_depth) +
+         ((dense ? kDenseColdAt : kColdAt) == kColdInShared ? kColdWords : 0);
 }
 
 // The BVH megakernel (kDense = false): each thread runs its lane's
@@ -1163,18 +1370,27 @@ __device__ __forceinline__ bool end_trip(Ctx& x, Ln& L, int& trips, const Out& o
 // (the entry is finished or was skipped: fold and tail only), taking new
 // lanes as they retire, so that at the sweep every live lane sweeps. A
 // lane's trips are the same trips in the same order whichever loop runs
-// them.
+// them. Dynamic shared memory: the threads' stack rings, [entry][thread]
+// (s_depth x blockDim words; none in kDeep), then, where they are in
+// shared memory, the cold rows [row][thread].
 template <bool kDense, bool kTlas, bool kBf16, bool kDeep>
 __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
                                   kDense ? kDenseMinBlocks : kMinBlocks)
     megakernel(MkCfg c, Tables tb, Out o) {
   static_assert(!(kDense && (kTlas || kBf16 || kDeep)), "the dense kernel walks no rows");
-  Ctx x{c, tb, Words{o.state, c.n_lanes, 0}};
+  extern __shared__ uint32_t dyn[];
+  constexpr int T = kDense ? kDenseThreads : kThreads;
+  const int tid = (int)threadIdx.x;
+  uint32_t* ring = dyn + tid;
+  constexpr int kAt = kDense ? kDenseColdAt : kColdAt;
+  uint32_t* cold_rows = dyn + (kDeep ? 0 : c.s_depth) * T + tid;
+  Ctx<kAt> x{c, tb, Words{o.state, c.n_lanes, 0, {}},
+             Cols<kAt>{kAt == kColdInShared ? cold_rows : o.state, c.n_lanes, 0, {}}};
   const int stack_base = kAccBase<kTlas> + (c.p_count > 1 ? 3 * c.p_count : 0);
   const int E = c.e_count;
-  Lane<kDeep> L;
+  Lane<kDeep, T> L;
   if constexpr (!kDense) {
-    while (take_live<kTlas>(x, L, o, stack_base)) {
+    while (take_live<kTlas>(x, L, o, stack_base, ring)) {
       int trips = 0;
       do {
         const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
@@ -1186,12 +1402,12 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
   } else {
     __shared__ SweepSmem<kDenseThreads> sm;
     int trips = 0;
-    bool have = take_live<false>(x, L, o, stack_base);
+    bool have = take_live<false>(x, L, o, stack_base, ring);
     while (__syncthreads_or(have)) {
       while (have && !(L.entry < E && L.cur >= 0)) {
         const bool in_chain = E > 0 && fold<false>(x, L, false, 1.0f);
         trip_tail<false>(x, L, in_chain);
-        have = end_trip(x, L, trips, o, stack_base);
+        have = end_trip(x, L, trips, o, stack_base, ring);
       }
       // A thread that still holds a lane now needs a sweep.
       if (E > 0) {
@@ -1202,7 +1418,7 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
             have ? L.ld.z : 0.0f, t_sw, sm);
         if (have) {
           trip_tail<false>(x, L, traverse_swept(x, L, col, t_sw));
-          have = end_trip(x, L, trips, o, stack_base);
+          have = end_trip(x, L, trips, o, stack_base, ring);
         }
       }
     }
@@ -1251,17 +1467,28 @@ KernelFn kernel_for(int variant, int* threads) {
 
 }  // namespace
 
-// The launch configuration of one instantiation on the current device:
-// threads a block, resident blocks per SM, SMs. Returns a cudaError_t.
-extern "C" int tpurt_mk_occupancy(int variant, int* threads, int* blocks_per_sm, int* sms) {
+// The launch configuration of one instantiation on the current device
+// for a stack budget of ``s_depth`` words: threads a block, resident
+// blocks per SM, SMs, and the dynamic shared memory of a block
+// (``shared_words`` a thread), which the occupancy counts; a block that
+// needs more than 48 KB of shared memory in all is allowed its dynamic
+// part first. Returns a cudaError_t.
+extern "C" int tpurt_mk_occupancy(int variant, int s_depth, int* threads, int* blocks_per_sm,
+                                  int* sms, int* smem_bytes) {
   KernelFn fn = kernel_for(variant, threads);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  *smem_bytes = 4 * *threads * shared_words((variant & 1) != 0, (variant & 8) != 0, s_depth);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && attr.sharedSizeBytes + (size_t)*smem_bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads,
+                                                        (size_t)*smem_bytes);
   return (int)err;
 }
 
@@ -1270,7 +1497,8 @@ extern "C" int tpurt_mk_occupancy(int variant, int* threads, int* blocks_per_sm,
 // name (kDeep: the stacks on ``stack``, which the host sized) — as a
 // persistent grid of resident blocks that take lanes from ``queue`` (an
 // int the caller zeroed); returns a cudaError_t. A stack budget above
-// kMaxStack without kDeep, or kDeep with the dense sweep, is refused.
+// kMaxSharedStack without kDeep, or kDeep with the dense sweep, is
+// refused.
 extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float* chain,
                                const float* mats, const float* srows, const float* roots_f,
                                const int* roots_i, const int* meta, const float* slot_rd,
@@ -1281,11 +1509,12 @@ extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float*
             meta,    slot_rd,  slot_pix, stack, DenseTable{}};
   if (cfg->n_lanes <= 0) return (int)cudaGetLastError();
   const bool deep = cfg->deep != 0;
-  if (deep ? dense != nullptr : cfg->s_depth > kMaxStack) return (int)cudaErrorInvalidValue;
+  if (deep ? dense != nullptr : cfg->s_depth > kMaxSharedStack)
+    return (int)cudaErrorInvalidValue;
   const int variant = (dense != nullptr) | (cfg->tlas != 0) << 1 | (cfg->bf16 != 0) << 2 |
                       (int)deep << 3;
-  int threads = 0, per_sm = 0, sms = 0;
-  int err = tpurt_mk_occupancy(variant, &threads, &per_sm, &sms);
+  int threads = 0, per_sm = 0, sms = 0, smem = 0;
+  int err = tpurt_mk_occupancy(variant, cfg->s_depth, &threads, &per_sm, &sms, &smem);
   if (err != 0) return err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int needed = (cfg->n_lanes + threads - 1) / threads;
@@ -1296,7 +1525,7 @@ extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float*
   void* args[] = {&c, &tb, &o};
   const cudaError_t launched =
       cudaLaunchKernel((const void*)kernel_for(variant, &threads), dim3(blocks),
-                       dim3(threads), args, 0, (cudaStream_t)stream);
+                       dim3(threads), args, (size_t)smem, (cudaStream_t)stream);
   if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }

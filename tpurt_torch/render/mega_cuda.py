@@ -3,11 +3,18 @@
 The kernel replaces tpurt/render/mega_pallas.py:make_pallas_body (the
 fused Pallas loop body, ``pallas_call`` at mega_pallas.py:237) together
 with the XLA row gather that fed it (megakernel.py:2050-2074): one CUDA
-thread per lane runs the whole persistent lane loop with its lane state
-in registers, loading its own bank row each trip. The grid is as many
-blocks as stay resident; a thread whose lane retires takes the next
-from a queue (a counter this wrapper zeroes). The source's header says
-what bounds it on the card and why one thread per lane.
+thread per lane runs the whole persistent lane loop, loading its own
+bank row each trip with 128-bit loads. The words the traversal step
+touches every trip stay in registers; the others live in rows of the
+block's dynamic shared memory (the dense instantiation: in registers),
+copied from the state buffer when a thread takes a lane and back when
+it retires it; the traversal stack is a ring in that shared memory too
+(``shared_stack_bytes``), or for budgets above ``MAX_SHARED_STACK``
+words in a global scratch buffer (``deep_stack``). The grid is as many
+blocks as stay resident with that shared memory; a thread whose lane
+retires takes the next from a queue (a counter this wrapper zeroes). The
+source's header says what bounds it on the card and why one thread per
+lane.
 
 ``run`` is the one entry point. On a CUDA lane state it launches the
 kernel — one launch per call, counted in ``LAUNCHES`` — or raises; on a
@@ -18,9 +25,9 @@ launches the kernel's dense instantiation, whose traversal step is
 kernel B2's sweep (render/plucker_fused.py); those launches are counted
 in ``DENSE_LAUNCHES``. A TLAS scene (``ctx.tlas``) and a bf16 bank
 (``ctx.bf16``) launch the instantiations compiled for them, and a stack
-budget above the kernel's ``kMaxStack`` (``MAX_REGISTER_STACK``) entries
-the one whose stacks live in a global scratch buffer (``kDeep``); their
-launches count in ``LAUNCHES``. A cross-frame pack (``ctx.frames`` > 1)
+budget above the kernel's ``kMaxSharedStack`` (``MAX_SHARED_STACK``)
+words the one whose stacks live in a global scratch buffer (``kDeep``);
+their launches count in ``LAUNCHES``. A cross-frame pack (``ctx.frames`` > 1)
 runs in any of them: the kernel reads its slot pixels
 (``ctx.slot_pix``) and periodic direction table where a lane advances;
 a list quota (``ctx.pix_list``) reads its (P, R) slot pixels the same
@@ -58,10 +65,12 @@ LAUNCHES = 0
 DENSE_LAUNCHES = 0
 JITTER_LAUNCHES = 0
 
-#: kMaxStack in the kernel: deeper stacks take the kDeep instantiation,
-#: which ``launch`` names in MkCfg.deep (the kernel refuses a deeper
-#: budget without it).
-MAX_REGISTER_STACK = 64
+#: kMaxSharedStack in the kernel: a stack budget up to this many words a
+#: lane is a ring in the block's dynamic shared memory; a deeper one
+#: takes the kDeep instantiation (its rings in global scratch), which
+#: ``launch`` names in MkCfg.deep (the kernel refuses a deeper budget
+#: without it).
+MAX_SHARED_STACK = 64
 #: kSlotMask in the kernel: a stack entry keeps a node row's next child
 #: slot in MEGA_SLOT_BITS (6) bits, so a row holds at most 63 children.
 MAX_ARITY = (1 << MEGA_SLOT_BITS) - 1
@@ -264,7 +273,7 @@ def _lib(jitter: bool = False):
         lib.tpurt_mk_launch.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 16
         lib.tpurt_mk_launch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.tpurt_mk_occupancy.argtypes = [ctypes.c_int, ip, ip, ip]
+        lib.tpurt_mk_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ip, ip, ip, ip]
         lib.tpurt_mk_occupancy.restype = ctypes.c_int
         lib.tpurt_mk_fixed_words.argtypes = []
         lib.tpurt_mk_fixed_words.restype = ctypes.c_int
@@ -289,8 +298,15 @@ def _variant(dense: bool, tlas: bool, bf16: bool, deep: bool = False) -> int:
 
 def deep_stack(ctx: mk._Ctx) -> bool:
     """Whether ``ctx`` launches the kDeep instantiation (stacks in global
-    scratch): a BVH walk whose stack budget exceeds MAX_REGISTER_STACK."""
-    return ctx.dense is None and ctx.s_depth > MAX_REGISTER_STACK
+    scratch): a BVH walk whose stack budget exceeds MAX_SHARED_STACK."""
+    return ctx.dense is None and ctx.s_depth > MAX_SHARED_STACK
+
+
+def shared_stack_bytes(ctx: mk._Ctx, threads: int) -> int:
+    """The dynamic shared memory a block of ``threads`` takes for its
+    stack rings, s_depth words a thread; 0 where the stacks are in global
+    scratch (``deep_stack``)."""
+    return 0 if deep_stack(ctx) else 4 * ctx.s_depth * threads
 
 
 def check_bank(ctx: mk._Ctx):
@@ -298,12 +314,12 @@ def check_bank(ctx: mk._Ctx):
     host before a launch: an illegal access on the card would poison the
     context for every later launch (an autotune sweep's legs too), where
     a ValueError leaves it usable. A node row above MAX_ARITY children,
-    and a stack budget above MAX_REGISTER_STACK outside the kDeep
+    and a stack budget above MAX_SHARED_STACK outside the kDeep
     instantiation (which the dense sweep does not have)."""
     if not 2 <= ctx.arity <= MAX_ARITY:
         raise ValueError(f"node arity {ctx.arity}: the megakernel takes 2 to "
                          f"{MAX_ARITY} children a row")
-    if ctx.s_depth > MAX_REGISTER_STACK and not deep_stack(ctx):
+    if ctx.s_depth > MAX_SHARED_STACK and not deep_stack(ctx):
         raise ValueError(f"a stack budget of {ctx.s_depth} words needs the "
                          "deep-stack instantiation, which the dense sweep "
                          "does not have")
@@ -311,20 +327,23 @@ def check_bank(ctx: mk._Ctx):
 
 def launch_config(dense: bool, device=None, tlas: bool = False,
                   bf16: bool = False, deep: bool = False,
-                  jitter: bool = False) -> dict:
-    """The persistent launch of one instantiation on ``device``: threads
-    a block, resident blocks per SM, SMs, and the resident lanes."""
+                  jitter: bool = False, s_depth: int = 0) -> dict:
+    """The persistent launch of one instantiation on ``device`` for a
+    stack budget of ``s_depth`` words: threads a block, resident blocks
+    per SM, SMs, the resident lanes, and a block's dynamic shared memory
+    in bytes (its stack rings where not ``deep``, and in the BVH
+    instantiations its lanes' cold words)."""
     lib = _lib(jitter)
-    vals = [ctypes.c_int(0) for _ in range(3)]
+    vals = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(device):
-        err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16, deep),
+        err = lib.tpurt_mk_occupancy(_variant(dense, tlas, bf16, deep), int(s_depth),
                                      *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError("megakernel occupancy query failed: "
                            + lib.tpurt_mk_error_string(err).decode())
-    threads, per_sm, sms = (v.value for v in vals)
+    threads, per_sm, sms, smem = (v.value for v in vals)
     return dict(threads=threads, blocks_per_sm=per_sm, sms=sms,
-                resident_lanes=threads * per_sm * sms)
+                resident_lanes=threads * per_sm * sms, smem_bytes=smem)
 
 
 def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
@@ -352,6 +371,9 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     rows = ctx.rows
     if rows.device != buf.device or rows.dtype != torch.float32 or not rows.is_contiguous():
         raise ValueError("row bank must be a contiguous f32 tensor on the buffer's device")
+    if rows.data_ptr() % 16 or rows.shape[1] % 4:
+        raise ValueError("the kernel reads bank rows as 16-byte words: the bank must "
+                         "start 16-byte aligned and its rows be a multiple of 4 words")
     dev = buf.device
     # Freed when this returns, before the kernel ends: safe, because the
     # caching allocator reuses the memory only for later work on this
