@@ -2531,11 +2531,6 @@ def plan_of():
     return sorted((k[-1], v) for k, v in R._SCHED_TRACES.items())
 
 
-def step_counts(stats):
-    """A stage_stats list less its wall times."""
-    return [{k: v for k, v in s.items() if k != "wall_s"} for s in stats]
-
-
 def staged_pair(name, scene, cam, cfg, replay: bool = False):
     """A staged batch through B1 (mega_body="pallas") and through its
     plain version ("xla"), each recording its plan from scratch: equal
@@ -2561,7 +2556,7 @@ def staged_pair(name, scene, cam, cfg, replay: bool = False):
         wall = time.time() - t0
         if trips is not None:
             raise AssertionError(f"{name}: the batch did not stage")
-        out[body] = (mean, segs, step_counts(stats), plan_of(), wall)
+        out[body] = (mean, segs, stats, plan_of(), wall)
         if replay:
             again, asegs, _ = R.render_batch_flat(scene, cam, c, 0)
             if (R._SPEC_STATS["replayed"] < 1 or R._SPEC_STATS["fallback"]

@@ -211,13 +211,20 @@ def test_progress_and_profiling_on_the_cpu(tmp_path):
     p(2)
     assert "Finished 2/4 tiles (50.00%)" in buf.getvalue()
     assert mrays_per_second(10, 10, 2, 3.0, 0.5) == pytest.approx(1.2e-3)
-    t = profiling.PhaseTimer(device="cpu")
-    with t.phase("a", sync=[torch.ones(2)]):
-        pass
-    assert t.counts == {"a": 1} and t.report()[0].startswith("a: ")
+    profiling.reset()
+    with profiling.span("tpurt.a", frame=0):
+        with profiling.span("tpurt.a.b"):
+            profiling.count("tpurt.n", 2)
+    spans = profiling.totals()["spans"]
+    assert spans["tpurt.a"]["calls"] == spans["tpurt.a.b"]["calls"] == 1
+    assert spans["tpurt.a"]["self_s"] <= spans["tpurt.a"]["total_s"]
+    assert profiling.totals()["counts"] == {"tpurt.n": 2}
+    assert profiling.report().splitlines()[-1].split() == ["tpurt.n", "2"]
     with profiling.device_trace(str(tmp_path / "tr"), device="cpu") as prof:
-        torch.ones(4) + 1
+        with profiling.span("tpurt.a", frame=1):
+            torch.ones(4) + 1
     assert os.path.exists(tmp_path / "tr" / "trace.json") and prof is not None
+    assert profiling.totals(traced=True)["spans"]["tpurt.a"]["calls"] == 1
 
 
 # -- the viewer (viewer.py) -----------------------------------------------------------

@@ -325,7 +325,9 @@ def _public_names(path):
 #: tpurt's public names the port leaves out on purpose (ROADMAP north
 #: star and A.10): the TPU knobs, the Mosaic workarounds, the Pallas
 #: entry points, the fused dense table's TPU layout, the native OBJ
-#: parser and the builder constants the port reads from its config.
+#: parser, the builder constants the port reads from its config, and the
+#: phase timer and its sync point, which the port's spans and counters
+#: replace (a span never synchronises).
 EXCLUDED = {
     "_native.py": {"available", "get_lib", "parse_obj"},
     "config.py": {"DENSE_NUMERATOR_ACCEPT", "MEGA_BLOCK_LANES",
@@ -337,6 +339,9 @@ EXCLUDED = {
     "render/plucker_fused.py": {"FusedDenseTable", "K_PAD"},
     "render/shading.py": {"mat_types_present"},
     "scene/builder.py": {"MEGA_ARITY", "MEGA_LEAF_TRIS", "MEGA_ROW_WIDTH"},
+    "utils/profiling.py": {"materialize", "PhaseTimer", "PhaseTimer.__init__",
+                           "PhaseTimer.__str__", "PhaseTimer.phase",
+                           "PhaseTimer.report"},
 }
 
 

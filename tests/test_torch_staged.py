@@ -152,7 +152,7 @@ def test_staged_batch_equals_plain(monkeypatch, cascade):
     assert trips is None
     step = "cascade" if cascade else "respread"
     assert any(step in s for s in stats), stats
-    assert all(set(s) <= {"width", "iters", "active", "wall_s", "fold_to",
+    assert all(set(s) <= {"width", "iters", "active", "fold_to",
                           "pixno_hist", "respread", "cascade", "incomplete",
                           "respread_done", "cascade_done", "uncapped"}
                for s in stats)

@@ -13,7 +13,7 @@ has a named counterpart:
            the renderers, mesh picking                (tpurt/render)
   io/      BMP files, the tile accumulator            (tpurt/io)
   anim     videos and progressive frames              (tpurt/anim.py)
-  utils/   progress line, profiling hooks             (tpurt/utils)
+  utils/   progress line, spans and counters          (tpurt/utils)
   parallel/ device inventory and selection            (tpurt/parallel)
   cli, viewer  the command line and the terminal viewer (tpurt/cli.py,
            tpurt/viewer.py): python -m tpurt_torch.cli

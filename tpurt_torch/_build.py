@@ -84,6 +84,9 @@ def build(name: str) -> str:
     src = _source(name)
     compiler = nvcc_path() if src.endswith(".cu") else "g++"
     cmd = [compiler, *_flags(src), "-o", tmp, src]
+    from tpurt_torch.utils.profiling import count
+
+    count("kernel_builds")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(out + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -104,7 +107,10 @@ def build_all(names) -> dict:
     t0 = time.time()
 
     def one(name):
-        build(name)
+        from tpurt_torch.utils.profiling import span
+
+        with span("tpurt.kernels.load", lib=name):
+            build(name)
         return time.time() - t0
 
     with ThreadPoolExecutor(len(names)) as pool:
@@ -115,7 +121,10 @@ def load(name: str) -> ctypes.CDLL:
     """Build if needed and load ``csrc/<name>`` (once per process)."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(build(name))
+            from tpurt_torch.utils.profiling import span
+
+            with span("tpurt.kernels.load", lib=name):
+                _LIBS[name] = ctypes.CDLL(build(name))
         return _LIBS[name]
 
 

@@ -22,6 +22,12 @@ mesh spans every process's devices; every process writes the frame.
     python -m tpurt_torch.cli --cpu --width 64 --height 64
     tpurt-torch --rays-per-pixel 8          # on the card
     tpurt-torch --devices 0 --overdecompose 4
+    tpurt-torch --trace-dir trace           # spans, counters, device idle
+
+``--trace-dir DIR`` renders inside ``utils.profiling.device_trace(DIR)``
+(a Chrome trace, ``DIR/trace.json``, with the program's spans) and prints
+the spans and counters (``profiling.report``) and the device's idle time
+by span (``profiling.idle_by_span``) to stderr.
 """
 
 from __future__ import annotations
@@ -160,6 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "camera (wasd/qe + ijkl), adjust spp/bounces, "
                         "pick-to-tint; writes preview.bmp per pass")
     p.add_argument("--list-devices", action="store_true")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="render under the profiler: DIR/trace.json, and the "
+                        "spans, counters and idle time by span on stderr")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (the kernels' plain versions)")
     return p
@@ -291,6 +300,23 @@ def _run(args) -> int:
             print("no autotune cache for this platform; run "
                   "`python -m tpurt_torch.autotune` (using defaults)")
 
+    from tpurt_torch.utils import profiling
+
+    if not args.trace_dir:
+        return _render(args, cfg, device, devices, world, sharded)
+    with profiling.device_trace(args.trace_dir, device=device):
+        rc = _render(args, cfg, device, devices, world, sharded)
+    print(profiling.report(), file=sys.stderr)
+    idle = profiling.idle_by_span(profiling.trace_events(args.trace_dir))
+    print("device idle ms by span:", file=sys.stderr)
+    for name, sec in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:<28} {sec * 1e3:11.3f}", file=sys.stderr)
+    return rc
+
+
+def _render(args, cfg: RenderConfig, device, devices, world: int,
+            sharded: bool) -> int:
+    """Build the scene, render as the flags ask, write the output."""
     import torch
 
     from tpurt_torch import anim

@@ -15,6 +15,7 @@ import torch
 
 from tpurt_torch.core import rng
 from tpurt_torch.core.vecmath import euler_rotation, normalize3, rotate_t
+from tpurt_torch.utils.profiling import host_read
 
 
 class Camera(NamedTuple):
@@ -56,7 +57,7 @@ class Camera(NamedTuple):
         return cls(params=torch.from_numpy(p).to(device))
 
     def host_params(self) -> np.ndarray:
-        return self.params.detach().cpu().numpy().astype(np.float32)
+        return host_read(self.params.detach(), "camera").numpy().astype(np.float32)
 
 
 def camera_scalars(camera: Camera):

@@ -57,6 +57,7 @@ from tpurt_torch.core.camera import camera_scalars
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import megakernel as mk
 from tpurt_torch.scene.builder import MEGA_SLOT_BITS
+from tpurt_torch.utils.profiling import host_read, span
 
 #: Kernel launches made by ``launch`` (incremented where a launch is
 #: made): the BVH instantiations, the dense one, and any instantiation of
@@ -243,7 +244,8 @@ def _tables(ctx: mk._Ctx, dev):
         np.asarray(p.expand if e else (), np.int32),
         np.asarray(ctx.s_cull, np.int32), np.asarray(ctx.s_onesided, np.int32),
         np.asarray(ctx.s_owner, np.int32),
-        ctx.mesh_cull.cpu().numpy().astype(np.int32), np.zeros(1, np.int32),
+        host_read(ctx.mesh_cull, "mesh_cull").numpy().astype(np.int32),
+        np.zeros(1, np.int32),
     ]).astype(np.int32)
     if ctx.slot_rd is not None:
         slot_rd = torch.stack(list(ctx.slot_rd)).contiguous()  # (3, rows, R)
@@ -378,7 +380,8 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     # Freed when this returns, before the kernel ends: safe, because the
     # caching allocator reuses the memory only for later work on this
     # same stream.
-    tabs = _tables(ctx, dev)
+    with span("tpurt.launch.tables"):
+        tabs = _tables(ctx, dev)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
     work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -416,7 +419,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         dense = check_table(ctx.dense, dev)
     lib = _lib(ctx.jitter)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(dev):
+    with span("tpurt.launch.call"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpurt_mk_launch(
             ctypes.byref(cfg), ptr(rows), ptr(tabs["chain"]), ptr(tabs["mats"]),
@@ -444,8 +447,12 @@ def run(lane: mk._Lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane
     trips ran: the kernel for a CUDA lane state, its plain version
     (megakernel.run_plain) for a CPU one."""
     if lane.done.device.type == "cpu":
-        return mk.run_plain(lane, ctx, max_iterations)
-    buf = pack(lane)
+        with span("tpurt.launch.call"):
+            return mk.run_plain(lane, ctx, max_iterations)
+    with span("tpurt.launch.pack"):
+        buf = pack(lane)
     trips, _work = launch(buf, ctx, max_iterations)
-    iters = lane.iters + int(trips.max()) if trips.numel() else lane.iters
-    return unpack(buf, ctx, iters)
+    iters = (lane.iters + host_read(trips.max(), "trips", int) if trips.numel()
+             else lane.iters)
+    with span("tpurt.launch.unpack"):
+        return unpack(buf, ctx, iters)

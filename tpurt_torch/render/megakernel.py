@@ -76,6 +76,7 @@ from tpurt_torch.render.intersect import mt_rows
 from tpurt_torch.render.shading import pack_materials, shade_hit_soa
 from tpurt_torch.scene.builder import MEGA_ITAG, MEGA_SLOT_BITS
 from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.utils.profiling import host_read, span
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -239,13 +240,13 @@ def _cull_policy(mt: int) -> bool:
 def _chain_params(scene: Scene) -> _ChainParams:
     """tpurt's _chain_params on the host, in numpy float32."""
     rows = []
-    mesh_pos = scene.mesh_pos.cpu().numpy()
-    angles = [t.cpu().numpy() for t in
+    mesh_pos = host_read(scene.mesh_pos, "chain").numpy()
+    angles = [host_read(t, "chain").numpy() for t in
               (scene.mesh_pitch, scene.mesh_yaw, scene.mesh_roll)]
-    mesh_scale = scene.mesh_scale.cpu().numpy()
-    mat_type = scene.mat_type.cpu().numpy()
-    qmin = scene.mesh_qmin.cpu().numpy()
-    qscale = scene.mesh_qscale.cpu().numpy()
+    mesh_scale = host_read(scene.mesh_scale, "chain").numpy()
+    mat_type = host_read(scene.mat_type, "chain").numpy()
+    qmin = host_read(scene.mesh_qmin, "chain").numpy()
+    qscale = host_read(scene.mesh_qscale, "chain").numpy()
     for mesh_idx, _root, _leaf in scene.mega_chain:
         if mesh_idx == -2:  # TLAS entry: identity transform, the union of
             # the instances' world boxes as its pretest box
@@ -310,7 +311,8 @@ def _root_tables(scene: Scene, chain_roots, expand):
     (u8: ``grid_o + q * grid_s`` in f32; bf16: the word halves as f32
     top halves), and the child metas."""
     arity = scene.mega_arity
-    roots = scene.mega_rows[list(chain_roots)].cpu().numpy()  # just these rows
+    roots = host_read(scene.mega_rows[list(chain_roots)],
+                      "roots").numpy()  # just these rows
     bf16 = scene.mega_bounds_fmt == "bf16"
     f_rows, i_rows = [], []
     for e in range(len(chain_roots)):
@@ -1146,18 +1148,22 @@ def run_megakernel(
         r = ro0.x.shape[0] if isinstance(ro0, V3) else ro0.shape[0]
         return (torch.zeros((r * pixels_per_lane, 3), dtype=_F32,
                             device=scene.device), 0, 0)
-    lane, ctx = prepare(
-        scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
-        max_bounces, seed_mode, invisible_budget, sample_offset, camera,
-        width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
-        frames_per_batch, cameras, subpixel_jitter, pixel_list, initial_state,
-    )
-    if body_backend == "cuda":
-        from tpurt_torch.render import mega_cuda
+    with span("tpurt.prepare"):
+        lane, ctx = prepare(
+            scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
+            max_bounces, seed_mode, invisible_budget, sample_offset, camera,
+            width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
+            frames_per_batch, cameras, subpixel_jitter, pixel_list,
+            initial_state,
+        )
+    with span("tpurt.launch"):
+        if body_backend == "cuda":
+            from tpurt_torch.render import mega_cuda
 
-        final = mega_cuda.run(lane, ctx, max_iterations)
-    else:
-        final = run_plain(lane, ctx, max_iterations)
+            final = mega_cuda.run(lane, ctx, max_iterations)
+        else:
+            with span("tpurt.launch.call"):
+                final = run_plain(lane, ctx, max_iterations)
     global RUNS
     RUNS += 1
     if return_state:
@@ -1190,7 +1196,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
     r = ro0.x.shape[0]
     p_count = int(pixels_per_lane)
     e_count = len(scene.mega_chain)
-    params = _chain_params(scene) if e_count else None
+    with span("tpurt.prepare.chain"):
+        params = _chain_params(scene) if e_count else None
     table = None
     if dense and e_count:
         from tpurt_torch.render.plucker_fused import build_dense_table
@@ -1199,7 +1206,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         # the sweep, so no root expands (tpurt: megakernel.py:1499-1501).
         params = params._replace(expand=(False,) * e_count, roots_f=None,
                                  roots_i=None)
-        table = build_dense_table(scene)
+        with span("tpurt.prepare.dense_table"):
+            table = build_dense_table(scene)
     # The primary-hit cache replays sample 0's first hit for the pixel's
     # later samples: pointless at one sample, wrong under jitter.
     use_cache = not subpixel_jitter and rays_per_pixel > 1
@@ -1213,11 +1221,11 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
     if tlas and scene.mesh_mat_slot:
         mat_slots = tuple(torch.tensor(v, dtype=_I32, device=dev) for v in (
             scene.mesh_mat_slot, scene.mat_slot_rep))
-    mat_type = scene.mat_type.cpu().numpy()
+    mat_type = host_read(scene.mat_type, "mat_type").numpy()
     stride = r if pixel_stride is None else int(pixel_stride)
     ctx = _Ctx(
         rows=scene.mega_rows, rows_i=scene.mega_rows.view(_I32),
-        srows=scene.mega_static_rows.cpu().numpy(),
+        srows=host_read(scene.mega_static_rows, "static_rows").numpy(),
         s_cull=scene.mega_static_cull, s_onesided=scene.mega_static_onesided,
         s_owner=scene.mega_static_owner,
         mats=pack_materials(scene),
@@ -1241,54 +1249,56 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
     list_mode = pixel_list is not None and p_count > 1
 
     if p_count > 1:
-        # Quota slots' primary directions, from the same pixel_uv +
-        # make_ray chain as the entry rays.
-        pi0 = pixel_index.to(torch.int64)
-        frames = max(1, int(frames_per_batch))
-        ppf = p_count // frames
+        with span("tpurt.prepare.slots"):
+            # Quota slots' primary directions, from the same pixel_uv +
+            # make_ray chain as the entry rays.
+            pi0 = pixel_index.to(torch.int64)
+            frames = max(1, int(frames_per_batch))
+            ppf = p_count // frames
 
-        def slot_pixel(kk):
-            return torch.clamp_max(pi0 + kk * stride, width * height - 1)
+            def slot_pixel(kk):
+                return torch.clamp_max(pi0 + kk * stride, width * height - 1)
 
-        def slot_dir(pk, cam):
-            return make_ray(cam, pixel_uv(pk % width, pk // width, width,
-                                          height))[1]
+            def slot_dir(pk, cam):
+                return make_ray(cam, pixel_uv(pk % width, pk // width, width,
+                                              height))[1]
 
-        if frames > 1:
-            # Cross-frame pack: slot k's pixel is within-frame slot
-            # k mod ppf's (one (ppf, R) table); its direction is row
-            # (k-1) % rows of the table. One camera: the rows are one
-            # frame's slots 1..ppf-1 then slot 0 (the entry direction
-            # itself, so a frame start is bit-identical to a lone
-            # frame's), ppf rows. A camera a frame: slots 1..P-1.
-            pix_tab = torch.stack([slot_pixel(kk) for kk in range(ppf)])
-            if cameras is None:
-                rows = [slot_dir(slot_pixel(kk), camera)
-                        for kk in range(1, ppf)] + [v3lib.to_rows(rd0)]
+            if frames > 1:
+                # Cross-frame pack: slot k's pixel is within-frame slot
+                # k mod ppf's (one (ppf, R) table); its direction is row
+                # (k-1) % rows of the table. One camera: the rows are one
+                # frame's slots 1..ppf-1 then slot 0 (the entry direction
+                # itself, so a frame start is bit-identical to a lone
+                # frame's), ppf rows. A camera a frame: slots 1..P-1.
+                pix_tab = torch.stack([slot_pixel(kk) for kk in range(ppf)])
+                if cameras is None:
+                    rows = [slot_dir(slot_pixel(kk), camera)
+                            for kk in range(1, ppf)] + [v3lib.to_rows(rd0)]
+                else:
+                    rows = [slot_dir(slot_pixel(k % ppf), cameras[k // ppf])
+                            for k in range(1, p_count)]
+                ctx = ctx._replace(frames=frames, ppf=ppf,
+                                   slot_pix=(pix_tab & 0xFFFFFFFF).contiguous())
+            elif list_mode:
+                # List quota: slot k's pixel is pixel_list[min(lane0 +
+                # k*stride, N-1)]; row 0 (slot 0) is never read.
+                plist = torch.as_tensor(pixel_list, device=dev).to(torch.int64)
+                l0 = (torch.arange(r, device=dev) if initial_state is None
+                      else initial_state.lane0.to(torch.int64))
+                pix_tab = torch.stack([
+                    plist[torch.clamp_max(l0 + k * stride, plist.shape[0] - 1)]
+                    for k in range(p_count)]) & 0xFFFFFFFF
+                rows = [slot_dir(pix_tab[k], camera) for k in range(1, p_count)]
+                ctx = ctx._replace(slot_pix=pix_tab.contiguous(), pix_list=True)
             else:
-                rows = [slot_dir(slot_pixel(k % ppf), cameras[k // ppf])
-                        for k in range(1, p_count)]
-            ctx = ctx._replace(frames=frames, ppf=ppf,
-                               slot_pix=(pix_tab & 0xFFFFFFFF).contiguous())
-        elif list_mode:
-            # List quota: slot k's pixel is pixel_list[min(lane0 +
-            # k*stride, N-1)]; row 0 (slot 0) is never read.
-            plist = torch.as_tensor(pixel_list, device=dev).to(torch.int64)
-            l0 = (torch.arange(r, device=dev) if initial_state is None
-                  else initial_state.lane0.to(torch.int64))
-            pix_tab = torch.stack([
-                plist[torch.clamp_max(l0 + k * stride, plist.shape[0] - 1)]
-                for k in range(p_count)]) & 0xFFFFFFFF
-            rows = [slot_dir(pix_tab[k], camera) for k in range(1, p_count)]
-            ctx = ctx._replace(slot_pix=pix_tab.contiguous(), pix_list=True)
-        else:
-            rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
-        ctx = ctx._replace(slot_rd=v3lib.from_rows(
-            torch.stack(rows).contiguous()))
+                rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
+            ctx = ctx._replace(slot_rd=v3lib.from_rows(
+                torch.stack(rows).contiguous()))
     if initial_state is not None:
         return initial_state, ctx
     pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
-    lane = _initial_lane(ctx, ro0, rd0, pix)
+    with span("tpurt.prepare.lanes"):
+        lane = _initial_lane(ctx, ro0, rd0, pix)
     if list_mode:
         lane = lane._replace(lane0=torch.arange(r, dtype=_I32, device=dev))
     return lane, ctx
@@ -1296,9 +1306,11 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
 
 def finish(final: _Lane, ctx: _Ctx):
     """(mean radiance rows, exact segment count, trips) of a final state."""
-    accs = final.accs if ctx.p_count > 1 else (final.acc,)
-    mean = torch.cat([v3lib.to_rows(a) for a in accs]) / float(ctx.rays_per_pixel)
-    return mean, int(final.segments.sum()), final.iters
+    with span("tpurt.finish"):
+        accs = final.accs if ctx.p_count > 1 else (final.acc,)
+        mean = (torch.cat([v3lib.to_rows(a) for a in accs])
+                / float(ctx.rays_per_pixel))
+        return mean, host_read(final.segments.sum(), "segments", int), final.iters
 
 
 def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:

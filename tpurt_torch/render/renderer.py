@@ -65,7 +65,6 @@ propagates at once.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -81,6 +80,7 @@ from tpurt_torch.render.intersect import intersect_scene
 from tpurt_torch.render.megakernel import run_megakernel
 from tpurt_torch.render.tonemap import tonemap
 from tpurt_torch.scene.types import Scene
+from tpurt_torch.utils.profiling import host_read, span
 
 
 def body_backend(cfg: RenderConfig, scene: Scene) -> str:
@@ -199,17 +199,20 @@ def render_batch_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
     returns None for its trips, as tpurt's does; ``stage_stats`` (a list)
     then receives its per-stage telemetry (``_mega_finish_staged``)."""
     b = batch or _flat_batch_size(cfg)
-    if _staged(cfg, b):
-        p = cfg.pixels_per_lane
-        state, active = _mega_flat_start(scene, camera, cfg, start, frame_index,
-                                         sample_offset, _first_cap(cfg, p), b)
-        mean, segs = _mega_finish_staged(
-            scene, camera, cfg, state, active, frame_index, sample_offset, b,
-            pixels_per_lane=p, stage_stats=stage_stats, start=start)
-        return mean, int(segs), None
-    args = flat_batch_args(scene, camera, cfg, start, frame_index,
-                           sample_offset, batch=b)
-    return run_megakernel(scene, body_backend=body_backend(cfg, scene), **args)
+    with span("tpurt.batch", frame=frame_index, start=start, frames=1):
+        if _staged(cfg, b):
+            p = cfg.pixels_per_lane
+            state, active = _mega_flat_start(scene, camera, cfg, start,
+                                             frame_index, sample_offset,
+                                             _first_cap(cfg, p), b)
+            mean, segs = _mega_finish_staged(
+                scene, camera, cfg, state, active, frame_index, sample_offset,
+                b, pixels_per_lane=p, stage_stats=stage_stats, start=start)
+            return mean, host_read(segs, "segments", int), None
+        args = flat_batch_args(scene, camera, cfg, start, frame_index,
+                               sample_offset, batch=b)
+        return run_megakernel(scene, body_backend=body_backend(cfg, scene),
+                              **args)
 
 
 def _mega_flat_multi(scene: Scene, cameras, cfg: RenderConfig, start: int,
@@ -261,8 +264,9 @@ def render_batch_flat_frames(scene: Scene, cameras, cfg: RenderConfig,
     cams = tuple(cameras)
     if all(c is cams[0] for c in cams[1:]):
         cams = (cams[0],)
-    return _mega_flat_multi(scene, cams, cfg, start, frame_index,
-                            sample_offset, f)
+    with span("tpurt.batch", frame=frame_index, start=start, frames=f):
+        return _mega_flat_multi(scene, cams, cfg, start, frame_index,
+                                sample_offset, f)
 
 
 def _render_frame_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -299,7 +303,7 @@ def _render_frame_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
         if as_u8:
             acc = tonemap(acc)  # on the device: only uint8 comes back
         n = min(b, total - start)
-        out[start:start + n] = acc[:n].cpu().numpy()
+        out[start:start + n] = host_read(acc[:n], "frame").numpy()
         if progress is not None:
             progress(i + 1, n_batches)
     if stats is not None:
@@ -376,11 +380,6 @@ def _active(state):
     """Live lanes of a lane state, as a tensor on its device (read on the
     host only where the blocking driver decides)."""
     return (~state.done).sum()
-
-
-def _sync(t: torch.Tensor):
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
 
 
 def _rays_of(camera: Camera, pix: torch.Tensor, width: int, height: int):
@@ -635,11 +634,13 @@ def _assemble_staged(scene, camera, cfg: RenderConfig, state, folds, tail,
     ("plain", pixpack, pospack, n_valid, tail_w), one P = 1 batch, or
     ("cascade", pixpack, pospack, n_valid, w, p, depth), a staged quota
     level over the packed pixel list."""
-    for big, idx in reversed(folds):
-        state = _mega_fold(big, state, idx)
-    mean, segs = _mega_finalize(state, cfg.rays_per_pixel)
-    if tail is not None:
-        t0 = time.perf_counter()
+    with span("tpurt.stage", kind="assemble",
+              width=(folds[0][0] if folds else state).done.shape[0]):
+        for big, idx in reversed(folds):
+            state = _mega_fold(big, state, idx)
+        mean, segs = _mega_finalize(state, cfg.rays_per_pixel)
+        if tail is None:
+            return mean, segs
         if tail[0] == "cascade":
             _, pixpack, pospack, n_valid, w, p, depth = tail
             tmean, tsegs = _render_pixlist_staged(
@@ -652,11 +653,9 @@ def _assemble_staged(scene, camera, cfg: RenderConfig, state, folds, tail,
                                            frame_index, sample_offset, tail_w)
             label = dict(respread_done=tail_w)
         mean = _tail_overwrite(mean, tmean, pospack, n_valid)
-        segs = segs + tsegs
         if stage_stats is not None:
-            _sync(mean)
-            stage_stats.append(dict(wall_s=time.perf_counter() - t0, **label))
-    return mean, segs
+            stage_stats.append(label)
+        return mean, segs + tsegs
 
 
 def _mega_replay_staged(scene, camera, cfg: RenderConfig, state, active,
@@ -686,43 +685,48 @@ def _mega_replay_staged(scene, camera, cfg: RenderConfig, state, active,
                                     cfg.width * cfg.height, respread_lanes,
                                     pixel_list=pixel_list)
 
-    for step in plan:
-        kind = step[0]
-        if kind == "stage":
-            state, active = _mega_stage_more(scene, camera, cfg, state,
-                                             frame_index, sample_offset,
-                                             step[1], **quota)
-        elif kind == "compact":
-            guards.append(active <= step[1])
-            small, idx = _mega_compact(state, step[1])
-            folds.append((state, idx))
-            state = small
-        elif kind in ("respread", "cascade"):
-            if not respread_lanes:
+    with span("tpurt.stage", kind="replay", width=r):
+        for step in plan:
+            kind = step[0]
+            if kind in ("respread", "cascade") and not respread_lanes:
                 return None  # the config changed since the plan
-            guards.append(active <= respread_lanes)
-            pixpack, pospack, n_valid = collect()
-            if kind == "respread":
-                tail_w = min(step[1], pixpack.shape[0])
-                guards.append(n_valid <= tail_w)
-                tail = ("plain", pixpack, pospack, n_valid, tail_w)
-            else:
-                w2, p2 = step[1], step[2]
-                guards.append(n_valid <= w2 * p2)
-                tail = ("cascade", pixpack, pospack, n_valid, w2, p2, depth)
-        else:  # "uncapped": always valid
-            state, active = _mega_stage_more(scene, camera, cfg, state,
-                                             frame_index, sample_offset, 0,
-                                             uncapped=True, **quota)
-    if not plan or plan[-1][0] not in ("respread", "cascade", "uncapped"):
-        # The recorded run finished inside its capped stages; this one
-        # must too, or lanes would be left untraced.
-        guards.append(active == 0)
-    mean, segs = _assemble_staged(scene, camera, cfg, state, folds, tail,
-                                  frame_index, sample_offset)
-    if guards and not bool(torch.stack(guards).all()):
-        return None
-    return mean, segs
+            with span("tpurt.stage", kind=kind,
+                      width=step[1] if kind == "compact" else state.done.shape[0],
+                      cap=step[1] if kind == "stage" else None):
+                if kind == "stage":
+                    state, active = _mega_stage_more(
+                        scene, camera, cfg, state, frame_index, sample_offset,
+                        step[1], **quota)
+                elif kind == "compact":
+                    guards.append(active <= step[1])
+                    small, idx = _mega_compact(state, step[1])
+                    folds.append((state, idx))
+                    state = small
+                elif kind in ("respread", "cascade"):
+                    guards.append(active <= respread_lanes)
+                    pixpack, pospack, n_valid = collect()
+                    if kind == "respread":
+                        tail_w = min(step[1], pixpack.shape[0])
+                        guards.append(n_valid <= tail_w)
+                        tail = ("plain", pixpack, pospack, n_valid, tail_w)
+                    else:
+                        w2, p2 = step[1], step[2]
+                        guards.append(n_valid <= w2 * p2)
+                        tail = ("cascade", pixpack, pospack, n_valid, w2, p2,
+                                depth)
+                else:  # "uncapped": always valid
+                    state, active = _mega_stage_more(
+                        scene, camera, cfg, state, frame_index, sample_offset,
+                        0, uncapped=True, **quota)
+        if not plan or plan[-1][0] not in ("respread", "cascade", "uncapped"):
+            # The recorded run finished inside its capped stages; this one
+            # must too, or lanes would be left untraced.
+            guards.append(active == 0)
+        mean, segs = _assemble_staged(scene, camera, cfg, state, folds, tail,
+                                      frame_index, sample_offset)
+        if guards and not host_read(torch.stack(guards).all(), "guards", bool):
+            return None
+        return mean, segs
 
 
 def _mega_finish_staged(scene, camera, cfg: RenderConfig, state, active,
@@ -738,12 +742,12 @@ def _mega_finish_staged(scene, camera, cfg: RenderConfig, state, active,
     segments).
 
     ``stage_stats`` (a list) receives a dict a step — {width, iters,
-    active, wall_s}; at a fold {fold_to, active, pixno_hist} (quota
-    progress of the surviving lanes); at a respread or cascade
-    {respread or cascade, incomplete, active, wall_s}; at its end
-    {respread_done or cascade_done, wall_s}; an uncapped stage adds
-    ``uncapped`` — and disables the replay. Its syncs make it a
-    measuring tool."""
+    active}; at a fold {fold_to, active, pixno_hist} (quota progress of
+    the surviving lanes, read back on the host); at a respread or
+    cascade {respread or cascade, incomplete, active}; at its end
+    {respread_done or cascade_done}; an uncapped stage adds ``uncapped``
+    — and disables the replay. Each step runs in a ``tpurt.stage`` span
+    (utils/profiling.py), whose ids name its kind, width and cap."""
     quota = {}
     if pixels_per_lane > 1:
         quota = dict(pixels_per_lane=pixels_per_lane, pixel_stride=r,
@@ -774,7 +778,7 @@ def _mega_finish_staged(scene, camera, cfg: RenderConfig, state, active,
             # state, which records the plan again.
             _SPEC_STATS["fallback"] += 1
 
-    active = int(active)
+    active = host_read(active, "active", int)
     iters_now = 0
     curve = [(iters_now, active)]
     plan = []
@@ -787,74 +791,75 @@ def _mega_finish_staged(scene, camera, cfg: RenderConfig, state, active,
                    if cfg.mega_cascade and respread_lanes
                    and pixels_per_lane > 1 and depth == 0
                    else _stage_cap(prev, iters_now, wq))
-            t0 = time.perf_counter()
-            state, active = _mega_stage_more(scene, camera, cfg, state,
-                                             frame_index, sample_offset, cap,
-                                             **quota)
-            active = int(active)
+            with span("tpurt.stage", kind="stage", width=state.done.shape[0],
+                      cap=cap):
+                state, active = _mega_stage_more(scene, camera, cfg, state,
+                                                 frame_index, sample_offset,
+                                                 cap, **quota)
+                active = host_read(active, "active", int)
             iters_now += cap
             curve.append((iters_now, active))
             plan.append(("stage", cap))
             if stage_stats is not None:
-                stage_stats.append(dict(
-                    width=state.done.shape[0], iters=cap, active=active,
-                    wall_s=time.perf_counter() - t0))
+                stage_stats.append(dict(width=state.done.shape[0], iters=cap,
+                                        active=active))
         if active == 0 or (respread_lanes and active <= respread_lanes):
             break
-        small, idx = _mega_compact(state, wq)
+        with span("tpurt.stage", kind="compact", width=wq):
+            small, idx = _mega_compact(state, wq)
         folds.append((state, idx))
         state = small
         plan.append(("compact", wq))
         if stage_stats is not None and pixels_per_lane > 1:
-            alive = ~small.done.cpu().numpy()
-            pixno = small.pixno.cpu().numpy()[alive]
+            alive = ~host_read(small.done, "stage_stats").numpy()
+            pixno = host_read(small.pixno, "stage_stats").numpy()[alive]
             stage_stats.append(dict(
                 fold_to=int(wq), active=int(alive.sum()),
                 pixno_hist=np.bincount(pixno,
                                        minlength=pixels_per_lane).tolist()))
     tail = None
     if active > 0 and respread_lanes and active <= respread_lanes:
-        t0 = time.perf_counter()
-        pixpack, pospack, n_valid_dev = _collect_tail_pixels(
-            state, start, pixels_per_lane, r, cfg.width * cfg.height,
-            respread_lanes, pixel_list=pixel_list)
-        n_valid = int(n_valid_dev)
-        if cfg.mega_cascade and depth < 2 and n_valid > _CASCADE_MIN:
-            # Too much for one P = 1 batch: a full-occupancy quota level
-            # over the packed list, at most 8 pixels a lane (wider instead,
-            # so that w2 * p2 covers every collected pixel).
-            w2 = _CASCADE_W
-            p2 = -(-n_valid // w2)
-            if p2 > 8:
-                p2 = 8
-                w2 = -(-(-(-n_valid // 8)) // 128) * 128
-            tail = ("cascade", pixpack, pospack, n_valid_dev, w2, p2, depth)
-            plan.append(("cascade", w2, p2))
-            if stage_stats is not None:
-                stage_stats.append(dict(
-                    cascade=w2 * p2, incomplete=n_valid, active=active,
-                    wall_s=time.perf_counter() - t0))
-        else:
-            tail_w = 2048
-            while tail_w < n_valid:
-                tail_w *= 2
-            tail_w = min(tail_w, pixpack.shape[0])
-            tail = ("plain", pixpack, pospack, n_valid_dev, tail_w)
-            plan.append(("respread", tail_w))
-            if stage_stats is not None:
-                stage_stats.append(dict(
-                    respread=tail_w, incomplete=n_valid, active=active,
-                    wall_s=time.perf_counter() - t0))
+        with span("tpurt.stage", kind="respread",
+                  width=state.done.shape[0]) as sp:
+            pixpack, pospack, n_valid_dev = _collect_tail_pixels(
+                state, start, pixels_per_lane, r, cfg.width * cfg.height,
+                respread_lanes, pixel_list=pixel_list)
+            n_valid = host_read(n_valid_dev, "n_valid", int)
+            if cfg.mega_cascade and depth < 2 and n_valid > _CASCADE_MIN:
+                # Too much for one P = 1 batch: a full-occupancy quota level
+                # over the packed list, at most 8 pixels a lane (wider
+                # instead, so that w2 * p2 covers every collected pixel).
+                sp.ids["kind"] = "cascade"
+                w2 = _CASCADE_W
+                p2 = -(-n_valid // w2)
+                if p2 > 8:
+                    p2 = 8
+                    w2 = -(-(-(-n_valid // 8)) // 128) * 128
+                tail = ("cascade", pixpack, pospack, n_valid_dev, w2, p2, depth)
+                plan.append(("cascade", w2, p2))
+                if stage_stats is not None:
+                    stage_stats.append(dict(cascade=w2 * p2,
+                                            incomplete=n_valid, active=active))
+            else:
+                tail_w = 2048
+                while tail_w < n_valid:
+                    tail_w *= 2
+                tail_w = min(tail_w, pixpack.shape[0])
+                tail = ("plain", pixpack, pospack, n_valid_dev, tail_w)
+                plan.append(("respread", tail_w))
+                if stage_stats is not None:
+                    stage_stats.append(dict(respread=tail_w,
+                                            incomplete=n_valid, active=active))
     elif active > 0:
-        t0 = time.perf_counter()
-        state, _ = _mega_stage_more(scene, camera, cfg, state, frame_index,
-                                    sample_offset, 0, uncapped=True, **quota)
+        with span("tpurt.stage", kind="uncapped", width=state.done.shape[0]):
+            state, _ = _mega_stage_more(scene, camera, cfg, state, frame_index,
+                                        sample_offset, 0, uncapped=True,
+                                        **quota)
         plan.append(("uncapped",))
         if stage_stats is not None:
-            _sync(state.done)
-            stage_stats.append(dict(
-                width=state.done.shape[0], iters=state.iters, active=0,
-                wall_s=time.perf_counter() - t0, uncapped=True))
+            stage_stats.append(dict(width=state.done.shape[0],
+                                    iters=state.iters, active=0,
+                                    uncapped=True))
     _RETIRE_CURVES[key] = curve
     _SCHED_TRACES[plan_key] = plan
     return _assemble_staged(scene, camera, cfg, state, folds, tail,
@@ -950,7 +955,7 @@ def render_tile_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig,
         for _ in range(cfg.rays_per_pixel):
             light, state, segments = trace(state, rays, hit0)
             acc = acc + light
-            segs += int(segments.sum())
+            segs += host_read(segments.sum(), "segments", int)
     else:
         # Decorrelated streams: MakeSeed(pixel, frame, sample). Without
         # jitter the camera ray is shared, so its first hit is too; with
@@ -962,7 +967,7 @@ def render_tile_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig,
             state = rnglib.make_seed(pixel_index, frame_index, sample)
             light, _state, segments = trace(state, camera_rays(sample), hit0)
             acc = acc + light
-            segs += int(segments.sum())
+            segs += host_read(segments.sum(), "segments", int)
     mean = acc / float(cfg.rays_per_pixel)
     return mean.reshape(tile_h, tile_w, 3), segs
 
@@ -999,12 +1004,14 @@ def _render_frame_tiles(scene: Scene, camera: Camera, cfg: RenderConfig,
                     tile_w=ts, frame_index=frame_index), retries)
                 total_segs += segs
                 if accumulator is not None:
-                    accumulator.put_tile(tx, ty, tile.cpu().numpy())
+                    accumulator.put_tile(
+                        tx, ty, host_read(tile, "checkpoint").numpy())
             if as_u8:
                 tile = tonemap(tile)  # on the device: only uint8 comes back
             h = min(ts, cfg.height - ty * ts)
             w = min(ts, cfg.width - tx * ts)
-            out[ty * ts:ty * ts + h, tx * ts:tx * ts + w] = tile[:h, :w].cpu().numpy()
+            out[ty * ts:ty * ts + h, tx * ts:tx * ts + w] = host_read(
+                tile[:h, :w], "frame").numpy()
             if progress is not None:
                 progress(ty * tiles_x + tx + 1, tiles_x * tiles_y)
     if stats is not None:
@@ -1045,8 +1052,9 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig,
     ``stats``: a dict that receives {"segments": exact path-segment count
     (the "rays" of Mrays/s)} and, for the flat megakernel, "trips": the
     loop trips of its plain-schedule batches (a staged batch adds none)."""
-    return _render(scene, camera, cfg, frame_index, progress, accumulator,
-                   retries, stats, as_u8=False)
+    with span("tpurt.image", frame=frame_index):
+        return _render(scene, camera, cfg, frame_index, progress, accumulator,
+                       retries, stats, as_u8=False)
 
 
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -1055,5 +1063,6 @@ def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
     """Full pipeline to display pixels (H, W, 3) uint8; the tonemap runs
     on the scene's device (elementwise, so per batch or tile it gives the
     whole frame's bits)."""
-    return _render(scene, camera, cfg, frame_index, progress, accumulator,
-                   retries, stats, as_u8=True)
+    with span("tpurt.image", frame=frame_index):
+        return _render(scene, camera, cfg, frame_index, progress, accumulator,
+                       retries, stats, as_u8=True)

@@ -8,14 +8,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpurt_torch.utils.profiling import span
+
 _GAMMA = float(np.float32(1.0 / 2.2))
 
 
 def tonemap(radiance: torch.Tensor) -> torch.Tensor:
     """(..., 3) mean radiance -> (..., 3) uint8."""
-    c = torch.clamp(radiance, 0.0, 1.0)
-    c = torch.pow(c, _GAMMA)
-    return (c * 255.0).to(torch.uint8)  # truncation, like (uchar)(x*255.0f)
+    with span("tpurt.tonemap"):
+        c = torch.clamp(radiance, 0.0, 1.0)
+        c = torch.pow(c, _GAMMA)
+        return (c * 255.0).to(torch.uint8)  # truncation, like (uchar)(x*255.0f)
 
 
 def to_rgba(rgb_u8: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ from tpurt_torch.config import CORNELL_BREATHING_ROOM
 from tpurt_torch.scene.obj import load_obj as _load_obj_file
 from tpurt_torch.scene.obj import parse_obj
 from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.utils.profiling import span
 
 #: Bits of a packed stack entry reserved for the resume slot.
 MEGA_SLOT_BITS = 6
@@ -458,12 +459,13 @@ class SceneBuilder:
     def add_triangles(self, pos, nrm, max_depth: int = 64) -> MeshHandle:
         """Append a triangle soup, build its BVH, return an (un-added)
         handle with the default OBJ material (white Solid)."""
-        pos = np.asarray(pos, np.float32).reshape(-1, 3, 3)
-        nrm = np.asarray(nrm, np.float32).reshape(-1, 3, 3)
-        first = self._append_tris(pos, nrm)
-        tri_pos, tri_nrm = self._consolidate()
-        root = self._build_bvh_fast(tri_pos, tri_nrm, first, pos.shape[0],
-                                    max_depth)
+        with span("tpurt.scene.bvh"):
+            pos = np.asarray(pos, np.float32).reshape(-1, 3, 3)
+            nrm = np.asarray(nrm, np.float32).reshape(-1, 3, 3)
+            first = self._append_tris(pos, nrm)
+            tri_pos, tri_nrm = self._consolidate()
+            root = self._build_bvh_fast(tri_pos, tri_nrm, first, pos.shape[0],
+                                        max_depth)
         return MeshHandle(
             node_idx=root,
             material=Material(type=MaterialType.SOLID, color=(1.0, 1.0, 1.0)),
@@ -592,6 +594,10 @@ class SceneBuilder:
 
     def freeze(self, device="cuda") -> Scene:
         """Flatten to a Scene on ``device`` (tpurt SceneBuilder.freeze)."""
+        with span("tpurt.scene.freeze"):
+            return self._freeze(device)
+
+    def _freeze(self, device) -> Scene:
         tri_pos, tri_nrm = self._consolidate()
         bmin, bmax, child, first, ntris = self.nodes.as_arrays()
         bmin_arr = np.asarray(bmin, np.float32).reshape(-1, 3)

@@ -23,6 +23,7 @@ from tpurt_torch.core.camera import Camera
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, MeshHandle, SceneBuilder
 from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.utils.profiling import span
 
 #: The five materials tpurt's many-instance grid cycles through
 #: (tests/test_many_meshes.py _grid_scene).
@@ -73,12 +74,15 @@ def scene_around(builder: SceneBuilder, mesh: MeshHandle, cfg: RenderConfig,
     mesh.scale = 0.5
     builder.add_cornell_box(mesh)
     builder.add_mesh(mesh)  # the model goes after the box (main.cpp:298)
-    cam = Camera.create(
-        position=cfg.camera_position, pitch=cfg.camera_pitch,
-        yaw=cfg.camera_yaw, roll=cfg.camera_roll,
-        fov_degrees=cfg.fov_degrees, aspect_ratio=cfg.aspect_ratio,
-        device=device,
-    )
+    # In a process that has not used the card yet, its first tensor
+    # there, and so CUDA's start, is made here.
+    with span("tpurt.scene.camera"):
+        cam = Camera.create(
+            position=cfg.camera_position, pitch=cfg.camera_pitch,
+            yaw=cfg.camera_yaw, roll=cfg.camera_roll,
+            fov_degrees=cfg.fov_degrees, aspect_ratio=cfg.aspect_ratio,
+            device=device,
+        )
     return builder.freeze(device), cam
 
 
