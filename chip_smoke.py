@@ -207,6 +207,17 @@ Phases (each raises on failure, so any failure exits nonzero):
    ``num_nodes`` equal to the builder's node count. A procedural torus knot written
    from CUDA tensors by ``write_obj`` to a temporary directory reads back
    through ``load_obj`` bit for bit. No kernel runs here.
+25. The fresh-lanes kernel (``mega_cuda.fresh``, fresh_lanes in
+   csrc/megakernel.cu) at the main paths' shapes: bunny-1080p packed
+   F = 2 (262,144 lanes), teapot-720p through the dense instantiation
+   (230,400 lanes), and the bunny-1080p-bvh still's first stage and its
+   respread tail. Each buffer equals ``pack`` of ``_initial_lane``'s lanes
+   in every word; one call counts one fresh launch and no megakernel
+   launch; it is timed with the host around it and, the kernel alone, on
+   the device (torch.profiler), against ``_initial_lane`` and ``pack``,
+   beside its bound (the buffer written and the rays and pixels read
+   once, at HBM rate); and a frame of each path is rendered with its
+   fresh launches counted. The first three are rows of the kernels line.
 
 Every scene's ``mega_stack_depth`` is logged where a phase first drives
 it. Each path's launch counts are set to 0 just before its counted
@@ -357,15 +368,15 @@ def reset_counts():
     from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 
     mega_cuda.LAUNCHES = mega_cuda.DENSE_LAUNCHES = mega_cuda.JITTER_LAUNCHES = 0
-    mt_sweep.LAUNCHES = plucker_fused.LAUNCHES = 0
+    mega_cuda.FRESH_LAUNCHES = mt_sweep.LAUNCHES = plucker_fused.LAUNCHES = 0
 
 
 def counts() -> dict:
     from tpurt_torch.render import mega_cuda, mt_sweep, plucker_fused
 
     return dict(megakernel=mega_cuda.LAUNCHES, dense=mega_cuda.DENSE_LAUNCHES,
-                jitter=mega_cuda.JITTER_LAUNCHES, mt_sweep=mt_sweep.LAUNCHES,
-                dense_sweep=plucker_fused.LAUNCHES)
+                jitter=mega_cuda.JITTER_LAUNCHES, fresh=mega_cuda.FRESH_LAUNCHES,
+                mt_sweep=mt_sweep.LAUNCHES, dense_sweep=plucker_fused.LAUNCHES)
 
 
 def phase1():
@@ -2897,6 +2908,134 @@ def phase24(bunny):
     log(f"write_obj -> load_obj: {len(pos)} triangles round-trip bit for bit")
 
 
+def kernel_device_ms(fn, match: str, reps: int = 5) -> list:
+    """[ms] of each kernel whose name holds ``match`` that ``reps`` calls
+    of ``fn`` launched: its own time on the device (torch.profiler), not
+    the copies and allocations launched around it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if match in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(times) != reps:
+        raise AssertionError(f"{match}: {len(times)} kernels traced for {reps} calls")
+    return times
+
+
+def fresh_lanes(label, scene, args, render):
+    """The fresh-lanes kernel (``mega_cuda.fresh``) on one main path's
+    launch: its buffer against ``pack`` of the plain backend's
+    ``prepare`` (``_initial_lane``) in every word, one FRESH_LAUNCHES and
+    no megakernel launch for the call; its time with the host around it
+    (``ms``) and the kernel alone on the device (``device_ms``, traced)
+    against ``_initial_lane`` and ``pack`` (``plain_ms``); its bound, the
+    buffer written and the rays and pixels read once; and the fresh
+    launches of one frame of the path (``render()``, counts reset just
+    before)."""
+    import torch
+
+    from tpurt_torch.core import v3 as v3lib
+    from tpurt_torch.render import mega_cuda
+    from tpurt_torch.render import megakernel as mk
+
+    lane, ctx = mk.prepare(scene, **args)
+    want = mega_cuda.pack(lane)
+    ro0, rd0 = v3lib.from_rows(args["ro0"]), v3lib.from_rows(args["rd0"])
+    pix = args["pixel_index"]
+    reset_counts()
+    got = mega_cuda.fresh(ctx, ro0, rd0, pix)
+    launched = counts()
+    if [launched[k] for k in ("fresh", "megakernel", "dense", "jitter")] != [1, 0, 0, 0]:
+        raise AssertionError(f"{label}: one fresh call launched {launched}")
+    if got.buf.shape != want.shape or not torch.equal(got.buf, want):
+        rows = (got.buf != want).any(dim=1).nonzero().flatten().tolist()
+        raise AssertionError(f"{label}: the fresh buffer differs from "
+                             f"pack(_initial_lane(...)) in words {rows}")
+    pix64 = pix.to(torch.int64) & 0xFFFFFFFF
+
+    def plain():
+        fresh_lane = mk._initial_lane(ctx, ro0, rd0, pix64)
+        if ctx.pix_list:
+            fresh_lane = fresh_lane._replace(lane0=torch.arange(
+                pix.shape[0], dtype=torch.int32, device=pix.device))
+        return mega_cuda.pack(fresh_lane)
+
+    mega_cuda.fresh(ctx, ro0, rd0, pix)  # warm-up
+    _o, ms = cuda_ms(lambda: mega_cuda.fresh(ctx, ro0, rd0, pix), reps=5)
+    dev_ms = kernel_device_ms(lambda: mega_cuda.fresh(ctx, ro0, rd0, pix),
+                              "fresh_lanes", reps=5)
+    again, plain_ms = cuda_ms(plain, reps=3)
+    if not torch.equal(again, want):
+        raise AssertionError(f"{label}: _initial_lane's buffer moved")
+    r = want.shape[1]
+    nbytes = want.numel() * 4 + r * (6 * 4 + pix.element_size())
+    b_ms, b_by = bound(0, nbytes)
+    reset_counts()
+    render()
+    per_frame = counts()
+    if per_frame["fresh"] < 1:
+        raise AssertionError(f"{label}: a frame launched no fresh_lanes kernel "
+                             f"({per_frame})")
+    log(f"fresh_lanes, {label}: {r} lanes x {want.shape[0]} words equal "
+        f"pack(_initial_lane(...)) in every word; ms (host around it) "
+        f"{[round(t, 4) for t in ms]}, device ms {[round(t, 4) for t in dev_ms]}, "
+        f"plain (_initial_lane + pack) ms {[round(t, 3) for t in plain_ms]}; "
+        f"bound {b_ms:.4f} ms ({nbytes} bytes); launches in a frame "
+        f"{per_frame} | {CARD}")
+    return dict(name=f"fresh_lanes: fresh lanes of B1's launch, {label}",
+                route="cuda", source="tpurt_torch/csrc/megakernel.cu",
+                replaces="tpurt/render/mega_pallas.py (its fresh lanes, XLA "
+                "operations)", launches=per_frame["fresh"], max_abs_err=0.0,
+                ms=min(ms), device_ms=min(dev_ms), plain_ms=min(plain_ms),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def phase25(bunny):
+    """The fresh-lanes kernel at the main paths' shapes: bunny-1080p
+    packed F = 2 (the stream's launch), teapot-720p through the dense
+    instantiation, and the bunny-1080p-bvh still's first stage and
+    respread tail."""
+    from tpurt_torch.render import renderer as R
+    from tpurt_torch.render.renderer import (
+        flat_batch_args, render_batch_flat_frames, render_image)
+    from tpurt_torch.scene.presets import bench_scene
+
+    out = []
+    cfg = bunny_cfg(1920, 1080).replace(mega_frames_per_batch=2)
+    cam = camera_for(cfg)
+    out.append(fresh_lanes(
+        "bunny-1080p packed F=2", bunny, flat_batch_args(bunny, cam, cfg, 0, frames=2),
+        lambda: render_batch_flat_frames(bunny, (cam, cam), cfg, 0)))
+    tcfg = teapot_cfg(1280, 720)
+    teapot, tcam = bench_scene("teapot", tcfg, device="cuda")
+    out.append(fresh_lanes(
+        "teapot-720p dense", teapot, flat_batch_args(teapot, tcam, tcfg, 0),
+        lambda: render_image(teapot, tcam, tcfg)))
+    scfg = ladder_cfg(1920, 1080, rays_per_pixel=8, max_bounces=4,
+                      compaction_threshold=32768)
+    scam = camera_for(scfg)
+    clear_plans()
+    render_image(bunny, scam, scfg)  # records the still's plan
+    out.append(fresh_lanes(
+        "bunny-1080p-bvh still, first stage", bunny,
+        flat_batch_args(bunny, scam, scfg, 0), lambda: render_image(bunny, scam, scfg)))
+    tail_w, pixpack = respread_tail(bunny, scam, scfg, plan_of())
+    targs = dict(R._mega_statics(scfg, bunny), pixel_index=pixpack[:tail_w],
+                 frame_index=0, sample_offset=0, camera=scam)
+    del targs["body_backend"]
+    targs["ro0"], targs["rd0"] = R._rays_of(scam, targs["pixel_index"],
+                                            scfg.width, scfg.height)
+    fresh_lanes("bunny-1080p-bvh still, respread tail", bunny, targs,
+                lambda: render_image(bunny, scam, scfg))
+    clear_plans()
+    return out
+
+
 def main():
     global CARD
     import torch
@@ -2952,15 +3091,17 @@ def main():
     timed(phase22, bunny)
     b1_staged = timed(phase23, bunny)
     timed(phase24, bunny)
+    fresh = timed(phase25, bunny)
     log(f"chip_smoke wall {time.time() - t0:.1f} s")
     log(smi())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # B3 also gives its device time (``device_ms``) beside ``ms``, which
-    # for every kernel is CUDA events around the call, the host included.
+    # B3 and fresh_lanes also give their device time (``device_ms``)
+    # beside ``ms``, which for every kernel is CUDA events around the call,
+    # the host included.
     print(json.dumps({"kernels": [{k: b[k] for k in keys + ("device_ms",) if k in b}
                                   for b in (b1, b1_tlas, b1_packed, b1_deep,
-                                            b1_jitter, b1_staged, b2, b3)]}))
+                                            b1_jitter, b1_staged, b2, b3, *fresh)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -697,3 +697,104 @@ def test_modular_kernel_frame_equals_exact_with_shared_geometry(cuda_scene):
     scene, cam = shared_geometry_scene("cuda")
     _modular_frames_equal(scene, cam, CFG.replace(engine="modular", tile_size=32,
                                                   max_bounces=4))
+
+
+def _lanes_packed_on_the_host(ctx, ro0, rd0, pix):
+    """The fresh buffer as the launch path built it before the kernel
+    wrote it: ``_initial_lane``'s torch operations, then ``pack``."""
+    lane = mk._initial_lane(ctx, ro0, rd0, pix.to(torch.int64) & 0xFFFFFFFF)
+    if ctx.pix_list:
+        lane = lane._replace(lane0=torch.arange(pix.shape[0], dtype=torch.int32,
+                                                device=pix.device))
+    return mega_cuda.Fresh(mega_cuda.pack(lane), *mega_cuda._launch_inputs(
+        ctx, pix.device, pix.shape[0], "tpurt.prepare.tables"))
+
+
+def _fresh_case(which, cuda_scene, cuda_chain):
+    """(scene, camera, cfg, one launch's run_megakernel arguments, whether
+    a frame is rendered too) for a fresh-lanes case."""
+    scene, cam = cuda_scene
+    cfg = CFG
+    if which == "chain":
+        scene, cam = cuda_chain
+        cfg = CFG.replace(rays_per_pixel=3, max_bounces=6, mega_tail_passes=3)
+    elif which in ("cornell-bf16", "grid"):
+        scene, cam = _regime_scene(which)
+    elif which == "deep":
+        cfg = CFG.replace(width=32, height=32)
+        scene, cam = deep_stack_scene(cfg, device="cuda")
+    elif which == "dense-teapot":
+        from tpurt_torch.scene.presets import scene_around
+
+        b = SceneBuilder()
+        handle = b.add_triangles(*procedural.torus_knot(96, 32, 80, 22))
+        cfg = CFG.replace(width=64, height=48, mega_dense=True)
+        scene, cam = scene_around(b, handle, cfg, device="cuda")
+    elif which.startswith("jitter"):
+        cfg = CFG.replace(subpixel_jitter=True, seed_mode=which.split("-")[1])
+    elif which == "cache-off":
+        cfg = CFG.replace(rays_per_pixel=1)
+    if which.startswith("packed"):
+        cams = (cam, _turned(cam, 0.1)) if which == "packed-per-camera" else None
+        args = flat_batch_args(scene, cam, cfg, 0, frames=2, cameras=cams)
+    elif which.startswith("list"):
+        cfg = cfg.replace(pixels_per_lane=int(which[-1]))
+        n = cfg.width * cfg.height
+        args = list_batch_args(scene, cam, cfg,
+                               np.random.default_rng(3).permutation(n)[:3001])
+    else:
+        args = flat_batch_args(scene, cam, cfg, 0)
+    return scene, cam, cfg, args, not which.startswith(("packed", "list"))
+
+
+@pytest.mark.parametrize("which", [
+    "cornell", "chain", "cornell-bf16", "grid", "deep", "dense-teapot",
+    "packed-shared", "packed-per-camera", "list-p2", "list-p4",
+    "jitter-reference", "jitter-decorrelated", "cache-off"])
+def test_fresh_lanes_kernel_writes_the_packed_initial_lanes(cuda_scene, cuda_chain,
+                                                            monkeypatch, which):
+    """The fresh-lanes kernel (mega_cuda.fresh) against the launch path
+    it replaced (``_initial_lane``'s torch operations, ``pack``) in every
+    instantiation and layout: the buffer word for word, counted in
+    FRESH_LAUNCHES and ``fresh_lanes.device`` and in no megakernel
+    launch counter; the lanes after 1 and 16 trips; the whole launch's
+    radiance and segments; and the frame, bit for bit."""
+    from tpurt_torch.utils import profiling as P
+
+    scene, cam, cfg, args, frame = _fresh_case(which, cuda_scene, cuda_chain)
+    assert cfg.rays_per_pixel > 1 or which == "cache-off"
+    lane, ctx = mk.prepare(scene, **args)
+    assert isinstance(lane, mk._Lane) and ctx.use_cache == (
+        which != "cache-off" and not which.startswith("jitter"))
+    counters = (mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES, mega_cuda.JITTER_LAUNCHES)
+    before = mega_cuda.FRESH_LAUNCHES
+    P.reset()
+    got, _ctx = mk.prepare(scene, body_backend="cuda", **args)
+    assert isinstance(got, mega_cuda.Fresh) and mega_cuda.FRESH_LAUNCHES == before + 1
+    assert P.totals()["counts"]["fresh_lanes.device"] == lane.done.shape[0]
+    assert (mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES,
+            mega_cuda.JITTER_LAUNCHES) == counters
+    want = mega_cuda.pack(lane)
+    assert got.buf.shape == want.shape
+    diff = (got.buf != want).any(dim=1).nonzero().flatten().tolist()
+    assert not diff, [mega_cuda.LANE_WORDS[k] if k < len(mega_cuda.LANE_WORDS)
+                      else k for k in diff]
+
+    def kernel_runs(**kw):
+        return run_megakernel(scene, body_backend="cuda", **args, **kw)
+
+    ours = [kernel_runs(max_iterations=k, return_state=True) for k in (1, 16)]
+    ours.append(kernel_runs())
+    frames = [render_frame(scene, cam, cfg.replace(mega_body="pallas"))] if frame else []
+    with monkeypatch.context() as m:
+        m.setattr(mega_cuda, "fresh", _lanes_packed_on_the_host)
+        theirs = [kernel_runs(max_iterations=k, return_state=True) for k in (1, 16)]
+        theirs.append(kernel_runs())
+        if frame:
+            frames.append(render_frame(scene, cam, cfg.replace(mega_body="pallas")))
+    for k, a, b in zip((1, 16), ours, theirs):
+        assert torch.equal(mega_cuda.pack(a), mega_cuda.pack(b)), k
+    assert torch.equal(ours[2][0], theirs[2][0]) and ours[2][1] == theirs[2][1]
+    if frame:
+        np.testing.assert_array_equal(*frames)
+        assert frames[0].max() > 0.0

@@ -202,3 +202,43 @@ def test_static_only_scene_matches_oracle():
     ref, _ = oracle.render(scene, cam, 16, 16, 3, 4)
     assert_mostly_bitwise(mine, ref)
     assert (mine > 0).any()
+
+
+def test_fresh_lanes_on_the_cpu_and_their_buffer_words():
+    """On the CPU, and under the plain backend, ``prepare`` builds fresh
+    lanes with ``_initial_lane``'s torch operations, bit for bit, and
+    counts them in ``fresh_lanes.host``; the buffer that the CUDA route
+    writes instead (``mega_cuda.lane_words``) has ``pack``'s words in the
+    u8, TLAS, packed, list and cache-off layouts."""
+    from tpurt_torch.render.renderer import list_batch_args
+    from tpurt_torch.scene.presets import grid_scene
+    from tpurt_torch.utils import profiling as P
+
+    scene, cam, _ = cornell_sphere_scene(0, QUOTA, device="cpu")
+    args = flat_batch_args(scene, cam, QUOTA, 0)
+    r = args["pixel_index"].shape[0]
+    for backend in ("plain", "cuda"):
+        P.reset()
+        lane, ctx = mk.prepare(scene, body_backend=backend, **args)
+        assert P.totals()["counts"]["fresh_lanes.host"] == r
+        assert "fresh_lanes.device" not in P.totals()["counts"]
+        want = mk._initial_lane(ctx, V3(*args["ro0"].unbind(-1)),
+                                V3(*args["rd0"].unbind(-1)), args["pixel_index"])
+        assert torch.equal(mega_cuda.pack(lane), mega_cuda.pack(want))
+
+    grid = grid_scene(12, device="cpu")
+    small = QUOTA.replace(width=16, height=16)
+    layouts = {
+        "u8": (scene, flat_batch_args(scene, cam, small, 0)),
+        "tlas": (grid, flat_batch_args(grid, cam, small, 0)),
+        "packed": (scene, flat_batch_args(scene, cam, small, 0, frames=2)),
+        "list": (scene, list_batch_args(scene, cam, small, np.arange(200)[::-1].copy())),
+        "cache-off": (scene, flat_batch_args(scene, cam, small.replace(
+            rays_per_pixel=1, pixels_per_lane=1), 0)),
+    }
+    for name, (sc, a) in layouts.items():
+        lane, ctx = mk.prepare(sc, **a)
+        assert (ctx.tlas, ctx.frames, ctx.pix_list, ctx.use_cache) == (
+            name == "tlas", 2 if name == "packed" else 1, name == "list",
+            name != "cache-off"), name
+        assert mega_cuda.lane_words(ctx) == mega_cuda.pack(lane).shape[0], name

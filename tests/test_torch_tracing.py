@@ -16,7 +16,9 @@ On the card (marked ``cuda``, skips without one): every megakernel
 launch lies inside a ``tpurt.launch.call`` span, and the device-to-host
 copies launched inside ``tpurt.image`` / ``tpurt.batch`` spans number
 exactly the ``host_syncs`` counted, so every read goes through
-``host_read``. On the GPU machine:
+``host_read``; fresh lanes are written by the ``fresh_lanes`` kernel
+inside ``tpurt.prepare.lanes``, and a launch from them packs nothing.
+On the GPU machine:
 
     python -m pytest tests/test_torch_tracing.py -q --noconftest
 """
@@ -319,7 +321,9 @@ def _device_reads_in(events, roots=("tpurt.image", "tpurt.batch")):
 def test_card_reads_and_launches_in_their_spans(tmp_path, card_scene):
     """A packed frame (two frames a launch) and a staged still: every
     megakernel launch inside tpurt.launch.call, every device-to-host copy
-    inside the frame's spans a counted host_read."""
+    inside the frame's spans a counted host_read; every fresh launch's
+    lanes written by the fresh_lanes kernel inside tpurt.prepare.lanes,
+    with no pack."""
     scene, cam, cfg = card_scene
     still = cfg.replace(compaction_threshold=4096)
 
@@ -354,3 +358,23 @@ def test_card_reads_and_launches_in_their_spans(tmp_path, card_scene):
     for k in kernels:
         ts = launch_ts[k["args"]["correlation"]]
         assert any(a <= ts <= b for a, b in calls), k["name"]
+
+    # Fresh lanes: one fresh_lanes kernel a launch that starts from them,
+    # launched inside tpurt.prepare.lanes, out of the trace reader's
+    # megakernel match; such a launch packs nothing, so the pack spans
+    # are the resumed launches'.
+    lanes = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in _spans(ev, "tpurt.prepare.lanes")]
+    fresh = [e for e in ev if e.get("cat") == "kernel"
+             and "fresh_lanes" in e.get("name", "")]
+    counts = P.totals(traced=True)["counts"]
+    assert fresh and len(fresh) == len(lanes) and "fresh_lanes.host" not in counts
+    assert counts["fresh_lanes.device"] > 0
+    for k in fresh:
+        assert "megakernel" not in k["name"], k["name"]
+        ts = launch_ts[k["args"]["correlation"]]
+        assert any(a <= ts <= b for a, b in lanes), k["name"]
+    assert len(_spans(ev, "tpurt.launch.pack")) == len(kernels) - len(fresh)
+    # Their tables are uploaded once, by the fresh launch, inside prepare.
+    assert len(_spans(ev, "tpurt.prepare.tables")) == len(fresh)
+    assert len(_spans(ev, "tpurt.launch.tables")) == len(kernels) - len(fresh)

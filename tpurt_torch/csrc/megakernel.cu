@@ -114,6 +114,11 @@
 // host passes it as frames = ppf = P). An unpacked launch takes the
 // affine advance.
 //
+// Fresh lanes are written by a second kernel, fresh_lanes (at the end of
+// this file), one thread a lane, from the entry rays and pixels into the
+// state buffer the megakernel launch then runs: megakernel._initial_lane's
+// words through this file's own restart code.
+//
 // Sub-pixel jitter is a compile-time parameter, TPURT_MK_JITTER, set per
 // library: this file builds the library without it, and
 // megakernel_jitter.cu, which includes this file with TPURT_MK_JITTER 1,
@@ -246,6 +251,20 @@ struct MkCfg {
   // the configuration they saw before jitter.
   float cam_pos[3], cam_rot[9], cam_tan, cam_aspect;
 #endif
+};
+
+// Fresh lanes' inputs (tpurt_mk_fresh), mirrored by mega_cuda._FreshIn:
+// the components of ro0 and rd0 and the pixel ids at their element
+// strides (an origin that every lane shares has stride 0), the ids as
+// 4- or 8-byte integers (their low 32 bits are the pixel), and whether
+// the lanes carry lane0 (a list quota).
+struct FreshIn {
+  const float* ray[6];  // ro0.x, ro0.y, ro0.z, rd0.x, rd0.y, rd0.z
+  long long stride[6];
+  const void* pix;
+  long long pix_stride;
+  int pix_bytes;
+  int lane0;
 };
 
 namespace {
@@ -1425,6 +1444,87 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
   }
 }
 
+// Threads a block of fresh_lanes.
+constexpr int kFreshThreads = 256;
+
+__device__ __forceinline__ float ray_at(const FreshIn& in, int k, int i) {
+  return in.ray[k][(long long)i * in.stride[k]];
+}
+
+// Fresh lanes (megakernel._initial_lane), one thread a lane, written
+// straight into the state buffer that the megakernel launch after it
+// runs. Replaces no TPU kernel: the plain version built them with a
+// thousand small torch operations, the host's time between launches.
+// Bound by the buffer's bytes; its words come from the restart code of
+// tail() above -- static_stage seeds the world best, enter and pretest
+// chain entry 0, expand_root where entry 0 expands, at lt = +inf -- and
+// store_lane writes the hot words and the stack, so a fresh lane holds
+// the bits a restart computes. As _initial_lane, and unlike tail(), it
+// skips no chain entry: a failed pretest leaves entry 0 and cur -1.
+template <bool kTlas>
+__global__ void __launch_bounds__(kFreshThreads)
+    fresh_lanes(MkCfg c, Tables tb, FreshIn in, uint32_t* state) {
+  const int i = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= c.n_lanes) return;
+  const Ctx<kColdInBuffer> x{c, tb, Words{state, c.n_lanes, i, {}},
+                             Words{state, c.n_lanes, i, {}}};
+  const Words& s = x.s;
+  const V ro = v3(ray_at(in, 0, i), ray_at(in, 1, i), ray_at(in, 2, i));
+  const V rd = v3(ray_at(in, 3, i), ray_at(in, 4, i), ray_at(in, 5, i));
+  const long long at = (long long)i * in.pix_stride;
+  const uint32_t pix = in.pix_bytes == 8
+                           ? (uint32_t)static_cast<const unsigned long long*>(in.pix)[at]
+                           : static_cast<const uint32_t*>(in.pix)[at];
+  const V zero = v3(0.0f, 0.0f, 0.0f);
+  s.put(RO0_X, ro); s.put(RD0_X, rd);
+  s.w(PIX) = pix; s.w(PIXNO) = 0u; s.w(SAMPLE) = 0u; s.put(ACC_X, zero);
+  // megakernel._seed at sample 0: one seed a pixel in reference mode.
+  s.w(RNG) = make_seed(pix, c.frame_index, c.seed_reference ? 0u : (uint32_t)c.sample_offset);
+  s.w(SEGMENTS) = 0u;
+  s.put(ORIGIN_X, ro); s.put(DIRECTION_X, rd);
+  s.put(THROUGHPUT_X, v3(1.0f, 1.0f, 1.0f)); s.put(LIGHT_X, zero);
+  s.w(BOUNCES) = 0u; s.w(INVIS) = 0u;
+  s.put(LNRM_X, zero); s.w(LBACK) = 0u;
+  // The cache words as mega_cuda.pack writes them: an empty cache
+  // (mesh -1, distance +inf), or zeros where the cache is off.
+  s.w(C_SET) = 0u; s.w(C_VALID) = 0u; s.put(C_POINT_X, zero); s.put(C_NORMAL_X, zero);
+  s.w(C_BACK) = 0u;
+  s.w(C_MESH) = c.use_cache ? (uint32_t)-1 : 0u;
+  s.put(C_DST, c.use_cache ? INFINITY : 0.0f);
+  const int stack_base = kAccBase<kTlas> + (c.p_count > 1 ? 3 * c.p_count : 0);
+  for (int k = kAccBase<kTlas>; k < stack_base; ++k) s.w(k) = 0u;  // quota accumulators
+
+  uint32_t ring[2];  // expand_root pushes at most two entries
+  Lane<false, 1> L;
+  L.stk = ring;
+  L.head = L.sp = 0;
+  L.done = false;
+  L.entry = L.cur_slot = 0;
+  L.lt = INFINITY;
+  L.lmesh = -1;
+  if constexpr (kTlas) {  // outside any instance, at a node row
+    L.in_inst = L.cur_inst = L.inst_cull = L.inst_os = false;
+    L.inst_mesh = -1;
+    L.inst_scale = 1.0f;
+  }
+  L.w_dst = static_stage(x, ro, rd);
+  if (c.e_count > 0) {
+    int root;
+    bool leaf;
+    enter(x, 0, ro, rd, L.lo, L.ld, L.lid, root, leaf);
+    const bool ok = pretest(x, 0, L.lo, L.lid, L.w_dst);
+    L.cur = ok ? root : -1;
+    L.cur_leaf = leaf && L.cur >= 0;
+    if (ok && x.expand()[0]) expand_root(x, L, 0);
+  } else {
+    L.lo = ro; L.ld = rd; L.lid = v3(1.0f / rd.x, 1.0f / rd.y, 1.0f / rd.z);
+    L.cur = -1;
+    L.cur_leaf = false;
+  }
+  store_lane<kTlas>(L, x, stack_base);
+  if (in.lane0) s.w(stack_base + c.s_depth) = (uint32_t)i;
+}
+
 }  // namespace
 
 // The lane words before the quota accumulators: enum Field and the TLAS
@@ -1526,6 +1626,27 @@ extern "C" int tpurt_mk_launch(const MkCfg* cfg, const float* rows, const float*
   const cudaError_t launched =
       cudaLaunchKernel((const void*)kernel_for(variant, &threads), dim3(blocks),
                        dim3(threads), args, (size_t)smem, (cudaStream_t)stream);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
+
+// Writes fresh lanes (fresh_lanes) into ``state``, an (n_words, R)
+// buffer in the layout the launch after it takes, on ``stream``: the
+// instantiation cfg->tlas names, with the launch's own configuration
+// and tables (no bank row is read). Returns a cudaError_t.
+extern "C" int tpurt_mk_fresh(const MkCfg* cfg, const float* chain, const float* srows,
+                              const float* roots_f, const int* roots_i, const int* meta,
+                              const FreshIn* in, uint32_t* state, void* stream) {
+  if (cfg->n_lanes <= 0) return (int)cudaGetLastError();
+  Tables tb{nullptr, chain,   nullptr, srows,   roots_f,
+            roots_i, meta,    nullptr, nullptr, nullptr, DenseTable{}};
+  const int blocks = (cfg->n_lanes + kFreshThreads - 1) / kFreshThreads;
+  MkCfg c = *cfg;
+  FreshIn f = *in;
+  void* args[] = {&c, &tb, &f, &state};
+  const void* fn = cfg->tlas != 0 ? (const void*)fresh_lanes<true> : (const void*)fresh_lanes<false>;
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(blocks), dim3(kFreshThreads), args, 0,
+                                                (cudaStream_t)stream);
   if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }

@@ -36,19 +36,28 @@ instantiations from the library built with jitter
 (csrc/megakernel_jitter.cu), which computes each new sample's primary
 ray in the kernel; those launches count in ``JITTER_LAUNCHES``.
 
+Fresh lanes (``fresh``) are written on the card by a second kernel of
+the same library, fresh_lanes, from the entry rays and pixels: the
+buffer ``pack(megakernel._initial_lane(...))`` would give, word for
+word, built by B1's own restart code, with the tables and launch
+configuration that the launch after it reuses; ``run`` takes that
+``Fresh`` buffer without a pack. Its launches count in
+``FRESH_LAUNCHES``, not in the megakernel's counters.
+
 The lane state crosses the C boundary as one contiguous (n_words, R)
-int32 buffer: ``LANE_WORDS`` (the kernel's ``enum Field``, word for
-word), then in the TLAS regime ``TLAS_WORDS`` (``enum TlasField``), then
-3*P quota accumulators when P > 1, then the S stack slots top first,
-then in a list quota the lane's ``lane0`` (which the kernel never reads
-or writes). Bools travel as 0/1 words, u32 fields as their bits, floats
-by bit view.
+int32 buffer of ``lane_words`` words a lane: ``LANE_WORDS`` (the
+kernel's ``enum Field``, word for word), then in the TLAS regime
+``TLAS_WORDS`` (``enum TlasField``), then 3*P quota accumulators when
+P > 1, then the S stack slots top first, then in a list quota the
+lane's ``lane0`` (which the megakernel never reads or writes; fresh
+lanes get theirs from fresh_lanes). Bools travel as 0/1 words, u32
+fields as their bits, floats by bit view.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -65,6 +74,8 @@ from tpurt_torch.utils.profiling import host_read, span
 LAUNCHES = 0
 DENSE_LAUNCHES = 0
 JITTER_LAUNCHES = 0
+#: Launches of the fresh-lanes kernel (``fresh``), in either library.
+FRESH_LAUNCHES = 0
 
 #: kMaxSharedStack in the kernel: a stack budget up to this many words a
 #: lane is a ring in the block's dynamic shared memory; a deeper one
@@ -125,6 +136,14 @@ class _JitterCfg(_Cfg):
 
     _fields_ = [("cam_pos", ctypes.c_float * 3), ("cam_rot", ctypes.c_float * 9),
                 ("cam_tan", ctypes.c_float), ("cam_aspect", ctypes.c_float)]
+
+
+class _FreshIn(ctypes.Structure):
+    """struct FreshIn of the kernel."""
+
+    _fields_ = [("ray", ctypes.c_void_p * 6), ("stride", ctypes.c_longlong * 6),
+                ("pix", ctypes.c_void_p), ("pix_stride", ctypes.c_longlong),
+                ("pix_bytes", ctypes.c_int), ("lane0", ctypes.c_int)]
 
 
 def _word(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -283,6 +302,9 @@ def _lib(jitter: bool = False):
         lib.tpurt_mk_error_string.restype = ctypes.c_char_p
         lib.tpurt_mk_jitter.argtypes = []
         lib.tpurt_mk_jitter.restype = ctypes.c_int
+        lib.tpurt_mk_fresh.argtypes = [ctypes.POINTER(_Cfg)] + [vp] * 5 + [
+            ctypes.POINTER(_FreshIn), vp, vp]
+        lib.tpurt_mk_fresh.restype = ctypes.c_int
         if lib.tpurt_mk_fixed_words() != len(LANE_WORDS) + len(TLAS_WORDS):
             raise RuntimeError("csrc/megakernel.cu enum Field / TlasField and "
                                "LANE_WORDS / TLAS_WORDS disagree")
@@ -348,49 +370,42 @@ def launch_config(dense: bool, device=None, tlas: bool = False,
                 resident_lanes=threads * per_sm * sms, smem_bytes=smem)
 
 
-def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
-    """Run the kernel in place on a packed CUDA lane buffer; returns the
-    (R,) int32 trips each lane ran and the (3, R) int32 work of each
-    lane in this launch (``WORK_ROWS``): child-box tests in node rows,
-    leaf rows (dense: entry sweeps), segment completions; in the TLAS
-    regime (5, R), with instance enters and exits."""
-    global LAUNCHES, DENSE_LAUNCHES, JITTER_LAUNCHES
-    if buf.device.type != "cuda":
-        raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
-    if buf.dtype != torch.int32 or buf.dim() != 2 or not buf.is_contiguous():
-        raise ValueError("lane buffer must be a contiguous (n_words, R) int32 tensor")
-    r = buf.shape[1]
-    acc_words = 3 * ctx.p_count if ctx.p_count > 1 else 0
-    tlas_words = len(TLAS_WORDS) if ctx.tlas else 0
-    words = (len(LANE_WORDS) + tlas_words + acc_words + ctx.s_depth
-             + int(ctx.pix_list))
-    if buf.shape[0] != words:
-        raise ValueError(f"lane buffer has {buf.shape[0]} words per lane, "
-                         f"not {words}")
+def lane_words(ctx: mk._Ctx) -> int:
+    """Words a lane takes in the buffer: LANE_WORDS, TLAS_WORDS in the
+    TLAS regime, 3*P quota accumulators where P > 1, the stack, and
+    ``lane0`` in a list quota."""
+    return (len(LANE_WORDS) + (len(TLAS_WORDS) if ctx.tlas else 0)
+            + (3 * ctx.p_count if ctx.p_count > 1 else 0) + ctx.s_depth
+            + int(ctx.pix_list))
+
+
+def _launch_inputs(ctx: mk._Ctx, dev, r: int, tables_span: str):
+    """The tables (``_tables``, uploaded inside ``tables_span``) and the
+    launch configuration (``_launch_cfg``) of a launch of ``r`` lanes on
+    ``dev``, after raising ValueError for what such a launch cannot take:
+    a jittered context without its camera, a bank shape the kernel
+    refuses (``check_bank``), a bank that is not 16-byte rows of f32 on
+    ``dev``."""
     if ctx.jitter and ctx.camera is None:
         raise ValueError("a jittered launch needs the context's camera")
     check_bank(ctx)
     rows = ctx.rows
-    if rows.device != buf.device or rows.dtype != torch.float32 or not rows.is_contiguous():
+    if rows.device != dev or rows.dtype != torch.float32 or not rows.is_contiguous():
         raise ValueError("row bank must be a contiguous f32 tensor on the buffer's device")
     if rows.data_ptr() % 16 or rows.shape[1] % 4:
         raise ValueError("the kernel reads bank rows as 16-byte words: the bank must "
                          "start 16-byte aligned and its rows be a multiple of 4 words")
-    dev = buf.device
-    # Freed when this returns, before the kernel ends: safe, because the
-    # caching allocator reuses the memory only for later work on this
-    # same stream.
-    with span("tpurt.launch.tables"):
+    with span(tables_span):
         tabs = _tables(ctx, dev)
-    trips = torch.empty(r, dtype=torch.int32, device=dev)
-    work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
-    queue = torch.zeros(1, dtype=torch.int32, device=dev)
-    deep = deep_stack(ctx)
-    stack = torch.empty((ctx.s_depth, r) if deep else (1,),
-                        dtype=torch.int32, device=dev)
+    return tabs, _launch_cfg(ctx, r)
+
+
+def _launch_cfg(ctx: mk._Ctx, r: int):
+    """The launch configuration (struct MkCfg) of ``r`` lanes, its
+    ``max_trips`` left for the launch to set; under jitter with the
+    camera's scalars (one ``camera`` read)."""
     cfg = (_JitterCfg if ctx.jitter else _Cfg)(
-        n_lanes=r, max_trips=2 ** 31 - 1 if max_trips is None else int(max_trips),
-        e_count=ctx.e_count, s_depth=ctx.s_depth,
+        n_lanes=r, e_count=ctx.e_count, s_depth=ctx.s_depth,
         num_meshes=ctx.mats.shape[0], n_static=len(ctx.s_cull),
         max_bounces=ctx.max_bounces, rays_per_pixel=ctx.rays_per_pixel,
         seed_reference=int(ctx.seed_mode == "reference"),
@@ -398,9 +413,9 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         p_count=ctx.p_count, pixel_stride=ctx.pixel_stride, width=ctx.width,
         height=ctx.height, tail_passes=ctx.tail_passes,
         expand_passes=ctx.expand_passes, n_skip=ctx.n_skip,
-        leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=rows.shape[1],
+        leaf_tris=ctx.leaf_tris, arity=ctx.arity, row_width=ctx.rows.shape[1],
         frame_index=ctx.frame_index, sample_offset=ctx.sample_offset,
-        tlas=int(ctx.tlas), bf16=int(ctx.bf16), deep=int(deep),
+        tlas=int(ctx.tlas), bf16=int(ctx.bf16), deep=int(deep_stack(ctx)),
         # A list quota takes the kernel's table advance as one frame of P
         # slots (frames = ppf = P: row pixno, no frame offset).
         frames=ctx.p_count if ctx.pix_list else ctx.frames,
@@ -412,6 +427,49 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         cfg.cam_pos[:] = [float(v) for v in pos]
         cfg.cam_rot[:] = [float(v) for v in rot.reshape(9)]
         cfg.cam_tan, cfg.cam_aspect = float(tan), float(aspect)
+    return cfg
+
+
+def _check_buffer(buf: torch.Tensor, ctx: mk._Ctx):
+    """Raise ValueError for a lane buffer the kernel cannot take."""
+    if buf.device.type != "cuda":
+        raise ValueError(f"the megakernel needs a CUDA buffer, got {buf.device}")
+    if buf.dtype != torch.int32 or buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError("lane buffer must be a contiguous (n_words, R) int32 tensor")
+    words = lane_words(ctx)
+    if buf.shape[0] != words:
+        raise ValueError(f"lane buffer has {buf.shape[0]} words per lane, "
+                         f"not {words}")
+
+
+def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
+    """Run the kernel in place on a packed CUDA lane buffer; returns the
+    (R,) int32 trips each lane ran and the (3, R) int32 work of each
+    lane in this launch (``WORK_ROWS``): child-box tests in node rows,
+    leaf rows (dense: entry sweeps), segment completions; in the TLAS
+    regime (5, R), with instance enters and exits."""
+    _check_buffer(buf, ctx)
+    # The tables are freed when the launch returns, before the kernel
+    # ends: safe, because the caching allocator reuses the memory only
+    # for later work on this same stream.
+    tabs, cfg = _launch_inputs(ctx, buf.device, buf.shape[1], "tpurt.launch.tables")
+    return _launch(buf, ctx, max_trips, tabs, cfg)
+
+
+def _launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int],
+            tabs: dict, cfg):
+    """``launch`` with the tables and configuration ``_launch_inputs``
+    gave for this buffer."""
+    global LAUNCHES, DENSE_LAUNCHES, JITTER_LAUNCHES
+    r = buf.shape[1]
+    dev = buf.device
+    cfg.max_trips = 2 ** 31 - 1 if max_trips is None else int(max_trips)
+    trips = torch.empty(r, dtype=torch.int32, device=dev)
+    work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    stack = torch.empty((ctx.s_depth, r) if cfg.deep else (1,),
+                        dtype=torch.int32, device=dev)
+    rows = ctx.rows
     dense = None
     if ctx.dense is not None:
         from tpurt_torch.render.plucker_fused import check_table
@@ -442,16 +500,68 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     return trips, work
 
 
-def run(lane: mk._Lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
+class Fresh(NamedTuple):
+    """Fresh lanes written on the card (``fresh``): the (n_words, R)
+    lane buffer, and the tables and launch configuration that the launch
+    after it takes (``run``)."""
+
+    buf: torch.Tensor
+    tabs: dict
+    cfg: ctypes.Structure
+    iters: int = 0
+
+
+def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> Fresh:
+    """megakernel._initial_lane's lanes for entry rays ``ro0``, ``rd0``
+    and pixel ids ``pix`` (int32 or int64, their low 32 bits), written
+    packed -- ``pack``'s words, ``lane0`` too in a list quota -- by one
+    launch of the library's fresh_lanes kernel, counted in
+    ``FRESH_LAUNCHES``. The tables and configuration it builds for that
+    launch are the next launch's."""
+    global FRESH_LAUNCHES
+    dev = pix.device
+    r = pix.shape[0]
+    comps = list(ro0) + list(rd0)
+    if dev.type != "cuda" or pix.dtype not in (torch.int32, torch.int64) or pix.dim() != 1:
+        raise ValueError("fresh lanes need (R,) int32 or int64 pixel ids on a CUDA device")
+    if any(c.device != dev or c.dtype != torch.float32 or c.shape != (r,) for c in comps):
+        raise ValueError("fresh lanes need (R,) f32 ray components on the pixels' device")
+    tabs, cfg = _launch_inputs(ctx, dev, r, "tpurt.prepare.tables")
+    buf = torch.empty((lane_words(ctx), r), dtype=torch.int32, device=dev)
+    inp = _FreshIn(pix=pix.data_ptr(), pix_stride=pix.stride(0),
+                   pix_bytes=pix.element_size(), lane0=int(ctx.pix_list))
+    inp.ray[:] = [c.data_ptr() for c in comps]
+    inp.stride[:] = [c.stride(0) for c in comps]
+    lib = _lib(ctx.jitter)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(dev):
+        err = lib.tpurt_mk_fresh(
+            ctypes.byref(cfg), ptr(tabs["chain"]), ptr(tabs["srows"]),
+            ptr(tabs["roots_f"]), ptr(tabs["roots_i"]), ptr(tabs["meta"]),
+            ctypes.byref(inp), ptr(buf),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError("fresh lanes launch failed: "
+                           + lib.tpurt_mk_error_string(err).decode())
+    FRESH_LAUNCHES += 1
+    return Fresh(buf, tabs, cfg)
+
+
+def run(lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
     """The lane loop until every lane is done or ``max_iterations`` more
-    trips ran: the kernel for a CUDA lane state, its plain version
-    (megakernel.run_plain) for a CPU one."""
-    if lane.done.device.type == "cpu":
+    trips ran: the kernel for a CUDA lane state or the ``Fresh`` lanes
+    written on the card, its plain version (megakernel.run_plain) for a
+    CPU lane state."""
+    if isinstance(lane, Fresh):
+        buf = lane.buf
+        trips, _work = _launch(buf, ctx, max_iterations, lane.tabs, lane.cfg)
+    elif lane.done.device.type == "cpu":
         with span("tpurt.launch.call"):
             return mk.run_plain(lane, ctx, max_iterations)
-    with span("tpurt.launch.pack"):
-        buf = pack(lane)
-    trips, _work = launch(buf, ctx, max_iterations)
+    else:
+        with span("tpurt.launch.pack"):
+            buf = pack(lane)
+        trips, _work = launch(buf, ctx, max_iterations)
     iters = (lane.iters + host_read(trips.max(), "trips", int) if trips.numel()
              else lane.iters)
     with span("tpurt.launch.unpack"):

@@ -50,11 +50,13 @@ Two backends run the loop (``run_megakernel(body_backend=...)``):
            lane running the whole loop in registers (its dense
            instantiation runs kernel B2's sweep in the traversal step).
 
-Setup — lane init, primary rays, the quota slots' direction tables, the
-chain and root tables — is plain torch on the scene's device and shared
-by both. Differences from tpurt's array types: u32 lane fields (pix,
-rng, stack entries) are int64 tensors holding values in [0, 2^32), and
-``iters`` is a Python int.
+Setup — primary rays, the quota slots' direction tables, the chain and
+root tables — is plain torch on the scene's device and shared by both;
+fresh lanes are ``_initial_lane``'s torch operations, or on the card one
+kernel launch that writes the same words packed (``mega_cuda.fresh``).
+Differences from tpurt's array types: u32 lane fields (pix, rng, stack
+entries) are int64 tensors holding values in [0, 2^32), and ``iters``
+is a Python int.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ from tpurt_torch.render.intersect import mt_rows
 from tpurt_torch.render.shading import pack_materials, shade_hit_soa
 from tpurt_torch.scene.builder import MEGA_ITAG, MEGA_SLOT_BITS
 from tpurt_torch.scene.types import MaterialType, Scene
-from tpurt_torch.utils.profiling import host_read, span
+from tpurt_torch.utils.profiling import count, host_read, span
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -1154,7 +1156,7 @@ def run_megakernel(
             max_bounces, seed_mode, invisible_budget, sample_offset, camera,
             width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
             frames_per_batch, cameras, subpixel_jitter, pixel_list,
-            initial_state,
+            initial_state, body_backend,
         )
     with span("tpurt.launch"):
         if body_backend == "cuda":
@@ -1178,7 +1180,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             pixel_stride: Optional[int] = None, tail_passes: int = 1,
             dense: bool = False, frames_per_batch: int = 1, cameras=None,
             subpixel_jitter: bool = False, pixel_list=None,
-            initial_state: Optional[_Lane] = None):
+            initial_state: Optional[_Lane] = None,
+            body_backend: str = "plain"):
     """The shared setup of both backends -> (lane state, loop
     invariants): chain and root tables (the dense sweep's table in
     brute-force mode, where no root expands), quota slot directions (and
@@ -1187,7 +1190,14 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
     for a resumed run, ``initial_state`` itself. A resumed state may be a
     compacted subset of the batch it started in: ``pixel_index`` is then
     each lane's slot-0 pixel and ``pixel_stride`` the batch's width, and
-    a list quota's slot pixels come from the state's ``lane0``."""
+    a list quota's slot pixels come from the state's ``lane0``.
+
+    Fresh lanes are ``_initial_lane``'s torch operations (counted in
+    ``fresh_lanes.host``), or, for the "cuda" ``body_backend`` on a CUDA
+    scene, the same words written packed by one kernel launch
+    (``mega_cuda.fresh``, counted in ``fresh_lanes.device``): a
+    ``mega_cuda.Fresh`` in place of the lane state, which only
+    ``mega_cuda.run`` takes."""
     if not isinstance(ro0, V3):
         ro0 = v3lib.from_rows(ro0)
     if not isinstance(rd0, V3):
@@ -1296,9 +1306,17 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                 torch.stack(rows).contiguous()))
     if initial_state is not None:
         return initial_state, ctx
+    if body_backend == "cuda" and dev.type == "cuda":
+        from tpurt_torch.render import mega_cuda
+
+        with span("tpurt.prepare.lanes"):
+            lane = mega_cuda.fresh(ctx, ro0, rd0, pixel_index)
+        count("fresh_lanes.device", r)
+        return lane, ctx
     pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
     with span("tpurt.prepare.lanes"):
         lane = _initial_lane(ctx, ro0, rd0, pix)
+    count("fresh_lanes.host", r)
     if list_mode:
         lane = lane._replace(lane0=torch.arange(r, dtype=_I32, device=dev))
     return lane, ctx
