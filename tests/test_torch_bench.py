@@ -21,7 +21,6 @@ bounces, a quota of 2 pixels a lane, 256 lanes a launch.
   rounds) is untouched.
 """
 
-import dataclasses
 import functools
 import hashlib
 import json
@@ -35,6 +34,7 @@ import torch
 
 from tpurt.config import RenderConfig as TConfig
 from tpurt_torch import bench
+from tpurt_torch import config as p_config
 from tpurt_torch.config import RenderConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -170,7 +170,7 @@ class Rows:
         self.calls, self.mrays = [], mrays
 
     def _row(self, fn, name, kind, cfg, **kw):
-        self.calls.append((fn, name, kind, dataclasses.asdict(cfg), kw))
+        self.calls.append((fn, name, kind, p_config.tpurt_knobs(cfg), kw))
         return {"name": name, "seconds": 1.0, "mrays": self.mrays.get(name, 1.0)}
 
     def run_config(self, name, scene_kind, cfg, repeats=2, strict=False, **_):
@@ -181,7 +181,7 @@ class Rows:
 
     def run_sharding_efficiency(self, cfg, repeats=2, force=False,
                                 scene_kind="bunny", **_):
-        self.calls.append(("sharding", scene_kind, dataclasses.asdict(cfg),
+        self.calls.append(("sharding", scene_kind, p_config.tpurt_knobs(cfg),
                            force))
         return {"name": "sharding-efficiency", "devices": 1, "efficiency": None}
 

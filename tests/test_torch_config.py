@@ -37,10 +37,16 @@ def bits(a) -> np.ndarray:
 def test_render_config_fields_and_defaults_match():
     t_fields = [(f.name, f.default) for f in dataclasses.fields(t_config.RenderConfig)]
     p_fields = [(f.name, f.default) for f in dataclasses.fields(p_config.RenderConfig)]
-    assert p_fields == t_fields
+    n = len(t_fields)
+    assert p_fields[:n] == t_fields
+    assert dict(p_fields[n:]) == p_config.MODEL_FIELDS
+    assert list(p_config.MODEL_FIELDS) == [name for name, _ in p_fields[n:]]
     cfg = p_config.RenderConfig(width=640, height=480)
     ref = t_config.RenderConfig(width=640, height=480)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert p_config.tpurt_knobs(cfg) == dataclasses.asdict(ref)
+    glass = cfg.replace(model_material={"type": 3, "ior": 1.5}, model_scale=1.0)
+    assert set(p_config.tpurt_knobs(glass)) - set(dataclasses.asdict(ref)) == {
+        "model_material", "model_scale"}
     assert (cfg.tile_size, cfg.tiles(), cfg.aspect_ratio) == (
         ref.tile_size, ref.tiles(), ref.aspect_ratio)
     assert cfg.replace(engine="modular").engine == "modular"

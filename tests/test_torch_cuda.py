@@ -798,3 +798,69 @@ def test_fresh_lanes_kernel_writes_the_packed_initial_lanes(cuda_scene, cuda_cha
     if frame:
         np.testing.assert_array_equal(*frames)
         assert frames[0].max() > 0.0
+
+
+#: glass-cornell's model, scale and camera (benchmark/configs) on a small
+#: torus knot, at a test size.
+GLASS = RenderConfig(width=24, height=12, rays_per_pixel=2, max_bounces=12,
+                     rays_per_batch=512, compaction_threshold=0,
+                     camera_position=(0.0, 20.0, 230.0), camera_pitch=-0.08,
+                     fov_degrees=45.0, model_scale=1.0, model_material={
+                         "type": 3, "ior": 1.5, "color": [1.0, 1.0, 1.0]})
+
+
+def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
+    """On the glass scene, a fresh launch stopped after 4 trips and the
+    resumed launch that finishes it: each adds to the ``b1.*`` counters
+    the sums of its own trips and work rows, the two add up to the
+    segments an unbroken render returns, and the counting reads nothing
+    more from the card than the launch's most trips did alone."""
+    from tpurt_torch.scene.presets import scene_around
+    from tpurt_torch.utils import profiling as P
+
+    b = SceneBuilder()
+    knot = b.add_triangles(*procedural.torus_knot(segments=16, sides=6,
+                                                  radius=80.0, tube=22.0))
+    scene, cam = scene_around(b, knot, GLASS, device="cuda")
+    args = flat_batch_args(scene, cam, GLASS, 0)
+    seen = []
+    inner = mega_cuda._launch
+
+    def spy(*a, **k):
+        out = inner(*a, **k)
+        seen.append(tuple(t.clone() for t in out))
+        return out
+
+    def expected(trips, work):
+        t, w = trips.long().cpu(), work.long().cpu()
+        return [int(w[0].sum()), int(w[1].sum()), int(w[2].sum()),
+                int(t.sum()), int(t.max()) * t.numel()]
+
+    def counters():
+        c = P.totals()["counts"]
+        return [c.get(n, 0) for n in mega_cuda.WORK_COUNTERS]
+
+    monkeypatch.setattr(mega_cuda, "_launch", spy)
+    P.reset()
+    _, whole, _ = run_megakernel(scene, body_backend="cuda", **args)
+    assert counters() == expected(*seen[0]) and counters()[2] == whole
+    syncs_whole = P.totals()["counts"]["host_syncs"]
+
+    P.reset()
+    state = run_megakernel(scene, body_backend="cuda", max_iterations=4,
+                           return_state=True, **args)
+    fresh = counters()
+    assert fresh == expected(*seen[1])
+    P.reset()
+    run_megakernel(scene, body_backend="cuda", initial_state=state, **args)
+    resumed = counters()
+    assert resumed == expected(*seen[2])
+    assert fresh[2] + resumed[2] == whole
+    assert 0 < resumed[3] < resumed[4]  # some lanes finish before others
+
+    monkeypatch.setattr(mega_cuda, "work_counts",
+                        lambda trips, work: trips.max().long().view(1))
+    P.reset()
+    _, again, _ = run_megakernel(scene, body_backend="cuda", **args)
+    assert again == whole and counters() == [0] * 5
+    assert P.totals()["counts"]["host_syncs"] == syncs_whole

@@ -59,8 +59,10 @@ GOLDEN = RenderConfig(width=16, height=16, rays_per_pixel=2, max_bounces=3,
 
 
 def port(cfg: RenderConfig) -> p_config.RenderConfig:
+    """The port's config of tpurt's (the port's own fields at their
+    defaults)."""
     return p_config.RenderConfig(**{f: getattr(cfg, f) for f in
-                                    p_config.RenderConfig.__dataclass_fields__})
+                                    RenderConfig.__dataclass_fields__})
 
 
 @pytest.fixture(scope="module")

@@ -2,16 +2,19 @@
 
 ``RenderConfig`` has tpurt's fields, defaults and refusals, so a config
 written for one package means the same render in the other
-(tests/test_torch_config.py holds the two equal). The module constants
-are the ones the port reads; they take tpurt's values, which shape the
-bank layout and the lane trajectories. Knobs that only schedule work on
-the TPU are accepted and ignored, as their docs below say.
+(tests/test_torch_config.py holds the two equal), and after them the
+port's own ``MODEL_FIELDS``: the model's material and scale, whose
+defaults are the override tpurt's main program applies. The module
+constants are the ones the port reads; they take tpurt's values, which
+shape the bank layout and the lane trajectories. Knobs that only
+schedule work on the TPU are accepted and ignored, as their docs below
+say.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Mapping, Optional, Tuple
 
 #: Space between the loaded model and the Cornell-box walls
 #: (ref: src/settings.hpp:52  CORNELL_BREATHING_ROOM).
@@ -53,6 +56,12 @@ MEGA_NODE_ARITY = 8
 
 #: bf16 node-row child bounds instead of u8 (read at freeze).
 MEGA_BF16_BOUNDS = False
+
+
+#: The keys a ``RenderConfig.model_material`` may give
+#: (scene.builder.Material's fields).
+MATERIAL_KEYS = ("type", "ior", "color", "emission_color",
+                 "emission_strength", "reflectiveness", "specular_probability")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +166,15 @@ class RenderConfig:
     #: plain version — the exact sweep — on a CPU scene).
     dense_engine: str = "exact"
 
+    #: The port's own fields (``MODEL_FIELDS``): the model's material, a
+    #: mapping of scene.builder.Material's fields (``type`` a
+    #: MaterialType value, lists for colours), and the scale it is drawn
+    #: at, the Cornell box sized around it. None and 0.5: the reference
+    #: main program's override (main.cpp:256-266), white Solid with
+    #: specularProbability 1 at scale 0.5.
+    model_material: Optional[Mapping[str, object]] = None
+    model_scale: float = 0.5
+
     def __post_init__(self) -> None:
         if self.seed_mode not in ("reference", "decorrelated"):
             raise ValueError(f"unknown seed_mode: {self.seed_mode!r}")
@@ -187,6 +205,14 @@ class RenderConfig:
                 "(reference mode's RNG stream is sequential across a "
                 "pixel's samples)"
             )
+        if self.model_material is not None:
+            extra = set(self.model_material) - set(MATERIAL_KEYS)
+            if extra or self.model_material.get("type") not in range(5):
+                raise ValueError(
+                    "model_material needs a type in 0..4 and no keys but "
+                    f"{', '.join(MATERIAL_KEYS)}")
+        if not self.model_scale > 0:
+            raise ValueError("model_scale must be positive")
         # Reference clamps tile size into [1, min(W, H)] (src/main.cpp:230-234).
         object.__setattr__(
             self, "tile_size", max(1, min(self.tile_size, self.width, self.height))
@@ -204,3 +230,18 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+#: RenderConfig's fields that tpurt's lacks, with their defaults.
+MODEL_FIELDS = {"model_material": None, "model_scale": 0.5}
+
+
+def tpurt_knobs(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without the ``MODEL_FIELDS`` left at
+    their defaults: for a config that tpurt's RenderConfig can state,
+    the dict of tpurt's equal config (for one of tpurt's, its own)."""
+    knobs = dataclasses.asdict(cfg)
+    for name, default in MODEL_FIELDS.items():
+        if knobs.get(name, default) == default:
+            knobs.pop(name, None)
+    return knobs

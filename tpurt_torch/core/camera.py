@@ -87,9 +87,10 @@ def make_ray(camera: Camera, uv: torch.Tensor):
 
 
 def pixel_uv(x: torch.Tensor, y: torch.Tensor, width: int, height: int):
-    """Per-pixel uv with the kernel's y flip (Trace.cl:634-635)."""
-    u = x.to(torch.float32) / float(width)
-    v = 1.0 - y.to(torch.float32) / float(height)
+    """Per-pixel uv with the kernel's y flip (Trace.cl:634-635), divided
+    exactly on every device (``rng.divide``)."""
+    u = rng.divide(x.to(torch.float32), width)
+    v = 1.0 - rng.divide(y.to(torch.float32), height)
     return torch.stack([u, v], dim=-1)
 
 

@@ -93,6 +93,15 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / sqrt(x)
 
 
+def divide(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d correctly rounded on every device: torch on CUDA divides by
+    a Python scalar as a multiply by its reciprocal, an ulp off on some
+    inputs, and by a 0-dim tensor as IEEE does (the CPU, kernel B1 and
+    the reference). ``torch.full`` makes the divisor on the device with
+    no copy from the host."""
+    return a / torch.full((), float(d), dtype=a.dtype, device=a.device)
+
+
 def random_normal(state: torch.Tensor):
     """Box-Muller standard normal (Trace.cl:179-187); draws twice."""
     state, u1 = random_value(state)

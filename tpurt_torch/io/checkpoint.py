@@ -11,7 +11,6 @@ as .npz with a config fingerprint so stale checkpoints are refused.
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
@@ -19,10 +18,14 @@ from typing import Optional
 
 import numpy as np
 
+from tpurt_torch.config import tpurt_knobs
+
 
 def config_fingerprint(cfg, frame_index: int = 0) -> str:
+    """The config's knobs and the frame, hashed: tpurt's fingerprint for
+    a config that tpurt's RenderConfig can state (``tpurt_knobs``)."""
     payload = json.dumps(
-        {**dataclasses.asdict(cfg), "frame_index": frame_index}, sort_keys=True
+        {**tpurt_knobs(cfg), "frame_index": frame_index}, sort_keys=True
     )
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 

@@ -66,7 +66,7 @@ from tpurt_torch.core.camera import camera_scalars
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import megakernel as mk
 from tpurt_torch.scene.builder import MEGA_SLOT_BITS
-from tpurt_torch.utils.profiling import host_read, span
+from tpurt_torch.utils.profiling import count, host_read, span
 
 #: Kernel launches made by ``launch`` (incremented where a launch is
 #: made): the BVH instantiations, the dense one, and any instantiation of
@@ -114,6 +114,12 @@ TLAS_WORDS: List[str] = [name for name, _kind in _TLAS_FIELDS]
 #: in the TLAS regime all five.
 WORK_ROWS = ("box tests", "leaf rows", "segments", "instance enters",
              "instance exits")
+#: Counters of B1's own work a launch adds (``work_counts``): the sums
+#: of its first three ``WORK_ROWS`` over the lanes, the trips the lanes
+#: ran, and the lanes times the most trips a lane ran (the lane-trip
+#: slots of the launch, finished lanes' too).
+WORK_COUNTERS = ("b1.box_tests", "b1.leaf_rows", "b1.segments",
+                 "b1.lane_trips", "b1.lane_trip_slots")
 _CACHE_FIELDS = ("c_set", "c_valid", "c_point", "c_normal", "c_back",
                  "c_mesh", "c_dst")
 
@@ -547,22 +553,37 @@ def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> Fresh:
     return Fresh(buf, tabs, cfg)
 
 
+def work_counts(trips: torch.Tensor, work: torch.Tensor) -> torch.Tensor:
+    """(6,) int64 on the launch's device, from its (R,) ``trips`` and
+    (3 or 5, R) ``work`` (R > 0): the most trips a lane ran, then the
+    ``WORK_COUNTERS``' launch totals."""
+    t = trips.to(torch.int64)
+    top = t.max().view(1)
+    sums = torch.cat([work[:3].to(torch.int64), t.view(1, -1)]).sum(1)
+    return torch.cat([top, sums, top * t.numel()])
+
+
 def run(lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
     """The lane loop until every lane is done or ``max_iterations`` more
     trips ran: the kernel for a CUDA lane state or the ``Fresh`` lanes
     written on the card, its plain version (megakernel.run_plain) for a
-    CPU lane state."""
+    CPU lane state. A kernel launch adds its ``WORK_COUNTERS``, read
+    with its most trips in one host read."""
     if isinstance(lane, Fresh):
         buf = lane.buf
-        trips, _work = _launch(buf, ctx, max_iterations, lane.tabs, lane.cfg)
+        trips, work = _launch(buf, ctx, max_iterations, lane.tabs, lane.cfg)
     elif lane.done.device.type == "cpu":
         with span("tpurt.launch.call"):
             return mk.run_plain(lane, ctx, max_iterations)
     else:
         with span("tpurt.launch.pack"):
             buf = pack(lane)
-        trips, _work = launch(buf, ctx, max_iterations)
-    iters = (lane.iters + host_read(trips.max(), "trips", int) if trips.numel()
-             else lane.iters)
+        trips, work = launch(buf, ctx, max_iterations)
+    iters = lane.iters
+    if trips.numel():
+        top, *totals = host_read(work_counts(trips, work), "trips").tolist()
+        iters += top
+        for name, n in zip(WORK_COUNTERS, totals):
+            count(name, n)
     with span("tpurt.launch.unpack"):
         return unpack(buf, ctx, iters)

@@ -1326,8 +1326,8 @@ def finish(final: _Lane, ctx: _Ctx):
     """(mean radiance rows, exact segment count, trips) of a final state."""
     with span("tpurt.finish"):
         accs = final.accs if ctx.p_count > 1 else (final.acc,)
-        mean = (torch.cat([v3lib.to_rows(a) for a in accs])
-                / float(ctx.rays_per_pixel))
+        mean = rnglib.divide(torch.cat([v3lib.to_rows(a) for a in accs]),
+                             ctx.rays_per_pixel)
         return mean, host_read(final.segments.sum(), "segments", int), final.iters
 
 

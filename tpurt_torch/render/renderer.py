@@ -299,7 +299,7 @@ def _render_frame_flat(scene: Scene, camera: Camera, cfg: RenderConfig,
                 trips += iters
             acc = mean if acc is None else acc + mean
         if passes > 1:
-            acc = acc / float(passes)
+            acc = rnglib.divide(acc, passes)
         if as_u8:
             acc = tonemap(acc)  # on the device: only uint8 comes back
         n = min(b, total - start)
@@ -475,7 +475,7 @@ def _mega_finalize(state, spp: int):
     """(mean radiance rows, segment count as an exact integer tensor) of
     a finished state, as ``megakernel.finish`` computes them."""
     accs = state.accs if state.accs else (state.acc,)
-    mean = torch.cat([v3lib.to_rows(a) for a in accs]) / float(spp)
+    mean = rnglib.divide(torch.cat([v3lib.to_rows(a) for a in accs]), spp)
     return mean, state.segments.sum()
 
 
@@ -968,7 +968,7 @@ def render_tile_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig,
             light, _state, segments = trace(state, camera_rays(sample), hit0)
             acc = acc + light
             segs += host_read(segments.sum(), "segments", int)
-    mean = acc / float(cfg.rays_per_pixel)
+    mean = rnglib.divide(acc, cfg.rays_per_pixel)
     return mean.reshape(tile_h, tile_w, 3), segs
 
 

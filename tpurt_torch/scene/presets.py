@@ -1,6 +1,7 @@
 """Canonical scenes (port of tpurt/scene/presets.py): the reference's
 default workload — the model (an OBJ, or a procedural stand-in keyed by
-name) made white Solid with specularProbability 1 at scale 0.5, inside
+name) made white Solid with specularProbability 1 at scale 0.5 (or
+given RenderConfig's ``model_material`` and ``model_scale``), inside
 the Cornell box, appended last, seen from the settings.hpp camera — and
 the scenes of tpurt's bench rows (bench.py ``build_scene``).
 
@@ -63,15 +64,26 @@ def _model_for(builder: SceneBuilder, cfg: RenderConfig) -> MeshHandle:
     return builder.add_triangles(pos, nrm)
 
 
+def model_material(cfg: RenderConfig) -> Material:
+    """The model's material: ``cfg.model_material``'s fields over
+    Material's defaults, or without one (tpurt's RenderConfig has no such
+    field) the reference main program's override (main.cpp:256-266),
+    white Solid with specularProbability 1."""
+    given = getattr(cfg, "model_material", None)
+    if given is None:
+        return Material(type=MaterialType.SOLID, ior=1.0,
+                        color=(1.0, 1.0, 1.0), specular_probability=1.0)
+    kw = {k: tuple(map(float, v)) if k.endswith("color") else float(v)
+          for k, v in given.items() if k != "type"}
+    return Material(type=MaterialType(int(given["type"])), **kw)
+
+
 def scene_around(builder: SceneBuilder, mesh: MeshHandle, cfg: RenderConfig,
                  device="cuda") -> Tuple[Scene, Camera]:
     """The reference main program's model setup (main.cpp:256-304) for
-    ``mesh``."""
-    mesh.material = Material(
-        type=MaterialType.SOLID, ior=1.0, color=(1.0, 1.0, 1.0),
-        specular_probability=1.0,
-    )
-    mesh.scale = 0.5
+    ``mesh``, with ``cfg``'s model material and scale."""
+    mesh.material = model_material(cfg)
+    mesh.scale = getattr(cfg, "model_scale", 0.5)
     builder.add_cornell_box(mesh)
     builder.add_mesh(mesh)  # the model goes after the box (main.cpp:298)
     # In a process that has not used the card yet, its first tensor
