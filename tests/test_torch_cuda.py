@@ -864,3 +864,31 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
     _, again, _ = run_megakernel(scene, body_backend="cuda", **args)
     assert again == whole and counters() == [0] * 5
     assert P.totals()["counts"]["host_syncs"] == syncs_whole
+
+
+def test_kernel_matches_plain_on_a_natively_built_glass_layout(cuda_scene):
+    """glass-cornell's layout at a test size: an identity Glassy model of
+    512 triangles and the box's two-sided quads in one fused static BVH,
+    built natively, the one-sided front quad inline. B1's lanes after 1,
+    4 and 16 trips and at the end equal the plain version's in every
+    word, and so does the frame."""
+    from tpurt_torch.scene.presets import scene_around
+
+    b = SceneBuilder()
+    knot = b.add_triangles(*procedural.torus_knot(segments=32, sides=8,
+                                                  radius=80.0, tube=22.0))
+    scene, cam = scene_around(b, knot, GLASS, device="cuda")
+    assert scene.mega_chain == ((-1, 0, False),) and scene.mesh_identity[7]
+    assert scene.mega_static_rows.shape[0] == 2
+    args = flat_batch_args(scene, cam, GLASS, 0)
+    for trips in (1, 4, 16, None):
+        st = [run_megakernel(scene, body_backend=be, max_iterations=trips,
+                             return_state=True, **args) for be in ("plain", "cuda")]
+        a, k = (mega_cuda.pack(x) for x in st)
+        diff = (a != k).any(dim=1).nonzero().flatten().tolist()
+        assert not diff, (trips, [mega_cuda.LANE_WORDS[j] if j < len(
+            mega_cuda.LANE_WORDS) else j for j in diff])
+    frames = [render_frame(scene, cam, GLASS.replace(mega_body=m))
+              for m in ("xla", "pallas")]
+    np.testing.assert_array_equal(*frames)
+    assert frames[0].max() > 0.0

@@ -33,21 +33,25 @@ from yardstick import drivers, reference, scene, spec  # noqa: E402
 W, H, SPP, BOUNCES = 24, 12, 2, 12
 
 
-def _glass_cfg():
+def _glass_cfg(segments=16, sides=6):
     with open(os.path.join(BENCH, "configs", "glass-cornell.json")) as f:
         cfg = json.load(f)
-    cfg["mesh"] = {"kind": "torus_knot", "segments": 16, "sides": 6,
-                   "radius": 80.0, "tube": 22.0, "triangles": 192}
+    cfg["mesh"] = {"kind": "torus_knot", "segments": segments, "sides": sides,
+                   "radius": 80.0, "tube": 22.0,
+                   "triangles": 2 * segments * sides}
     return cfg
 
 
-def test_the_plain_path_renders_glass_as_the_reference():
+@pytest.mark.parametrize("knot", [(16, 6), (32, 8)], ids=["numpy", "native"])
+def test_the_plain_path_renders_glass_as_the_reference(knot):
     """glass-cornell's material, scale and camera on torus_knot(16, 6, 80,
-    22) at 24x12, 2 spp, 12 bounces: the port's plain path (the
-    benchmark's own route, drivers.render_config + scene_around) and the
-    plain reference agree on every pixel and every segment, with no
-    tolerance."""
-    cfg = _glass_cfg()
+    22) (192 triangles) and torus_knot(32, 8, 80, 22) (512, so that the
+    fused static BVH of the identity model and the box's two-sided quads
+    is built natively), the one-sided front quad inline, at 24x12, 2 spp,
+    12 bounces: the port's plain path (the benchmark's own route,
+    drivers.render_config + scene_around) and the plain reference agree
+    on every pixel and every segment, with no tolerance."""
+    cfg = _glass_cfg(*knot)
     pos, nrm = scene.model_triangles(cfg, BENCH)
     sspec = scene.scene_spec(cfg, pos, nrm)
     pose = scene.pose(cfg, W, H)
@@ -58,6 +62,8 @@ def test_the_plain_path_renders_glass_as_the_reference():
     b = SceneBuilder()
     prog_scene, cam = scene_around(b, b.add_triangles(pos, nrm), rcfg,
                                    device="cpu")
+    assert prog_scene.mega_chain == ((-1, 0, False),)
+    assert prog_scene.mega_static_rows.shape[0] == 2
     m, segs, _ = render_batch_flat(prog_scene, cam, rcfg, 0, frame_index=9)
     prog = tonemap(m[:W * H]).numpy()
     rs = reference.RefScene(sspec, "cpu")

@@ -137,3 +137,92 @@ def test_scene_to_device_and_unported_regimes():
     assert carried.mega_tlas_bounds == tlas.mega_tlas_bounds
     assert torch.equal(carried.mega_rows.view(torch.int32),
                        tlas.mega_rows.view(torch.int32))
+
+
+
+def _boxed(builder_cls, material_cls, mt, pos, nrm, box=True, device=None):
+    """A Glassy identity mesh in the Cornell box built around it (the
+    glass-cornell layout at a test size), or beside one light quad,
+    frozen by either package's builder; returns (scene, the mesh's
+    index)."""
+    b = builder_cls()
+    model = b.add_triangles(pos, nrm)
+    model.material = material_cls(type=mt.GLASSY, ior=1.5, color=(1.0, 1.0, 1.0))
+    if box:
+        b.add_cornell_box(model)
+    else:
+        light = b.add_quad((-60, 180, -60), (60, 180, -60), (60, 180, 60),
+                           (-60, 180, 60), (0, -1, 0), (0, 0, 0))
+        light.material = material_cls(type=mt.SOLID, color=(1, 1, 1),
+                                      emission_color=(1, 1, 0.9),
+                                      emission_strength=10.0)
+    i = b.add_mesh(model)
+    return (b.freeze() if device is None else b.freeze(device)), i
+
+
+def _assert_banks_equal(mine, theirs):
+    for f in ("mega_rows", "mega_static_rows"):
+        np.testing.assert_array_equal(bits(getattr(mine, f)),
+                                      bits(getattr(theirs, f)), err_msg=f)
+    for f in ("mega_chain", "mega_chain_members", "mega_stack_depth",
+              "mega_static_owner", "mega_static_cull", "mega_static_onesided"):
+        assert getattr(mine, f) == getattr(theirs, f), f
+
+
+@pytest.mark.parametrize("sub", [2, 3])
+def test_a_large_fused_static_bvh_is_built_natively_as_tpurts(sub, monkeypatch):
+    """A fused static BVH of NATIVE_BVH_MIN_TRIS triangles or more (an
+    identity icosphere(3), 1,280 triangles, and a light quad) is built by
+    the native builder, its owner ids permuted alongside, and the bank is
+    tpurt's (numpy-built) bit for bit; below the threshold (icosphere(2),
+    320 + 2) the numpy builder builds it, as before."""
+    from tpurt_torch import _native
+    from tpurt_torch.scene import builder
+
+    calls = []
+    inner = _native.build_bvh
+
+    def spy(*a, **k):
+        calls.append(k.get("aux") is not None)
+        return inner(*a, **k)
+
+    monkeypatch.setattr(_native, "build_bvh", spy)
+    pos, nrm = procedural.icosphere(sub, radius=40.0)
+    mine, i = _boxed(SceneBuilder, Material, MaterialType, pos, nrm, box=False,
+                     device="cpu")
+    theirs, _ti = _boxed(TBuilder, TMaterial, TMT,
+                         *t_proc.icosphere(sub, radius=40.0), box=False)
+    big = len(pos) + 2 >= builder.NATIVE_BVH_MIN_TRIS
+    assert mine.mega_chain[0][0] == -1 and i in mine.mega_chain_members[0]
+    # add_triangles' own build of the sphere, then the fused one with ids.
+    assert calls == ([False, True] if big else [])
+    _assert_banks_equal(mine, theirs)
+
+
+def test_box_onesided_quads_stay_inline_beside_a_large_identity_mesh():
+    """A Cornell box around an identity mesh of 512 triangles: the model
+    and the box's six two-sided quads share the fused static BVH, built
+    natively; the one-sided front quad, which that BVH cannot hold, stays
+    inline instead of taking a chain entry of its own (tpurt's layout);
+    the fused BVH is the one tpurt builds over the same members."""
+    from tpurt_torch.scene.builder import NATIVE_BVH_MIN_TRIS
+
+    pos, nrm = procedural.torus_knot(segments=32, sides=8, radius=80.0,
+                                     tube=22.0)
+    assert len(pos) == NATIVE_BVH_MIN_TRIS == 512
+    mine, i = _boxed(SceneBuilder, Material, MaterialType, pos, nrm,
+                     device="cpu")
+    theirs, _ti = _boxed(TBuilder, TMaterial, TMT, *t_proc.torus_knot(
+        segments=32, sides=8, radius=80.0, tube=22.0))
+    front = 2  # floor, ceiling, front: add_cornell_box's order
+    assert int(mine.mesh_mat_types[front]) == int(MaterialType.ONE_SIDED)
+    assert theirs.mega_chain == ((-1, 0, False),
+                                 (front, len(theirs.mega_rows) - 1, True))
+    assert mine.mega_chain == ((-1, 0, False),)
+    assert mine.mega_chain_members == theirs.mega_chain_members[:1]
+    assert i in mine.mega_chain_members[0]
+    assert mine.mega_static_owner == (front, front)
+    assert mine.mega_static_onesided == (True, True)
+    assert mine.mega_static_cull == (False, False)
+    np.testing.assert_array_equal(bits(mine.mega_rows),
+                                  bits(theirs.mega_rows[:-1]))

@@ -42,14 +42,18 @@ def _lib() -> ctypes.CDLL:
 
 
 def build_bvh(tri_pos: np.ndarray, tri_nrm: np.ndarray, first: int, n: int,
-              max_depth: int, leaf_cap: int):
+              max_depth: int, leaf_cap: int, aux: np.ndarray = None):
     """Native SAH build over tri_pos/tri_nrm[first : first + n] (permuted
-    in place; C-contiguous float32 (T, 3, 3)). Returns the subtree's
+    in place; C-contiguous float32 (T, 3, 3)), and ``aux`` (optional,
+    C-contiguous int64 (T,)) permuted alongside. Returns the subtree's
     (bmin, bmax, child, first, ntris) numpy arrays, child links relative
     to the subtree's root at 0."""
     for name, a in (("tri_pos", tri_pos), ("tri_nrm", tri_nrm)):
         if not a.flags.c_contiguous or a.dtype != np.float32:
             raise ValueError(f"{name} must be a C-contiguous float32 array")
+    if aux is not None and (not aux.flags.c_contiguous or aux.dtype != np.int64
+                            or aux.shape != tri_pos.shape[:1]):
+        raise ValueError("aux must be a C-contiguous int64 array, one a triangle")
     if first < 0 or n < 0 or first + n > tri_pos.shape[0]:
         raise ValueError(f"triangle range [{first}, {first + n}) out of bounds")
     cap = 2 * max(n, 1) + 1
@@ -57,7 +61,9 @@ def build_bvh(tri_pos: np.ndarray, tri_nrm: np.ndarray, first: int, n: int,
     count = ctypes.c_int64(0)
     fp = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     root = _lib().tn_build_bvh(
-        fp(tri_pos), fp(tri_nrm), ctypes.POINTER(ctypes.c_int64)(),
+        fp(tri_pos), fp(tri_nrm),
+        ctypes.POINTER(ctypes.c_int64)() if aux is None
+        else aux.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         first, n, max_depth, leaf_cap, out, 0, cap, ctypes.byref(count),
     )
     if root < 0:

@@ -16,6 +16,15 @@ entry, and either one chain entry per instanced mesh or, above
 regime: one instance row per mesh under a world-space top-level BVH in
 the same bank, reached through a single ``-2`` chain entry. Materials
 are deduplicated by value into slots (``Scene.mesh_mat_slot``).
+
+Two rules depart from tpurt's freeze. A fused static BVH of at least
+``NATIVE_BVH_MIN_TRIS`` triangles is built by the native builder, as a
+large mesh's is in ``add_triangles``: the same tree as the numpy
+builder's but for SAH ties within an ulp. And where the inline stage
+cannot hold every small identity mesh (a large identity mesh counts in
+its budget), the OneSided single quads stay inline instead of taking a
+chain entry each; that bank differs from tpurt's and renders the same
+image.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ from tpurt_torch.utils.profiling import span
 MEGA_SLOT_BITS = 6
 #: Triangle budget of the inline static stage.
 MEGA_STATIC_MAX_TRIS = 64
+#: Triangle count from which a BVH is built by the native builder:
+#: a mesh's in ``add_triangles``, the fused static one in the freeze.
+NATIVE_BVH_MIN_TRIS = 512
 
 
 def mega_row_width(leaf_tris: int, arity: int, bounds_fmt: str = "u8") -> int:
@@ -476,7 +488,7 @@ class SceneBuilder:
                         max_depth: int) -> int:
         """SAH build: native C++ for large meshes, numpy otherwise —
         exactly tpurt's SceneBuilder._build_bvh_fast."""
-        if count < 512:
+        if count < NATIVE_BVH_MIN_TRIS:
             return build_bvh(self.nodes, tri_pos, tri_nrm, first, count,
                              max_depth)
         bmin, bmax, child, nfirst, ntris = _native.build_bvh(
@@ -629,8 +641,14 @@ class SceneBuilder:
             and (int(m.material.type) != int(MaterialType.ONE_SIDED)
                  or m.num_tris <= 2)
         ]
-        if sum(self.meshes[i].num_tris for i in inline) > MEGA_STATIC_MAX_TRIS:
-            inline = []
+        ntris_of = lambda ids: sum(self.meshes[i].num_tris for i in ids)
+        if ntris_of(inline) > MEGA_STATIC_MAX_TRIS:
+            # The rest joins the fused static BVH, which cannot hold a
+            # OneSided quad: keep those inline, not a chain entry each.
+            inline = [i for i in inline if int(self.meshes[i].material.type)
+                      == int(MaterialType.ONE_SIDED)]
+            if ntris_of(inline) > MEGA_STATIC_MAX_TRIS:
+                inline = []
         static_rows, static_cull, static_onesided, static_owner = [], [], [], []
         for i in inline:
             m = self.meshes[i]
@@ -660,11 +678,16 @@ class SceneBuilder:
             s_mesh = np.concatenate(
                 [np.full(self.meshes[i].num_tris, i, np.int64)
                  for i in static_members])
-            s_nodes = BVHNodes.empty()
-            s_root = build_bvh(s_nodes, s_pos, s_nrm, 0, len(s_pos), 64,
-                               leaf_cap=2, aux=s_mesh)
+            if len(s_pos) >= NATIVE_BVH_MIN_TRIS:
+                s_root, s_nodes = 0, _native.build_bvh(
+                    s_pos, s_nrm, 0, len(s_pos), 64, 2, aux=s_mesh)
+            else:
+                s_tree = BVHNodes.empty()
+                s_root = build_bvh(s_tree, s_pos, s_nrm, 0, len(s_pos), 64,
+                                   leaf_cap=2, aux=s_mesh)
+                s_nodes = s_tree.as_arrays()
             root_row, root_leaf, d = _emit_mega_subtree(
-                rows, s_nodes.as_arrays(), s_root, s_pos, s_nrm, s_mesh,
+                rows, s_nodes, s_root, s_pos, s_nrm, s_mesh,
                 bounds_fmt, leaf_tris, row_width, arity,
             )
             chain.append((-1, root_row, root_leaf))
