@@ -544,6 +544,19 @@ def phase4():
     return scene
 
 
+def plain_start(scene, args, state=None):
+    """(lanes, loop invariants) of one launch's run_megakernel
+    arguments: the plain backend's fresh lanes, or ``state`` to resume."""
+    from tpurt_torch.render import megakernel as mk
+
+    ctx = mk.prepare(scene, **args, initial_state=state)
+    if not isinstance(ctx, mk._Ctx):  # an older tree's prepare: (lanes, ctx)
+        return ctx
+    if state is None:
+        state = mk.run_megakernel(scene, max_iterations=0, return_state=True, **args)
+    return state, ctx
+
+
 def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
     """The full-size batch's first ``k`` trips through both backends from
     one lane state (agreement, kernel ms, plain ms, the lane work those
@@ -554,14 +567,12 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
     then as ``renderer._mega_stage_more`` passes them)."""
     import torch
 
-    from tpurt_torch.core.v3 import V3
     from tpurt_torch.render import mega_cuda
     from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render.renderer import flat_batch_args
 
     log_depth(label, scene)
-    lane, ctx = mk.prepare(scene, **(args or flat_batch_args(scene, cam, cfg, 0)),
-                           initial_state=state)
+    lane, ctx = plain_start(scene, args or flat_batch_args(scene, cam, cfg, 0), state)
     buf0 = mega_cuda.pack(lane)
     r = lane.done.shape[0]
     mega_cuda.launch(buf0.clone(), ctx, k)  # warm-up
@@ -593,7 +604,7 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
         buf = buf0.clone()
         (trips, work), ms = cuda_ms(lambda: mega_cuda.launch(buf, ctx, None))
         full.extend(ms)
-    launch = mega_cuda.launch_config(ctx.dense is not None, tlas=ctx.tlas,
+    launch = mega_cuda.launch_config(ctx.tables.dense is not None, tlas=ctx.tlas,
                                      bf16=ctx.bf16, deep=mega_cuda.deep_stack(ctx),
                                      jitter=ctx.jitter, s_depth=ctx.s_depth)
     blocks = min(launch["blocks_per_sm"] * launch["sms"],
@@ -611,7 +622,7 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
     # starts it late). It must end where it ended in the batch.
     i = int(trips.argmax())
     ctx1 = ctx if ctx.slot_rd is None else ctx._replace(
-        slot_rd=V3(*(c[:, i:i + 1].contiguous() for c in ctx.slot_rd)))
+        slot_rd=ctx.slot_rd[:, :, i:i + 1].contiguous())
     if ctx.slot_pix is not None:
         ctx1 = ctx1._replace(slot_pix=ctx.slot_pix[:, i:i + 1].contiguous())
     buf1 = buf0[:, i:i + 1].contiguous()
@@ -681,7 +692,7 @@ def megakernel_bound(scene, tt, work, adv, label: str):
     tables = 0
     if ctx.slot_rd is not None:
         a = adv.long()
-        tables = int(a.clamp(max=ctx.slot_rd.x.shape[0]).sum()) * 12
+        tables = int(a.clamp(max=ctx.slot_rd.shape[1]).sum()) * 12
         if ctx.slot_pix is not None:
             tables += int(a.clamp(max=ctx.slot_pix.shape[0]).sum()) * 4
     nbytes = (scene.mega_rows.numel() * 4 + tables
@@ -832,7 +843,7 @@ def phase7(b2):
     # The batch's sweeps (counted by the kernel; the teapot is one entry of
     # every column) at the primary sweep's operations per pair, plus the
     # shading tails.
-    cols = tt["ctx"].dense.count
+    cols = tt["ctx"].tables.dense.count
     _boxes, sweeps, segs = tt["work"][:3]
     f_ms, f_by = bound(sweeps * cols * b2["ops_per_pair"] + segs * SHADE_OPS, 0)
     log(f"teapot-720p-bruteforce: dense kernel to completion {tt['full_ms']:.3f} "
@@ -925,9 +936,9 @@ def parity_b3_launches(scene, cam, cfg):
 
     from tpurt_torch.core import v3 as v3lib
     from tpurt_torch.core.camera import make_ray, pixel_uv
-    from tpurt_torch.render.intersect import _cull_policy, local_rays
+    from tpurt_torch.render.intersect import local_rays
     from tpurt_torch.render.renderer import _tile_pixel_coords
-    from tpurt_torch.scene.types import MaterialType
+    from tpurt_torch.scene.types import MaterialType, culls_backfaces
 
     dev = scene.device
     fused, separate = [], []
@@ -939,7 +950,7 @@ def parity_b3_launches(scene, cam, cfg):
             separate.append(i)
     ranges = [scene.mesh_tri_ranges[i] for i in fused]
     ids = torch.cat([torch.arange(f, f + n) for f, n in ranges]).to(dev)
-    fused_cull = torch.cat([torch.full((n,), _cull_policy(scene.mesh_mat_types[i]))
+    fused_cull = torch.cat([torch.full((n,), culls_backfaces(scene.mesh_mat_types[i]))
                             for i, (_f, n) in zip(fused, ranges)]).to(dev)
     rows = lambda v: v3lib.to_rows(v).contiguous()
     ts = cfg.tile_size
@@ -956,7 +967,7 @@ def parity_b3_launches(scene, cam, cfg):
             for i in separate:
                 first, count = scene.mesh_tri_ranges[i]
                 lo, ld = local_rays(scene, i, o, d)
-                cull = _cull_policy(scene.mesh_mat_types[i])
+                cull = culls_backfaces(scene.mesh_mat_types[i])
                 out.append(dict(tile=(tx, ty), what=f"mesh {i}", ro=rows(lo),
                                 rd=rows(ld), first=first, count=count, ids=None,
                                 cull=torch.full((count,), cull, device=dev)))
@@ -1137,7 +1148,7 @@ def b1_batch_inputs():
     out = []
 
     def add(name, scene, args, trips=None):
-        lane, ctx = mk.prepare(scene, **args)
+        lane, ctx = plain_start(scene, args)
         out.append((name, scene, lane, ctx, trips))
 
     cfg = bunny_cfg(1920, 1080)
@@ -1607,7 +1618,7 @@ def phase13(bunny_u8):
     bcam = camera_for(big)
     runs = {}
     for label, scene in (("u8", bunny_u8), ("bf16", bunny_bf)):
-        lane, ctx = mk.prepare(scene, **flat_batch_args(scene, bcam, big, 0))
+        lane, ctx = plain_start(scene, flat_batch_args(scene, bcam, big, 0))
         runs[label] = (mega_cuda.pack(lane), ctx)
         mega_cuda.launch(runs[label][0].clone(), ctx, 16)  # warm-up
     times, boxes = {}, {}
@@ -1875,7 +1886,7 @@ def phase16():
     # sample's walk down and back up the chain is ~140 trips.
     one = cfg.replace(rays_per_pixel=1, pixels_per_lane=1)
     compare_backends("deep-stack-64", dscene, dcam, one, trips=(1, 16, 34, 100))
-    lane, ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, one, 0))
+    lane, ctx = plain_start(dscene, flat_batch_args(dscene, dcam, one, 0))
     held = int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max())
     lane, ctx = lane._replace(stack=lane.stack[:66]), ctx._replace(s_depth=66)
     if held <= mega_cuda.MAX_SHARED_STACK or not mega_cuda.deep_stack(ctx):
@@ -1893,7 +1904,7 @@ def phase16():
         "to the end")
     compare_packed("deep-stack-64", dscene, dcam, one, (dcam, turned(dcam, 0.1)))
     big = cfg.replace(width=256, height=256)
-    _lane, ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, big, 0))
+    ctx = mk.prepare(dscene, **flat_batch_args(dscene, dcam, big, 0))
     if not mega_cuda.deep_stack(ctx):
         raise AssertionError("the deep-stack scene did not take kDeep")
     # 34 trips: the window in which its stacks grow past 64 entries.
@@ -1944,7 +1955,7 @@ def compare_list(name, scene, cam, cfg, pixels, lanes=None):
         f"{kern[1]} plain {plain[1]}; trips {kern[2]}")
     if 1.0 - same > MAX_FLIP or abs(kern[1] - plain[1]) > SEG_TOL * plain[1]:
         raise AssertionError(f"{name}: rows or segments differ")
-    lane, ctx = mk.prepare(scene, **args)
+    lane, ctx = plain_start(scene, args)
     buf0 = mega_cuda.pack(lane)
     mega_cuda.launch(buf0.clone(), ctx, None)  # warm-up
     bufs = [buf0.clone() for _ in range(3)]
@@ -2929,8 +2940,8 @@ def kernel_device_ms(fn, match: str, reps: int = 5) -> list:
 
 def fresh_lanes(label, scene, args, render):
     """The fresh-lanes kernel (``mega_cuda.fresh``) on one main path's
-    launch: its buffer against ``pack`` of the plain backend's
-    ``prepare`` (``_initial_lane``) in every word, one FRESH_LAUNCHES and
+    launch: its buffer against ``pack`` of the plain backend's fresh
+    lanes (``_initial_lane``) in every word, one FRESH_LAUNCHES and
     no megakernel launch for the call; its time with the host around it
     (``ms``) and the kernel alone on the device (``device_ms``, traced)
     against ``_initial_lane`` and ``pack`` (``plain_ms``); its bound, the
@@ -2943,7 +2954,7 @@ def fresh_lanes(label, scene, args, render):
     from tpurt_torch.render import mega_cuda
     from tpurt_torch.render import megakernel as mk
 
-    lane, ctx = mk.prepare(scene, **args)
+    lane, ctx = plain_start(scene, args)
     want = mega_cuda.pack(lane)
     ro0, rd0 = v3lib.from_rows(args["ro0"]), v3lib.from_rows(args["rd0"])
     pix = args["pixel_index"]
@@ -2952,18 +2963,13 @@ def fresh_lanes(label, scene, args, render):
     launched = counts()
     if [launched[k] for k in ("fresh", "megakernel", "dense", "jitter")] != [1, 0, 0, 0]:
         raise AssertionError(f"{label}: one fresh call launched {launched}")
-    if got.buf.shape != want.shape or not torch.equal(got.buf, want):
-        rows = (got.buf != want).any(dim=1).nonzero().flatten().tolist()
+    if got.shape != want.shape or not torch.equal(got, want):
+        rows = (got != want).any(dim=1).nonzero().flatten().tolist()
         raise AssertionError(f"{label}: the fresh buffer differs from "
                              f"pack(_initial_lane(...)) in words {rows}")
-    pix64 = pix.to(torch.int64) & 0xFFFFFFFF
 
     def plain():
-        fresh_lane = mk._initial_lane(ctx, ro0, rd0, pix64)
-        if ctx.pix_list:
-            fresh_lane = fresh_lane._replace(lane0=torch.arange(
-                pix.shape[0], dtype=torch.int32, device=pix.device))
-        return mega_cuda.pack(fresh_lane)
+        return mega_cuda.pack(mk._initial_lane(ctx, ro0, rd0, pix))
 
     mega_cuda.fresh(ctx, ro0, rd0, pix)  # warm-up
     _o, ms = cuda_ms(lambda: mega_cuda.fresh(ctx, ro0, rd0, pix), reps=5)

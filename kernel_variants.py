@@ -263,7 +263,6 @@ def workloads(sources):
     """[(name, source, run() -> result tensors, info() -> str)] of the
     kernels in ``sources``."""
     from tpurt_torch.render import mega_cuda
-    from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render import plucker_fused as pf
     from tpurt_torch.render.renderer import flat_batch_args
     from tpurt_torch.scene.presets import bench_scene
@@ -278,14 +277,15 @@ def workloads(sources):
                 ("bunny-1080p 16 trips", bunny_sc, bunny, 16),
                 ("bunny-1080p", bunny_sc, bunny, None),
                 ("teapot-720p-dense", teapot_sc, teapot, None)):
-            lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+            lane, ctx = cs.plain_start(scene, flat_batch_args(scene, cam, cfg, 0))
             buf0 = mega_cuda.pack(lane)
 
             def run(buf0=buf0, ctx=ctx, trips=trips):
                 buf = buf0.clone()
                 return (buf, *mega_cuda.launch(buf, ctx, trips))
 
-            def info(dense=ctx.dense is not None, r=buf0.shape[1], depth=ctx.s_depth):
+            def info(dense=ctx.tables.dense is not None, r=buf0.shape[1],
+                     depth=ctx.s_depth):
                 # An older tree's launch_config takes no stack budget.
                 kw = ({"s_depth": depth} if "s_depth" in inspect.signature(
                     mega_cuda.launch_config).parameters else {})

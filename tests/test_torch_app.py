@@ -298,8 +298,8 @@ def test_recolor_reslots_as_tpurt_and_reaches_the_material_table():
         assert mine.mat_slot_rep == theirs.mat_slot_rep
         assert mine.mesh_mat_slot != scene.mesh_mat_slot and mine.cache == {}
         cam = Camera.create((0, 150, 250), yaw=3.14, aspect_ratio=1.0, device="cpu")
-        _lane, ctx = mk.prepare(mine, **flat_batch_args(mine, cam, SMALL, 0))
-        assert ctx.mats[idx, 2:5].tolist() == [1.0, 0.0, 0.0]
+        ctx = mk.prepare(mine, **flat_batch_args(mine, cam, SMALL, 0))
+        assert ctx.tables.mats[idx, 2:5].tolist() == [1.0, 0.0, 0.0]
     assert scene.cache == {"probe": True}
     assert scene.mat_color[7].tolist() != [1.0, 0.0, 0.0]
 

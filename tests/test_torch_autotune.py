@@ -153,12 +153,13 @@ def test_refused_leg_is_recorded_and_skipped(monkeypatch):
 def test_check_bank_refuses_before_launch():
     scene, cam, _ = default_scene(CFG.replace(object_path="sphere0.obj"),
                                   device="cpu")
-    _lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, CFG, 0))
+    ctx = mk.prepare(scene, **flat_batch_args(scene, cam, CFG, 0))
     mega_cuda.check_bank(ctx)
     with pytest.raises(ValueError, match="2 to 63 children"):
         mega_cuda.check_bank(ctx._replace(arity=64))
     # The dense sweep has no deep-stack instantiation.
-    dense = ctx._replace(dense=object(), s_depth=mega_cuda.MAX_SHARED_STACK + 2)
+    dense = ctx._replace(tables=ctx.tables._replace(dense=object()),
+                         s_depth=mega_cuda.MAX_SHARED_STACK + 2)
     with pytest.raises(ValueError, match="deep-stack"):
         mega_cuda.check_bank(dense)
     mega_cuda.check_bank(ctx._replace(s_depth=mega_cuda.MAX_SHARED_STACK + 2))
@@ -196,9 +197,9 @@ def test_stack_placement_rule(name, words, shared):
     a deeper one is the kDeep instantiation's global scratch, with no
     shared memory for it."""
     scene, cam, cfg = _preset(name)
-    _lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
     assert ctx.s_depth == words == 2 * scene.mega_stack_depth
-    assert (ctx.dense is not None) == (name == "teapot")
+    assert (ctx.tables.dense is not None) == (name == "teapot")
     assert (words <= mega_cuda.MAX_SHARED_STACK) == shared
     assert mega_cuda.deep_stack(ctx) == (not shared)
     for threads in (128, 256):
@@ -211,7 +212,7 @@ def test_stack_placement_rule(name, words, shared):
     past = ctx._replace(s_depth=mega_cuda.MAX_SHARED_STACK + 1)
     assert mega_cuda.MAX_SHARED_STACK == 64 and not mega_cuda.deep_stack(at)
     assert mega_cuda.shared_stack_bytes(at, 128) == 4 * 64 * 128
-    if ctx.dense is None:
+    if ctx.tables.dense is None:
         assert mega_cuda.deep_stack(past) and mega_cuda.shared_stack_bytes(past, 128) == 0
     else:
         with pytest.raises(ValueError, match="deep-stack"):

@@ -46,6 +46,13 @@ CFG = RenderConfig(width=64, height=64, rays_per_pixel=2, max_bounces=3,
                    object_path="sphere2.obj")
 
 
+def _plain_start(scene, args):
+    """(the plain backend's fresh lanes, the loop invariants) of one
+    launch's run_megakernel arguments."""
+    return (run_megakernel(scene, max_iterations=0, return_state=True, **args),
+            mk.prepare(scene, **args))
+
+
 def knot_obj_text() -> str:
     pos, nrm = procedural.torus_knot(segments=24, sides=8, radius=30.0, tube=8.0)
     lines = [f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}" for v in pos.reshape(-1, 3)]
@@ -151,7 +158,7 @@ def test_kernel_rejects_a_malformed_buffer(cuda_scene):
     scene, cam = cuda_scene
     from tpurt_torch.render import megakernel as mk
 
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, CFG, 0))
+    lane, ctx = _plain_start(scene, flat_batch_args(scene, cam, CFG, 0))
     buf = mega_cuda.pack(lane)
     with pytest.raises(ValueError, match="words per lane"):
         mega_cuda.launch(buf[1:].contiguous(), ctx, 1)
@@ -208,7 +215,7 @@ def test_kernel_matches_plain_in_the_tlas_and_bf16_instantiations(cuda_scene,
                              return_state=True, **args) for b in ("plain", "cuda")]
         agree, _err = mega_cuda.compare_lanes(*st)
         assert agree >= 0.995, (trips, agree)
-    lane, ctx = mk.prepare(scene, **args)
+    lane, ctx = _plain_start(scene, args)
     _trips, work = mega_cuda.launch(mega_cuda.pack(lane), ctx, None)
     assert work.shape[0] == (5 if scene.mega_tlas else 3)
     if scene.mega_tlas:
@@ -270,7 +277,7 @@ def test_deep_stack_kernel_matches_plain(cuda_scene):
     cfg = CFG.replace(width=32, height=32)
     scene, cam = deep_stack_scene(cfg, device="cuda")
     args = flat_batch_args(scene, cam, cfg, 0)
-    lane, ctx = mk.prepare(scene, **args)
+    lane, ctx = _plain_start(scene, args)
     assert scene.mega_stack_depth > 32 and mega_cuda.deep_stack(ctx)
     assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) > 64
     for trips in (1, 16, 34, 100, None):
@@ -291,7 +298,7 @@ def test_deep_stack_overflow_matches_plain(cuda_scene):
     words (still kDeep), below the 67 entries its primary rays push."""
     cfg = CFG.replace(width=32, height=32)
     scene, cam = deep_stack_scene(cfg, device="cuda")
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    lane, ctx = _plain_start(scene, flat_batch_args(scene, cam, cfg, 0))
     lane, ctx = lane._replace(stack=lane.stack[:66]), ctx._replace(s_depth=66)
     assert mega_cuda.deep_stack(ctx)
     assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) == 66
@@ -308,7 +315,7 @@ def _shared_ring_lanes(depth):
     words, which the shared-memory ring holds (not kDeep)."""
     cfg = CFG.replace(width=32, height=32)
     scene, cam = deep_stack_scene(cfg, device="cuda")
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    lane, ctx = _plain_start(scene, flat_batch_args(scene, cam, cfg, 0))
     lane, ctx = lane._replace(stack=lane.stack[:depth]), ctx._replace(s_depth=depth)
     assert not mega_cuda.deep_stack(ctx)
     return lane, ctx
@@ -510,8 +517,8 @@ def test_persistent_megakernel_matches_plain(request, which, dense, size):
     args = flat_batch_args(scene, cam, cfg, 0)
     for key in ("ro0", "rd0", "pixel_index"):
         args[key] = args[key][:n]
-    lane, ctx = mk.prepare(scene, **args)
-    assert (ctx.dense is not None) == dense and lane.done.shape[0] == n
+    lane, ctx = _plain_start(scene, args)
+    assert (ctx.tables.dense is not None) == dense and lane.done.shape[0] == n
     buf0 = mega_cuda.pack(lane)
     plain = lane
     plain_trips = torch.zeros(n, dtype=torch.int32, device="cuda")
@@ -702,12 +709,7 @@ def test_modular_kernel_frame_equals_exact_with_shared_geometry(cuda_scene):
 def _lanes_packed_on_the_host(ctx, ro0, rd0, pix):
     """The fresh buffer as the launch path built it before the kernel
     wrote it: ``_initial_lane``'s torch operations, then ``pack``."""
-    lane = mk._initial_lane(ctx, ro0, rd0, pix.to(torch.int64) & 0xFFFFFFFF)
-    if ctx.pix_list:
-        lane = lane._replace(lane0=torch.arange(pix.shape[0], dtype=torch.int32,
-                                                device=pix.device))
-    return mega_cuda.Fresh(mega_cuda.pack(lane), *mega_cuda._launch_inputs(
-        ctx, pix.device, pix.shape[0], "tpurt.prepare.tables"))
+    return mega_cuda.pack(mk._initial_lane(ctx, ro0, rd0, pix))
 
 
 def _fresh_case(which, cuda_scene, cuda_chain):
@@ -763,27 +765,28 @@ def test_fresh_lanes_kernel_writes_the_packed_initial_lanes(cuda_scene, cuda_cha
 
     scene, cam, cfg, args, frame = _fresh_case(which, cuda_scene, cuda_chain)
     assert cfg.rays_per_pixel > 1 or which == "cache-off"
-    lane, ctx = mk.prepare(scene, **args)
+    lane, ctx = _plain_start(scene, args)
     assert isinstance(lane, mk._Lane) and ctx.use_cache == (
         which != "cache-off" and not which.startswith("jitter"))
     counters = (mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES, mega_cuda.JITTER_LAUNCHES)
     before = mega_cuda.FRESH_LAUNCHES
-    P.reset()
-    got, _ctx = mk.prepare(scene, body_backend="cuda", **args)
-    assert isinstance(got, mega_cuda.Fresh) and mega_cuda.FRESH_LAUNCHES == before + 1
-    assert P.totals()["counts"]["fresh_lanes.device"] == lane.done.shape[0]
+    got = mega_cuda.fresh(ctx, lane.ro0, lane.rd0, args["pixel_index"])
+    assert mega_cuda.FRESH_LAUNCHES == before + 1
     assert (mega_cuda.LAUNCHES, mega_cuda.DENSE_LAUNCHES,
             mega_cuda.JITTER_LAUNCHES) == counters
     want = mega_cuda.pack(lane)
-    assert got.buf.shape == want.shape
-    diff = (got.buf != want).any(dim=1).nonzero().flatten().tolist()
+    assert got.shape == want.shape
+    diff = (got != want).any(dim=1).nonzero().flatten().tolist()
     assert not diff, [mega_cuda.LANE_WORDS[k] if k < len(mega_cuda.LANE_WORDS)
                       else k for k in diff]
 
     def kernel_runs(**kw):
         return run_megakernel(scene, body_backend="cuda", **args, **kw)
 
+    P.reset()
     ours = [kernel_runs(max_iterations=k, return_state=True) for k in (1, 16)]
+    assert P.totals()["counts"]["fresh_lanes.device"] == 2 * lane.done.shape[0]
+    assert "fresh_lanes.host" not in P.totals()["counts"]
     ours.append(kernel_runs())
     frames = [render_frame(scene, cam, cfg.replace(mega_body="pallas"))] if frame else []
     with monkeypatch.context() as m:
@@ -824,7 +827,7 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
     scene, cam = scene_around(b, knot, GLASS, device="cuda")
     args = flat_batch_args(scene, cam, GLASS, 0)
     seen = []
-    inner = mega_cuda._launch
+    inner = mega_cuda.launch
 
     def spy(*a, **k):
         out = inner(*a, **k)
@@ -840,7 +843,7 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
         c = P.totals()["counts"]
         return [c.get(n, 0) for n in mega_cuda.WORK_COUNTERS]
 
-    monkeypatch.setattr(mega_cuda, "_launch", spy)
+    monkeypatch.setattr(mega_cuda, "launch", spy)
     P.reset()
     _, whole, _ = run_megakernel(scene, body_backend="cuda", **args)
     assert counters() == expected(*seen[0]) and counters()[2] == whole

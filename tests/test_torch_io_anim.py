@@ -299,7 +299,9 @@ def test_deep_stack_scene_matches_tpurt():
     assert 2 * scene.mega_stack_depth > mega_cuda.MAX_SHARED_STACK
     # Past the kernel's 64-word shared stack ring in earnest: the primary
     # rays hold 67 entries at the bottom of the chain, after trip 34.
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, cfg, 0))
+    args = flat_batch_args(scene, cam, cfg, 0)
+    ctx = mk.prepare(scene, **args)
+    lane = mk.run_megakernel(scene, max_iterations=0, return_state=True, **args)
     assert int(mk.stack_entries(mk.run_plain(lane, ctx, 34)).max()) == 67
     # tpurt's twin, from the same numpy arrays and the same arity
     tcfg = tpurt_cfg(cfg)

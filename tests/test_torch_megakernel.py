@@ -148,10 +148,19 @@ def test_unported_knobs_raise(knob):
 
 
 def test_kernel_wrapper_on_cpu_is_the_plain_version(quota_states):
+    """The kernel's wrapper refuses a CPU lane state (the plain version
+    is ``run_plain``, which ``run_megakernel`` chooses), and a lane
+    state packs and unpacks bit for bit."""
     scene, cam, _ = quota_states
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, cam, QUOTA, 0))
-    a = mega_cuda.run(lane, ctx, 6)
-    b = mk.run_plain(lane, ctx, 6)
+    args = flat_batch_args(scene, cam, QUOTA, 0)
+    ctx = mk.prepare(scene, **args)
+    lane = mk._initial_lane(ctx, V3(*args["ro0"].unbind(-1)),
+                            V3(*args["rd0"].unbind(-1)), args["pixel_index"])
+    with pytest.raises(ValueError, match="CUDA"):
+        mega_cuda.run(lane, ctx, 6)
+    a = mk.run_plain(lane, ctx, 6)
+    b = mk.run_megakernel(scene, body_backend="plain", max_iterations=6,
+                          return_state=True, **args)
     assert mega_cuda.compare_lanes(a, b) == (1.0, 0.0)
     # the packed buffer round-trips bit for bit
     buf = mega_cuda.pack(a)
@@ -205,11 +214,12 @@ def test_static_only_scene_matches_oracle():
 
 
 def test_fresh_lanes_on_the_cpu_and_their_buffer_words():
-    """On the CPU, and under the plain backend, ``prepare`` builds fresh
-    lanes with ``_initial_lane``'s torch operations, bit for bit, and
-    counts them in ``fresh_lanes.host``; the buffer that the CUDA route
-    writes instead (``mega_cuda.lane_words``) has ``pack``'s words in the
-    u8, TLAS, packed, list and cache-off layouts."""
+    """On the CPU the plain backend starts fresh lanes with
+    ``_initial_lane``'s torch operations, bit for bit, and counts them in
+    ``fresh_lanes.host``; the CUDA backend refuses a CPU scene. The
+    buffer that the CUDA route writes instead (``mega_cuda.lane_words``)
+    has ``pack``'s words in the u8, TLAS, packed, list and cache-off
+    layouts."""
     from tpurt_torch.render.renderer import list_batch_args
     from tpurt_torch.scene.presets import grid_scene
     from tpurt_torch.utils import profiling as P
@@ -217,14 +227,17 @@ def test_fresh_lanes_on_the_cpu_and_their_buffer_words():
     scene, cam, _ = cornell_sphere_scene(0, QUOTA, device="cpu")
     args = flat_batch_args(scene, cam, QUOTA, 0)
     r = args["pixel_index"].shape[0]
-    for backend in ("plain", "cuda"):
-        P.reset()
-        lane, ctx = mk.prepare(scene, body_backend=backend, **args)
-        assert P.totals()["counts"]["fresh_lanes.host"] == r
-        assert "fresh_lanes.device" not in P.totals()["counts"]
-        want = mk._initial_lane(ctx, V3(*args["ro0"].unbind(-1)),
-                                V3(*args["rd0"].unbind(-1)), args["pixel_index"])
-        assert torch.equal(mega_cuda.pack(lane), mega_cuda.pack(want))
+    P.reset()
+    lane = mk.run_megakernel(scene, body_backend="plain", max_iterations=0,
+                             return_state=True, **args)
+    assert P.totals()["counts"]["fresh_lanes.host"] == r
+    assert "fresh_lanes.device" not in P.totals()["counts"]
+    ctx = mk.prepare(scene, **args)
+    want = mk._initial_lane(ctx, V3(*args["ro0"].unbind(-1)),
+                            V3(*args["rd0"].unbind(-1)), args["pixel_index"])
+    assert torch.equal(mega_cuda.pack(lane), mega_cuda.pack(want))
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.run_megakernel(scene, body_backend="cuda", **args)
 
     grid = grid_scene(12, device="cpu")
     small = QUOTA.replace(width=16, height=16)
@@ -237,7 +250,9 @@ def test_fresh_lanes_on_the_cpu_and_their_buffer_words():
             rays_per_pixel=1, pixels_per_lane=1), 0)),
     }
     for name, (sc, a) in layouts.items():
-        lane, ctx = mk.prepare(sc, **a)
+        ctx = mk.prepare(sc, **a)
+        lane = mk._initial_lane(ctx, V3(*a["ro0"].unbind(-1)),
+                                V3(*a["rd0"].unbind(-1)), a["pixel_index"])
         assert (ctx.tlas, ctx.frames, ctx.pix_list, ctx.use_cache) == (
             name == "tlas", 2 if name == "packed" else 1, name == "list",
             name != "cache-off"), name

@@ -5,7 +5,7 @@ the CPU.
   ``scene_layout``) is a bit-exact copy of pa and of the plain version's
   edge subtractions pb - pa, pc - pa (chain scene of test_torch_cuda.py).
 * The fused identity pass's ``FusedSet`` gives each listed triangle its
-  owner's cull policy (``_cull_policy``), also where two instances share
+  owner's cull policy (``culls_backfaces``), also where two instances share
   one triangle range with different policies: the flag belongs to the
   instance, so the kernel takes it per listed row, not per triangle.
 * The u pre-test (``plucker_fused.u_pretest_drops``, the torch mirror of
@@ -43,11 +43,10 @@ from tpurt_torch.config import EPSILON
 from tpurt_torch.core import v3 as v3lib
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.render import mt_sweep, plucker_fused
-from tpurt_torch.render.intersect import (_cull_policy, _mt_single, exact_sweep,
-                                          fused_set, mt_rows)
+from tpurt_torch.render.intersect import _mt_single, exact_sweep, fused_set, mt_rows
 from tpurt_torch.scene import procedural
 from tpurt_torch.scene.builder import Material, SceneBuilder
-from tpurt_torch.scene.types import MaterialType
+from tpurt_torch.scene.types import MaterialType, culls_backfaces
 
 _EPS = np.float32(EPSILON)
 CSRC = os.path.join(os.path.dirname(mt_sweep.__file__), "..", "csrc")
@@ -91,7 +90,7 @@ def test_fused_set_flags_follow_each_owner(chain):
         first, n = chain.mesh_tri_ranges[i]
         rows = (fs.ids >= first) & (fs.ids < first + n)
         assert bool((fs.owner[rows] == i).all())
-        assert bool((fs.cull[rows] == float(_cull_policy(chain.mesh_mat_types[i]))).all())
+        assert bool((fs.cull[rows] == float(culls_backfaces(chain.mesh_mat_types[i]))).all())
     # Each position's first listing of its id (distinct ids: itself).
     assert torch.equal(fs.first, torch.arange(fs.ids.shape[0]))
     # Kept per scene and threshold; none when no mesh is fused.

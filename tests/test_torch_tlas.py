@@ -260,7 +260,9 @@ def test_quota_tail3_lanes_against_tpurt():
         tscene, tcam, jnp.asarray([0, 0, 0, k], jnp.int32), batch=b,
         pixels_per_lane=2, **statics)[0])
     scene = grid_scene(12, device="cpu")
-    lane, ctx = mk.prepare(scene, **flat_batch_args(scene, _camera(cfg), cfg, 0))
+    args = flat_batch_args(scene, _camera(cfg), cfg, 0)
+    ctx = mk.prepare(scene, **args)
+    lane = mk.run_megakernel(scene, max_iterations=0, return_state=True, **args)
     first_int = torch.zeros_like(lane.cur) - 1
     first_float = torch.zeros_like(lane.cur) - 1
     for k in range(1, 17):

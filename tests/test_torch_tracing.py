@@ -4,7 +4,7 @@ path, on the CPU through the plain version, and on the card.
 With no profiler the traced view stays empty, and a flat batch, a packed
 pack and a staged batch give the same bits with tracing on and off.
 Under ``device_trace`` the Chrome trace nests the program's spans
-(``tpurt.batch`` > ``tpurt.prepare`` > ``tpurt.prepare.chain``,
+(``tpurt.batch`` > ``tpurt.prepare`` > ``tpurt.prepare.scene``,
 ``tpurt.launch`` > ``tpurt.launch.call``) with their ids as args; self
 time never exceeds total time, nor children's totals their parent's;
 identical batches add identical ``host_syncs``; each staged step is one
@@ -17,7 +17,9 @@ launch lies inside a ``tpurt.launch.call`` span, and the device-to-host
 copies launched inside ``tpurt.image`` / ``tpurt.batch`` spans number
 exactly the ``host_syncs`` counted, so every read goes through
 ``host_read``; fresh lanes are written by the ``fresh_lanes`` kernel
-inside ``tpurt.prepare.lanes``, and a launch from them packs nothing.
+inside ``tpurt.prepare.lanes``, and a launch from them packs nothing;
+every launch's tables are made inside ``tpurt.prepare``, none inside
+``tpurt.launch``.
 On the GPU machine:
 
     python -m pytest tests/test_torch_tracing.py -q --noconftest
@@ -198,7 +200,7 @@ def test_tracing_changes_no_bit(tmp_path, monkeypatch, kind):
 
 
 def test_trace_nests_the_spans_with_their_ids(tmp_path):
-    """tpurt.batch > tpurt.prepare > tpurt.prepare.chain and
+    """tpurt.batch > tpurt.prepare > tpurt.prepare.scene and
     tpurt.launch > tpurt.launch.call in the Chrome trace, the batch's
     frame index and start in its args; totals are consistent."""
     scene, cam = _scene(FLAT)
@@ -210,7 +212,7 @@ def test_trace_nests_the_spans_with_their_ids(tmp_path):
     assert batch["args"]["frame"] == 7 and batch["args"]["start"] == 256
     assert batch["args"]["frames"] == 1
     (prep,) = _spans(ev, "tpurt.prepare")
-    (chain,) = _spans(ev, "tpurt.prepare.chain")
+    (chain,) = _spans(ev, "tpurt.prepare.scene")
     (launch,) = _spans(ev, "tpurt.launch")
     (call,) = _spans(ev, "tpurt.launch.call")
     assert _inside(prep, batch) and _inside(chain, prep)
@@ -221,7 +223,7 @@ def test_trace_nests_the_spans_with_their_ids(tmp_path):
     for rec in spans.values():
         assert 0 <= rec["self_s"] <= rec["total_s"]
     children = {"tpurt.batch": ("tpurt.prepare", "tpurt.launch", "tpurt.finish"),
-                "tpurt.prepare": ("tpurt.prepare.chain", "tpurt.prepare.slots",
+                "tpurt.prepare": ("tpurt.prepare.scene", "tpurt.prepare.slots",
                                   "tpurt.prepare.lanes"),
                 "tpurt.launch": ("tpurt.launch.call",)}
     for parent, kids in children.items():
@@ -375,6 +377,8 @@ def test_card_reads_and_launches_in_their_spans(tmp_path, card_scene):
         ts = launch_ts[k["args"]["correlation"]]
         assert any(a <= ts <= b for a, b in lanes), k["name"]
     assert len(_spans(ev, "tpurt.launch.pack")) == len(kernels) - len(fresh)
-    # Their tables are uploaded once, by the fresh launch, inside prepare.
-    assert len(_spans(ev, "tpurt.prepare.tables")) == len(fresh)
-    assert len(_spans(ev, "tpurt.launch.tables")) == len(kernels) - len(fresh)
+    # Every launch's tables are made once, inside prepare; no tables span
+    # lies under tpurt.launch.
+    assert len(_spans(ev, "tpurt.prepare.scene")) == len(kernels)
+    assert not [e for e in ev if e.get("cat") == "user_annotation"
+                and e["name"].startswith("tpurt.launch.") and "tables" in e["name"]]

@@ -25,7 +25,7 @@ Where the port differs from tpurt's harness:
   count and loop trips as host integers. A timed block is CUDA events
   around the block with one synchronise after its end, but the card
   waits for the host between launches; moving the counts to the device
-  is ROADMAP A.8.
+  is ROADMAP D.4 (D.1-D.4 take the host's work between launches).
 * The kernels build (nvcc) before the first row, and their seconds are
   logged on a line of their own; each row's warm-up absorbs the rest of
   its set-up.

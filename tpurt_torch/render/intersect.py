@@ -40,7 +40,7 @@ from tpurt_torch.config import EPSILON
 from tpurt_torch.core import v3 as v3lib
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.core.vecmath import euler_rotation
-from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.scene.types import MaterialType, Scene, culls_backfaces
 
 _F32 = torch.float32
 _INF = float("inf")
@@ -308,12 +308,6 @@ def _bvh_traverse(scene: Scene, root: int, ro: V3, rd: V3, cull: bool,
 # ---------------------------------------------------------------------------
 
 
-def _cull_policy(mt: int) -> bool:
-    """Backface-cull unless Glassy/Invisible/OneSided (Trace.cl:460-462)."""
-    return mt not in (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
-                      int(MaterialType.ONE_SIDED))
-
-
 class FusedSet(NamedTuple):
     """The triangles of the fused identity pass on the scene's device,
     mesh by mesh, made once per scene and threshold (``fused_set``)."""
@@ -352,7 +346,7 @@ def fused_set(scene: Scene, bruteforce_threshold: int):
             ids = np.concatenate([np.arange(f, f + c) for f, c in ranges])
             owner = np.concatenate([np.full(c, i, np.int64)
                                     for i, (_f, c) in zip(fused, ranges)])
-            cull = np.array([_cull_policy(scene.mesh_mat_types[i]) for i in owner])
+            cull = np.array([culls_backfaces(scene.mesh_mat_types[i]) for i in owner])
             uniq, first = np.unique(ids, return_index=True)
             dev = scene.device
             t = lambda a, dtype: torch.as_tensor(a, dtype=dtype, device=dev)
@@ -370,7 +364,7 @@ def _mesh_tables(scene: Scene):
         mts = [int(m) for m in scene.mesh_mat_types]
         scene.cache["mesh_tables"] = tuple(
             torch.tensor(v, dtype=torch.bool, device=scene.device) for v in (
-                [_cull_policy(m) for m in mts],
+                [culls_backfaces(m) for m in mts],
                 [m == int(MaterialType.ONE_SIDED) for m in mts]))
     return scene.cache["mesh_tables"]
 
@@ -476,7 +470,7 @@ def _transformed_mesh_pass(scene: Scene, ro: V3, rd: V3, i: int,
     first, count = scene.mesh_tri_ranges[i]
     rot, pos, scale = _mesh_frame(scene, i)
     safe = scale if abs(scale) > _EPS else 1.0
-    cull = _cull_policy(scene.mesh_mat_types[i])
+    cull = culls_backfaces(scene.mesh_mat_types[i])
     lo, ld = local_rays(scene, i, ro, rd)
     if count <= bruteforce_threshold:
         lb = _bruteforce_range(scene, lo, ld, first, count, cull, dense_engine)

@@ -16,11 +16,13 @@ retires takes the next from a queue (a counter this wrapper zeroes). The
 source's header says what bounds it on the card and why one thread per
 lane.
 
-``run`` is the one entry point. On a CUDA lane state it launches the
-kernel — one launch per call, counted in ``LAUNCHES`` — or raises; on a
-CPU lane state it runs the kernel's plain version,
-``megakernel.run_plain``, because a CPU tensor is what it was given.
-A brute-force context (``ctx.dense`` set, RenderConfig.mega_dense)
+``run`` is the loop's entry point, which ``megakernel.run_megakernel``
+calls for the "cuda" backend: on a lane buffer or a CUDA lane state it
+launches the kernel — one launch per call, counted in ``LAUNCHES`` — and
+it raises ValueError for a CPU lane state (the plain loop is
+``megakernel.run_plain``). Its tables are the context's
+(``megakernel.scene_tables``, the slot tables of ``megakernel.prepare``).
+A brute-force context (``ctx.tables.dense`` set, RenderConfig.mega_dense)
 launches the kernel's dense instantiation, whose traversal step is
 kernel B2's sweep (render/plucker_fused.py); those launches are counted
 in ``DENSE_LAUNCHES``. A TLAS scene (``ctx.tlas``) and a bf16 bank
@@ -39,10 +41,9 @@ ray in the kernel; those launches count in ``JITTER_LAUNCHES``.
 Fresh lanes (``fresh``) are written on the card by a second kernel of
 the same library, fresh_lanes, from the entry rays and pixels: the
 buffer ``pack(megakernel._initial_lane(...))`` would give, word for
-word, built by B1's own restart code, with the tables and launch
-configuration that the launch after it reuses; ``run`` takes that
-``Fresh`` buffer without a pack. Its launches count in
-``FRESH_LAUNCHES``, not in the megakernel's counters.
+word, built by B1's own restart code; ``run`` takes that buffer without
+a pack. Its launches count in ``FRESH_LAUNCHES``, not in the
+megakernel's counters.
 
 The lane state crosses the C boundary as one contiguous (n_words, R)
 int32 buffer of ``lane_words`` words a lane: ``LANE_WORDS`` (the
@@ -57,9 +58,8 @@ fields as their bits, floats by bit view.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
-import numpy as np
 import torch
 
 from tpurt_torch.core.camera import camera_scalars
@@ -250,46 +250,6 @@ def compare_lanes(a: mk._Lane, b: mk._Lane):
     return float(same.float().mean()), err
 
 
-def _tables(ctx: mk._Ctx, dev):
-    """The kernel's small read-only tables, on ``dev``."""
-    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device=dev)
-    p = ctx.params
-    e = ctx.e_count
-    arity = ctx.arity
-    chain = p.table_np if e else np.zeros((1, mk.CP_WIDTH), np.float32)
-    roots_f = p.roots_f if e and p.roots_f is not None else np.zeros(
-        (max(e, 1), 1 + 6 * arity), np.float32)
-    roots_i = p.roots_i if e and p.roots_i is not None else np.zeros(
-        (max(e, 1), arity), np.int32)
-    meta = np.concatenate([
-        np.asarray(p.root if e else (), np.int32),
-        np.asarray(p.root_leaf if e else (), np.int32),
-        np.asarray(p.mesh if e else (), np.int32),
-        np.asarray(p.expand if e else (), np.int32),
-        np.asarray(ctx.s_cull, np.int32), np.asarray(ctx.s_onesided, np.int32),
-        np.asarray(ctx.s_owner, np.int32),
-        host_read(ctx.mesh_cull, "mesh_cull").numpy().astype(np.int32),
-        np.zeros(1, np.int32),
-    ]).astype(np.int32)
-    if ctx.slot_rd is not None:
-        slot_rd = torch.stack(list(ctx.slot_rd)).contiguous()  # (3, rows, R)
-    else:
-        slot_rd = torch.zeros(1, dtype=torch.float32, device=dev)
-    if ctx.slot_pix is not None:
-        slot_pix = _word(ctx.slot_pix, "u").contiguous()  # (rows, R)
-    else:
-        slot_pix = torch.zeros(1, dtype=torch.int32, device=dev)
-    srows = ctx.srows if len(ctx.srows) else np.zeros((1, 19), np.float32)
-    return dict(
-        chain=f32(chain), mats=ctx.mats.contiguous(), srows=f32(srows),
-        roots_f=f32(roots_f),
-        roots_i=torch.as_tensor(np.ascontiguousarray(roots_i, np.int32), device=dev),
-        meta=torch.as_tensor(meta, device=dev), slot_rd=slot_rd,
-        slot_pix=slot_pix,
-    )
-
-
 def _lib(jitter: bool = False):
     """The kernel's library: csrc/megakernel.cu, or its jitter build."""
     from tpurt_torch import _build
@@ -329,7 +289,7 @@ def _variant(dense: bool, tlas: bool, bf16: bool, deep: bool = False) -> int:
 def deep_stack(ctx: mk._Ctx) -> bool:
     """Whether ``ctx`` launches the kDeep instantiation (stacks in global
     scratch): a BVH walk whose stack budget exceeds MAX_SHARED_STACK."""
-    return ctx.dense is None and ctx.s_depth > MAX_SHARED_STACK
+    return ctx.tables.dense is None and ctx.s_depth > MAX_SHARED_STACK
 
 
 def shared_stack_bytes(ctx: mk._Ctx, threads: int) -> int:
@@ -385,13 +345,12 @@ def lane_words(ctx: mk._Ctx) -> int:
             + int(ctx.pix_list))
 
 
-def _launch_inputs(ctx: mk._Ctx, dev, r: int, tables_span: str):
-    """The tables (``_tables``, uploaded inside ``tables_span``) and the
-    launch configuration (``_launch_cfg``) of a launch of ``r`` lanes on
-    ``dev``, after raising ValueError for what such a launch cannot take:
-    a jittered context without its camera, a bank shape the kernel
-    refuses (``check_bank``), a bank that is not 16-byte rows of f32 on
-    ``dev``."""
+def _launch_inputs(ctx: mk._Ctx, dev, r: int):
+    """The launch configuration (``_launch_cfg``) of a launch of ``r``
+    lanes on ``dev``, after raising ValueError for what such a launch
+    cannot take: a jittered context without its camera, a bank shape the
+    kernel refuses (``check_bank``), a bank that is not 16-byte rows of
+    f32 on ``dev``."""
     if ctx.jitter and ctx.camera is None:
         raise ValueError("a jittered launch needs the context's camera")
     check_bank(ctx)
@@ -401,18 +360,16 @@ def _launch_inputs(ctx: mk._Ctx, dev, r: int, tables_span: str):
     if rows.data_ptr() % 16 or rows.shape[1] % 4:
         raise ValueError("the kernel reads bank rows as 16-byte words: the bank must "
                          "start 16-byte aligned and its rows be a multiple of 4 words")
-    with span(tables_span):
-        tabs = _tables(ctx, dev)
-    return tabs, _launch_cfg(ctx, r)
+    return _launch_cfg(ctx, r)
 
 
 def _launch_cfg(ctx: mk._Ctx, r: int):
     """The launch configuration (struct MkCfg) of ``r`` lanes, its
-    ``max_trips`` left for the launch to set; under jitter with the
-    camera's scalars (one ``camera`` read)."""
-    cfg = (_JitterCfg if ctx.jitter else _Cfg)(
+    ``max_trips`` and, under jitter, the camera's scalars left for the
+    megakernel's launch to set (fresh_lanes reads neither)."""
+    return (_JitterCfg if ctx.jitter else _Cfg)(
         n_lanes=r, e_count=ctx.e_count, s_depth=ctx.s_depth,
-        num_meshes=ctx.mats.shape[0], n_static=len(ctx.s_cull),
+        num_meshes=ctx.tables.mats.shape[0], n_static=len(ctx.tables.s_cull),
         max_bounces=ctx.max_bounces, rays_per_pixel=ctx.rays_per_pixel,
         seed_reference=int(ctx.seed_mode == "reference"),
         invisible_budget=ctx.invisible_budget, use_cache=int(ctx.use_cache),
@@ -426,14 +383,8 @@ def _launch_cfg(ctx: mk._Ctx, r: int):
         # slots (frames = ppf = P: row pixno, no frame offset).
         frames=ctx.p_count if ctx.pix_list else ctx.frames,
         ppf=ctx.p_count if ctx.pix_list else ctx.ppf,
-        rd_rows=0 if ctx.slot_rd is None else ctx.slot_rd.x.shape[0],
+        rd_rows=0 if ctx.slot_rd is None else ctx.slot_rd.shape[1],
     )
-    if ctx.jitter:
-        pos, rot, tan, aspect = camera_scalars(ctx.camera)
-        cfg.cam_pos[:] = [float(v) for v in pos]
-        cfg.cam_rot[:] = [float(v) for v in rot.reshape(9)]
-        cfg.cam_tan, cfg.cam_aspect = float(tan), float(aspect)
-    return cfg
 
 
 def _check_buffer(buf: torch.Tensor, ctx: mk._Ctx):
@@ -454,41 +405,41 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     lane in this launch (``WORK_ROWS``): child-box tests in node rows,
     leaf rows (dense: entry sweeps), segment completions; in the TLAS
     regime (5, R), with instance enters and exits."""
-    _check_buffer(buf, ctx)
-    # The tables are freed when the launch returns, before the kernel
-    # ends: safe, because the caching allocator reuses the memory only
-    # for later work on this same stream.
-    tabs, cfg = _launch_inputs(ctx, buf.device, buf.shape[1], "tpurt.launch.tables")
-    return _launch(buf, ctx, max_trips, tabs, cfg)
-
-
-def _launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int],
-            tabs: dict, cfg):
-    """``launch`` with the tables and configuration ``_launch_inputs``
-    gave for this buffer."""
     global LAUNCHES, DENSE_LAUNCHES, JITTER_LAUNCHES
+    _check_buffer(buf, ctx)
     r = buf.shape[1]
     dev = buf.device
+    cfg = _launch_inputs(ctx, dev, r)
     cfg.max_trips = 2 ** 31 - 1 if max_trips is None else int(max_trips)
+    if ctx.jitter:  # the camera's scalars, for the kernel's jittered rays
+        pos, rot, tan, aspect = camera_scalars(ctx.camera)
+        cfg.cam_pos[:] = [float(v) for v in pos]
+        cfg.cam_rot[:] = [float(v) for v in rot.reshape(9)]
+        cfg.cam_tan, cfg.cam_aspect = float(tan), float(aspect)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
     work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     stack = torch.empty((ctx.s_depth, r) if cfg.deep else (1,),
                         dtype=torch.int32, device=dev)
-    rows = ctx.rows
+    slot_rd, slot_pix = ctx.slot_rd, ctx.slot_pix
+    if slot_rd is None:
+        slot_rd = torch.zeros(1, dtype=torch.float32, device=dev)
+    if slot_pix is None:
+        slot_pix = torch.zeros(1, dtype=torch.int32, device=dev)
     dense = None
-    if ctx.dense is not None:
+    if ctx.tables.dense is not None:
         from tpurt_torch.render.plucker_fused import check_table
 
-        dense = check_table(ctx.dense, dev)
+        dense = check_table(ctx.tables.dense, dev)
+    tabs = ctx.tables.kernel
     lib = _lib(ctx.jitter)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with span("tpurt.launch.call"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpurt_mk_launch(
-            ctypes.byref(cfg), ptr(rows), ptr(tabs["chain"]), ptr(tabs["mats"]),
-            ptr(tabs["srows"]), ptr(tabs["roots_f"]), ptr(tabs["roots_i"]),
-            ptr(tabs["meta"]), ptr(tabs["slot_rd"]), ptr(tabs["slot_pix"]),
+            ctypes.byref(cfg), ptr(ctx.rows), ptr(tabs["chain"]),
+            ptr(ctx.tables.mats), ptr(tabs["srows"]), ptr(tabs["roots_f"]),
+            ptr(tabs["roots_i"]), ptr(tabs["meta"]), ptr(slot_rd), ptr(slot_pix),
             ptr(stack), ptr(buf), ptr(trips),
             ptr(work), ptr(queue),
             None if dense is None else ctypes.c_void_p(ctypes.addressof(dense)),
@@ -506,24 +457,12 @@ def _launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int],
     return trips, work
 
 
-class Fresh(NamedTuple):
-    """Fresh lanes written on the card (``fresh``): the (n_words, R)
-    lane buffer, and the tables and launch configuration that the launch
-    after it takes (``run``)."""
-
-    buf: torch.Tensor
-    tabs: dict
-    cfg: ctypes.Structure
-    iters: int = 0
-
-
-def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> Fresh:
+def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> torch.Tensor:
     """megakernel._initial_lane's lanes for entry rays ``ro0``, ``rd0``
     and pixel ids ``pix`` (int32 or int64, their low 32 bits), written
-    packed -- ``pack``'s words, ``lane0`` too in a list quota -- by one
-    launch of the library's fresh_lanes kernel, counted in
-    ``FRESH_LAUNCHES``. The tables and configuration it builds for that
-    launch are the next launch's."""
+    packed -- the (n_words, R) buffer of ``pack``'s words, ``lane0`` too
+    in a list quota -- by one launch of the library's fresh_lanes kernel,
+    counted in ``FRESH_LAUNCHES``."""
     global FRESH_LAUNCHES
     dev = pix.device
     r = pix.shape[0]
@@ -532,7 +471,8 @@ def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> Fresh:
         raise ValueError("fresh lanes need (R,) int32 or int64 pixel ids on a CUDA device")
     if any(c.device != dev or c.dtype != torch.float32 or c.shape != (r,) for c in comps):
         raise ValueError("fresh lanes need (R,) f32 ray components on the pixels' device")
-    tabs, cfg = _launch_inputs(ctx, dev, r, "tpurt.prepare.tables")
+    cfg = _launch_inputs(ctx, dev, r)
+    tabs = ctx.tables.kernel
     buf = torch.empty((lane_words(ctx), r), dtype=torch.int32, device=dev)
     inp = _FreshIn(pix=pix.data_ptr(), pix_stride=pix.stride(0),
                    pix_bytes=pix.element_size(), lane0=int(ctx.pix_list))
@@ -550,7 +490,7 @@ def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> Fresh:
         raise RuntimeError("fresh lanes launch failed: "
                            + lib.tpurt_mk_error_string(err).decode())
     FRESH_LAUNCHES += 1
-    return Fresh(buf, tabs, cfg)
+    return buf
 
 
 def work_counts(trips: torch.Tensor, work: torch.Tensor) -> torch.Tensor:
@@ -564,22 +504,21 @@ def work_counts(trips: torch.Tensor, work: torch.Tensor) -> torch.Tensor:
 
 
 def run(lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
-    """The lane loop until every lane is done or ``max_iterations`` more
-    trips ran: the kernel for a CUDA lane state or the ``Fresh`` lanes
-    written on the card, its plain version (megakernel.run_plain) for a
-    CPU lane state. A kernel launch adds its ``WORK_COUNTERS``, read
-    with its most trips in one host read."""
-    if isinstance(lane, Fresh):
-        buf = lane.buf
-        trips, work = _launch(buf, ctx, max_iterations, lane.tabs, lane.cfg)
-    elif lane.done.device.type == "cpu":
-        with span("tpurt.launch.call"):
-            return mk.run_plain(lane, ctx, max_iterations)
+    """The kernel's lane loop until every lane is done or
+    ``max_iterations`` more trips ran, from the lane buffer ``fresh``
+    wrote or from a lane state on the card (ValueError for one on the
+    CPU, where the loop is megakernel.run_plain). The launch adds its
+    ``WORK_COUNTERS``, read with its most trips in one host read."""
+    if isinstance(lane, torch.Tensor):
+        buf, iters = lane, 0
     else:
+        if lane.done.device.type != "cuda":
+            raise ValueError("mega_cuda.run takes lanes on a CUDA device; the "
+                             "plain loop is megakernel.run_plain")
         with span("tpurt.launch.pack"):
             buf = pack(lane)
-        trips, work = launch(buf, ctx, max_iterations)
-    iters = lane.iters
+        iters = lane.iters
+    trips, work = launch(buf, ctx, max_iterations)
     if trips.numel():
         top, *totals = host_read(work_counts(trips, work), "trips").tolist()
         iters += top

@@ -50,10 +50,13 @@ Two backends run the loop (``run_megakernel(body_backend=...)``):
            lane running the whole loop in registers (its dense
            instantiation runs kernel B2's sweep in the traversal step).
 
-Setup — primary rays, the quota slots' direction tables, the chain and
-root tables — is plain torch on the scene's device and shared by both;
-fresh lanes are ``_initial_lane``'s torch operations, or on the card one
-kernel launch that writes the same words packed (``mega_cuda.fresh``).
+``run_megakernel`` chooses the backend, once. Setup is ``prepare``,
+shared by both: the scene's tables (``scene_tables``: the plain loop's
+host and device views and the kernel's tensors, from one read of the
+scene) and the quota slots' tables, in plain torch on the scene's
+device. Fresh lanes are the backend's own: ``_initial_lane``'s torch
+operations, or on the card one kernel launch that writes the same words
+packed (``mega_cuda.fresh``).
 Differences from tpurt's array types: u32 lane fields (pix, rng, stack
 entries) are int64 tensors holding values in [0, 2^32), and ``iters``
 is a Python int.
@@ -77,7 +80,7 @@ from tpurt_torch.render.intersect import mt_core as _mt_core
 from tpurt_torch.render.intersect import mt_rows
 from tpurt_torch.render.shading import pack_materials, shade_hit_soa
 from tpurt_torch.scene.builder import MEGA_ITAG, MEGA_SLOT_BITS
-from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.scene.types import MaterialType, Scene, culls_backfaces
 from tpurt_torch.utils.profiling import count, host_read, span
 
 _F32 = torch.float32
@@ -181,21 +184,37 @@ class _ChainParams(NamedTuple):
     expand: Tuple[bool, ...] = ()
 
 
-class _Ctx(NamedTuple):
-    """Loop invariants of one run_megakernel call (both backends)."""
+class SceneTables(NamedTuple):
+    """What a launch needs that depends only on its Scene
+    (``scene_tables``): the plain loop's host and device views and the
+    kernel's tables, made from one set of host arrays."""
 
-    rows: torch.Tensor  # (N, W) f32 bank
-    rows_i: torch.Tensor  # the same bits as i32
+    params: Optional[_ChainParams]  # None without chain entries
     srows: np.ndarray  # (S, 19) f32 static triangle rows
     s_cull: Tuple[bool, ...]
     s_onesided: Tuple[bool, ...]
     s_owner: Tuple[int, ...]
     mats: torch.Tensor  # (K, 11)
     mesh_cull: torch.Tensor  # (K,) bool backface-cull policy per mesh
-    params: Optional[_ChainParams]
-    # Quota slots' primary directions: (P-1, R), row k-1 for slot k; in a
-    # cross-frame pack (n, R), row (k-1) % n for slot k (see prepare).
-    slot_rd: Optional[V3]
+    # (mesh -> slot, slot -> representative mesh) as (K,) and (U,) i32
+    # tensors: the shade fetch's material slots (TLAS regime).
+    mat_slots: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    dense: Optional["DenseTable"]  # the brute-force sweep's table
+    # The kernel's device tables by its launch arguments' names: chain,
+    # roots_f, roots_i, srows, meta (csrc/megakernel.cu, struct Tables).
+    kernel: dict
+
+
+class _Ctx(NamedTuple):
+    """Loop invariants of one run_megakernel call (both backends)."""
+
+    rows: torch.Tensor  # (N, W) f32 bank
+    rows_i: torch.Tensor  # the same bits as i32
+    tables: SceneTables
+    # Quota slots' primary directions, (3, rows, R) f32: (3, P-1, R), row
+    # k-1 for slot k; in a cross-frame pack (3, n, R), row (k-1) % n for
+    # slot k (see prepare).
+    slot_rd: Optional[torch.Tensor]
     frame_index: int
     sample_offset: int
     e_count: int
@@ -214,18 +233,15 @@ class _Ctx(NamedTuple):
     n_skip: int
     leaf_tris: int
     arity: int
-    dense: Optional["DenseTable"] = None  # the brute-force sweep's table
     tlas: bool = False  # the many-instance regime (Scene.mega_tlas)
     bf16: bool = False  # bf16 node-row child bounds
-    # (mesh -> slot, slot -> representative mesh) as (K,) and (U,) i32
-    # tensors: the shade fetch's material slots (TLAS regime).
-    mat_slots: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     # Cross-frame packing: frames in the pack, slots a frame (P / frames).
     frames: int = 1
     ppf: int = 1
     # The quota slots' pixels where the advance is not affine, (rows, R)
-    # int64, row pixno % rows: a pack's (ppf, R) within-frame slots, or a
-    # list quota's (P, R) slots, pixel_list[min(lane0 + k*stride, N-1)].
+    # u32 bits in int32, row pixno % rows: a pack's (ppf, R) within-frame
+    # slots, or a list quota's (P, R) slots, pixel_list[min(lane0 +
+    # k*stride, N-1)].
     slot_pix: Optional[torch.Tensor] = None
     pix_list: bool = False  # list quotas (lanes carry lane0)
     # Sub-pixel jitter: every new sample's primary ray is recomputed from
@@ -234,19 +250,15 @@ class _Ctx(NamedTuple):
     camera: Optional[object] = None
 
 
-def _cull_policy(mt: int) -> bool:
-    return mt not in (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
-                      int(MaterialType.ONE_SIDED))
-
-
-def _chain_params(scene: Scene) -> _ChainParams:
-    """tpurt's _chain_params on the host, in numpy float32."""
+def _chain_params(scene: Scene, dense: bool = False) -> _ChainParams:
+    """tpurt's _chain_params on the host, in numpy float32; in the
+    brute-force mode (``dense``) no root expands, so no root row is read
+    (tpurt: megakernel.py:1499-1501)."""
     rows = []
     mesh_pos = host_read(scene.mesh_pos, "chain").numpy()
     angles = [host_read(t, "chain").numpy() for t in
               (scene.mesh_pitch, scene.mesh_yaw, scene.mesh_roll)]
     mesh_scale = host_read(scene.mesh_scale, "chain").numpy()
-    mat_type = host_read(scene.mat_type, "chain").numpy()
     qmin = host_read(scene.mesh_qmin, "chain").numpy()
     qscale = host_read(scene.mesh_qscale, "chain").numpy()
     for mesh_idx, _root, _leaf in scene.mega_chain:
@@ -264,13 +276,13 @@ def _chain_params(scene: Scene) -> _ChainParams:
             continue
         i = mesh_idx
         rot = euler_rotation(angles[0][i], angles[1][i], angles[2][i])
-        mt = int(mat_type[i])
+        mt = scene.mesh_mat_types[i]
         rmin = qmin[i]
         rmax = qmin[i] + np.float32(65535.0) * qscale[i]
         rows.append(np.concatenate([
             mesh_pos[i], rot.reshape(9),
             np.array([mesh_scale[i], float(mt == int(MaterialType.ONE_SIDED)),
-                      float(_cull_policy(mt))], np.float32),
+                      float(culls_backfaces(mt))], np.float32),
             rmin, rmax,
         ]).astype(np.float32))
     chain = scene.mega_chain
@@ -278,7 +290,7 @@ def _chain_params(scene: Scene) -> _ChainParams:
     # does not decode: it is entered through its root row.
     expand = tuple(
         bool(_cfg.MEGA_ROOT_EXPAND) and len(chain) <= _cfg.MEGA_ROOT_EXPAND_MAX_E
-        and not leaf and m != -2
+        and not dense and not leaf and m != -2
         for m, _r, leaf in chain
     )
     table = np.stack(rows)
@@ -349,6 +361,58 @@ def _root_tables(scene: Scene, chain_roots, expand):
     return np.stack(f_rows), np.stack(i_rows)
 
 
+def scene_tables(scene: Scene, dense: bool = False) -> SceneTables:
+    """The ``SceneTables`` of a launch on ``scene`` (``dense``: the
+    brute-force mode's, with the dense sweep's table and no root
+    expanded), inside the span ``tpurt.prepare.scene``. It reads each
+    scene tensor at most once, and nothing the Scene holds on the host
+    (material types, static-stage flags, the chain)."""
+    e_count = len(scene.mega_chain)
+    if scene.mega_tlas and dense:
+        raise ValueError(
+            "dense (brute-force) mode walks chain entries per mesh; freeze "
+            "TLAS scenes with MEGA_TLAS_THRESHOLD above the instance count "
+            "to use it")
+    dev = scene.device
+    with span("tpurt.prepare.scene"):
+        params = _chain_params(scene, dense) if e_count else None
+        table = None
+        if dense and e_count:
+            from tpurt_torch.render.plucker_fused import build_dense_table
+
+            with span("tpurt.prepare.dense_table"):
+                table = build_dense_table(scene)
+        srows = host_read(scene.mega_static_rows, "static_rows").numpy()
+        mesh_cull = [culls_backfaces(m) for m in scene.mesh_mat_types]
+        mat_slots = None
+        if scene.mega_tlas and scene.mesh_mat_slot:
+            mat_slots = tuple(torch.tensor(v, dtype=_I32, device=dev) for v in (
+                scene.mesh_mat_slot, scene.mat_slot_rep))
+        # The kernel's tables: a zero row stands in for an empty one.
+        p = params
+        e = max(e_count, 1)
+        arity = scene.mega_arity
+        roots_f = p.roots_f if p and p.roots_f is not None else np.zeros(
+            (e, 1 + 6 * arity), np.float32)
+        roots_i = p.roots_i if p and p.roots_i is not None else np.zeros(
+            (e, arity), np.int32)
+        meta = np.concatenate([np.asarray(v, np.int32) for v in (
+            *((p.root, p.root_leaf, p.mesh, p.expand) if p else ()),
+            scene.mega_static_cull, scene.mega_static_onesided,
+            scene.mega_static_owner, mesh_cull, (0,))])
+        up = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        kernel = dict(
+            chain=p.table if p else torch.zeros((1, CP_WIDTH), dtype=_F32, device=dev),
+            roots_f=up(roots_f), roots_i=up(roots_i), meta=up(meta),
+            srows=up(srows if len(srows) else np.zeros((1, 19), np.float32)))
+        return SceneTables(
+            params=params, srows=srows, s_cull=scene.mega_static_cull,
+            s_onesided=scene.mega_static_onesided,
+            s_owner=scene.mega_static_owner, mats=pack_materials(scene),
+            mesh_cull=torch.tensor(mesh_cull, dtype=torch.bool, device=dev),
+            mat_slots=mat_slots, dense=table, kernel=kernel)
+
+
 # ---------------------------------------------------------------------------
 # Per-lane pieces (tensor transcriptions of tpurt's)
 # ---------------------------------------------------------------------------
@@ -382,7 +446,7 @@ def _safe(scale):
 
 def _enter(ctx: _Ctx, entry, origin: V3, direction: V3):
     """WorldToLocalRay (Trace.cl:118-137) for each lane's chain entry."""
-    p = ctx.params
+    p = ctx.tables.params
     ec = torch.clamp_max(entry, ctx.e_count - 1).long()
     tab = p.table
     safe = _safe(tab[ec, _CP_SCALE])
@@ -409,7 +473,8 @@ def _static_stage(ctx: _Ctx, enabled, origin: V3, direction: V3):
     zeros = torch.zeros_like(enabled, dtype=_F32)
     zero3 = V3(zeros, zeros, zeros)
     falses = torch.zeros_like(enabled)
-    if len(ctx.s_cull) == 0:
+    st = ctx.tables
+    if len(st.s_cull) == 0:
         return (falses, zeros + _INF, zero3, zero3, falses,
                 torch.full_like(enabled, -1, dtype=_I32))
     ld = v3lib.normalize(direction)
@@ -417,17 +482,17 @@ def _static_stage(ctx: _Ctx, enabled, origin: V3, direction: V3):
     lnrm = zero3
     lback = falses
     lmesh = torch.full_like(enabled, -1, dtype=_I32)
-    for s_idx in range(len(ctx.s_cull)):
-        pa, e1, e2, na, nb, nc = _static_tri(ctx.srows[s_idx])
+    for s_idx in range(len(st.s_cull)):
+        pa, e1, e2, na, nb, nc = _static_tri(st.srows[s_idx])
         ok, t, n, backface = _mt_core(origin, ld, pa, e1, e2, na, nb, nc,
-                                      bool(ctx.s_cull[s_idx]))
-        if ctx.s_onesided[s_idx]:
+                                      bool(st.s_cull[s_idx]))
+        if st.s_onesided[s_idx]:
             ok &= ~backface
         win = enabled & ok & (t < lt)
         lt = torch.where(win, t, lt)
         lnrm = v3lib.where(win, n, lnrm)
         lback = torch.where(win, backface, lback)
-        lmesh = torch.where(win, int(ctx.s_owner[s_idx]), lmesh)
+        lmesh = torch.where(win, int(st.s_owner[s_idx]), lmesh)
     valid = enabled & (lmesh >= 0)
     point = origin + ld * lt
     n_w = v3lib.normalize(lnrm)
@@ -459,7 +524,7 @@ def _aabb_soa(lo: V3, lid: V3, bmin: V3, bmax: V3, limit):
 
 def _pretest(ctx: _Ctx, entry, lo: V3, lid: V3, w_dst):
     """Root pretest: slab the entry's local root box against the bound."""
-    tab = ctx.params.table
+    tab = ctx.tables.params.table
     ec = torch.clamp_max(entry, ctx.e_count - 1).long()
     safe = _safe(tab[ec, _CP_SCALE])
     return _aabb_soa(lo, lid, _tab_v3(tab, ec, _CP_RMIN),
@@ -486,7 +551,7 @@ def _expand_root(ctx: _Ctx, e: int, mask, lo: V3, ld: V3, lid: V3, lt, w_dst,
     """Entry ``e``'s root-node test at enter time from the precomputed
     tables: descend straight to the first hit child and push the second
     child / parent resume exactly as the node step would."""
-    p = ctx.params
+    p = ctx.tables.params
     arity = ctx.arity
     rf, ri = p.roots_f[e], p.roots_i[e]
     scale = float(p.table_np[e, _CP_SCALE])
@@ -559,9 +624,14 @@ class _Inst(NamedTuple):
     dst: torch.Tensor
 
 
+def _u32_words(v):
+    """int64 tensor of u32 values -> int32 tensor of the same bits."""
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(_I32)
+
+
 def _f32_of_u32(v):
     """int64 tensor of u32 bit patterns -> f32 tensor of those bits."""
-    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(_I32).view(_F32)
+    return _u32_words(v).view(_F32)
 
 
 def _instance_step(s: _Lane, ctx: _Ctx, trav, col, coli) -> _Inst:
@@ -606,7 +676,7 @@ def _traverse(s: _Lane, ctx: _Ctx):
     fold of entries that finished. Returns the post-traversal lane and
     the in_chain mask (lanes that advanced to another chain entry)."""
     e_count = ctx.e_count
-    p = ctx.params
+    p = ctx.tables.params
     tab = p.table
     tlas = ctx.tlas
     trav = ~s.done & (s.entry < e_count) & (s.cur >= 0)
@@ -626,14 +696,15 @@ def _traverse(s: _Lane, ctx: _Ctx):
     entry_mesh = p.mesh_t[ec]
     is_static = entry_mesh < 0
     cull_mesh_e = tab[ec, _CP_CULL] != 0.0
-    k_meshes = ctx.mesh_cull.shape[0]
+    mesh_cull = ctx.tables.mesh_cull
+    k_meshes = mesh_cull.shape[0]
     lt, lnrm, lback, lmesh = s.lt, s.lnrm, s.lback, s.lmesh
     for k in range(ctx.leaf_tris):
         b = 19 * k
         aux = coli(b + 18)
         owner_cull = torch.where(
             (aux >= 0) & (aux < k_meshes),
-            ctx.mesh_cull[torch.clamp(aux, 0, k_meshes - 1).long()], True)
+            mesh_cull[torch.clamp(aux, 0, k_meshes - 1).long()], True)
         cull = torch.where(is_static, owner_cull, cull_mesh_e)
         cand_mesh = torch.where(is_static, aux, entry_mesh)
         if tlas:  # inside an instance, its own policy and owner
@@ -786,7 +857,7 @@ def _dense_hit(s: _Lane, ctx: _Ctx, ec):
     data from the exact test (tpurt's _dense_hit, Trace.cl:276-317)."""
     from tpurt_torch.render.plucker_fused import sweep_plain
 
-    table = ctx.dense
+    table = ctx.tables.dense
     t_sw, col = sweep_plain(s.lo, s.ld, ec, table)
     cc = torch.clamp_min(col, 0)
     ok, _t, n, back = mt_rows(s.lo, s.ld, table.rows[cc], table.cull[cc] != 0.0)
@@ -801,7 +872,7 @@ def _traverse_dense(s: _Lane, ctx: _Ctx):
     ec = torch.clamp_max(s.entry, e_count - 1).long()
     d_t, d_nrm, d_back, d_mesh = _dense_hit(s, ctx, ec)
     return _fold(
-        s, ctx, ec, ctx.params.table[ec, _CP_SCALE],
+        s, ctx, ec, ctx.tables.params.table[ec, _CP_SCALE],
         torch.where(trav, d_t, s.lt), v3lib.where(trav, d_nrm, s.lnrm),
         torch.where(trav, d_back, s.lback), torch.where(trav, d_mesh, s.lmesh),
         torch.where(trav, -1, s.cur), s.cur_leaf, s.cur_slot, s.stack)
@@ -812,7 +883,7 @@ def _fold(s: _Lane, ctx: _Ctx, ec, scale_e, lt, lnrm, lback, lmesh, cur,
     """Next mesh: fold entries that finished (cur < 0) to world space and
     advance them. Returns the lane and the in_chain mask."""
     e_count = ctx.e_count
-    tab = ctx.params.table
+    tab = ctx.tables.params.table
     fin = ~s.done & (s.entry < e_count) & (cur < 0)
     lvalid = fin & (lmesh >= 0)
     lvalid &= ~((tab[ec, _CP_OS] != 0.0) & lback)
@@ -860,9 +931,9 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
     shade = ~t.done & (t.entry >= e_count)
     segments = t.segments + shade.to(_I32)
     res = shade_hit_soa(
-        ctx.mats, shade, t.w_valid, t.w_point, t.w_normal, t.w_back,
+        ctx.tables.mats, shade, t.w_valid, t.w_point, t.w_normal, t.w_back,
         t.w_mesh, t.origin, t.direction, t.throughput, t.light, t.rng,
-        t.bounces, ctx.max_bounces, mat_slots=ctx.mat_slots,
+        t.bounces, ctx.max_bounces, mat_slots=ctx.tables.mat_slots,
     )
     invis = t.invis + (shade & res.invisible).to(_I32)
     continuing = res.continuing & ~(res.invisible & (invis > ctx.invisible_budget))
@@ -902,14 +973,14 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
             # A list quota or a cross-frame pack: the slot's pixel from
             # the slot table (row pixno % rows).
             kk = (pixno % ctx.slot_pix.shape[0]).long()[None]
-            adv_pix = torch.gather(ctx.slot_pix, 0, kk)[0]
+            adv_pix = torch.gather(ctx.slot_pix, 0, kk)[0].long() & 0xFFFFFFFF
         else:
             adv_pix = torch.clamp_max(t.pix + ctx.pixel_stride,
                                       ctx.width * ctx.height - 1)
         if ctx.frames > 1:
             # Cross-frame pack: the direction from the periodic table, the
             # slot's frame offset into the seed.
-            k = ((pixno - 1).clamp_min(0) % ctx.slot_rd.x.shape[0]).long()[None]
+            k = ((pixno - 1).clamp_min(0) % ctx.slot_rd.shape[1]).long()[None]
             f_off = (pixno // ctx.ppf).long()
         else:
             k = (pixno - 1).clamp(0, p_count - 2).long()[None]
@@ -1008,7 +1079,7 @@ def _tail(t: _Lane, ctx: _Ctx, entering_in, do_expand: bool) -> _Lane:
         for e_x in range(e_count):
             if not do_expand:
                 break
-            if ctx.params.expand[e_x]:
+            if ctx.tables.params.expand[e_x]:
                 cur, cur_leaf, stack = _expand_root(
                     ctx, e_x, entering & ok_e & (entry == e_x), lo, ld, lid,
                     t.lt, w_dst, cur, cur_leaf, stack,
@@ -1034,7 +1105,7 @@ def _body_math(s: _Lane, ctx: _Ctx) -> _Lane:
     """One loop trip (tpurt _body_math): traversal, fold, then the tail
     ``tail_passes`` times. Does not advance ``iters``."""
     if ctx.e_count:
-        step = _traverse if ctx.dense is None else _traverse_dense
+        step = _traverse if ctx.tables.dense is None else _traverse_dense
         t, in_chain = step(s, ctx)
     else:
         t, in_chain = s, torch.zeros_like(s.done)
@@ -1051,11 +1122,12 @@ def stack_entries(lane: _Lane) -> torch.Tensor:
 
 
 def run_plain(lane: _Lane, ctx: _Ctx, max_iterations: Optional[int]) -> _Lane:
-    """The loop as torch ops: trips until every lane is done or
-    ``max_iterations`` more trips ran."""
+    """The loop as torch ops, inside ``tpurt.launch.call``: trips until
+    every lane is done or ``max_iterations`` more trips ran."""
     cap = None if max_iterations is None else lane.iters + int(max_iterations)
-    while bool((~lane.done).any()) and (cap is None or lane.iters < cap):
-        lane = _body_math(lane, ctx)._replace(iters=lane.iters + 1)
+    with span("tpurt.launch.call"):
+        while bool((~lane.done).any()) and (cap is None or lane.iters < cap):
+            lane = _body_math(lane, ctx)._replace(iters=lane.iters + 1)
     return lane
 
 
@@ -1124,12 +1196,15 @@ def run_megakernel(
     from which a run resumed through ``initial_state`` rebuilds its slot
     tables. At P = 1 the list is ignored, as in tpurt.
 
-    ``body_backend``: "plain" (this module's torch loop, any device) or
-    "cuda" (render/mega_cuda.py). ``dense``: the brute-force mode (a
-    scene without chain entries has nothing to sweep and runs the
-    ordinary loop). ``max_iterations`` caps the trips run
-    from ``initial_state`` (or from the fresh lanes), which is how the
-    two backends and tpurt are held against each other trip by trip.
+    ``body_backend``: "plain" (``_initial_lane``, then this module's
+    torch loop, on any device) or "cuda" (render/mega_cuda.py: ``fresh``
+    lanes written by a kernel, then the kernel's loop, on the card); a
+    resumed ``initial_state`` goes to the chosen backend's loop.
+    ``dense``: the brute-force mode (a scene without chain entries has
+    nothing to sweep and runs the ordinary loop). ``max_iterations`` caps
+    the trips run from ``initial_state`` (or from the fresh lanes), which
+    is how the two backends and tpurt are held against each other trip
+    by trip.
     """
     frames_per_batch = max(1, int(frames_per_batch))
     if frames_per_batch > 1:
@@ -1150,22 +1225,31 @@ def run_megakernel(
         r = ro0.x.shape[0] if isinstance(ro0, V3) else ro0.shape[0]
         return (torch.zeros((r * pixels_per_lane, 3), dtype=_F32,
                             device=scene.device), 0, 0)
+    if not isinstance(ro0, V3):
+        ro0 = v3lib.from_rows(ro0)
+    if not isinstance(rd0, V3):
+        rd0 = v3lib.from_rows(rd0)
+    if body_backend == "cuda":
+        from tpurt_torch.render import mega_cuda
+
+        fresh, run, where = mega_cuda.fresh, mega_cuda.run, "device"
+    else:
+        fresh, run, where = _initial_lane, run_plain, "host"
     with span("tpurt.prepare"):
-        lane, ctx = prepare(
+        ctx = prepare(
             scene, ro0, rd0, pixel_index, frame_index, rays_per_pixel,
             max_bounces, seed_mode, invisible_budget, sample_offset, camera,
             width, height, pixels_per_lane, pixel_stride, tail_passes, dense,
             frames_per_batch, cameras, subpixel_jitter, pixel_list,
-            initial_state, body_backend,
+            initial_state,
         )
+        lane = initial_state
+        if lane is None:
+            with span("tpurt.prepare.lanes"):
+                lane = fresh(ctx, ro0, rd0, pixel_index)
+            count(f"fresh_lanes.{where}", pixel_index.shape[0])
     with span("tpurt.launch"):
-        if body_backend == "cuda":
-            from tpurt_torch.render import mega_cuda
-
-            final = mega_cuda.run(lane, ctx, max_iterations)
-        else:
-            with span("tpurt.launch.call"):
-                final = run_plain(lane, ctx, max_iterations)
+        final = run(lane, ctx, max_iterations)
     global RUNS
     RUNS += 1
     if return_state:
@@ -1180,68 +1264,33 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
             pixel_stride: Optional[int] = None, tail_passes: int = 1,
             dense: bool = False, frames_per_batch: int = 1, cameras=None,
             subpixel_jitter: bool = False, pixel_list=None,
-            initial_state: Optional[_Lane] = None,
-            body_backend: str = "plain"):
-    """The shared setup of both backends -> (lane state, loop
-    invariants): chain and root tables (the dense sweep's table in
-    brute-force mode, where no root expands), quota slot directions (and
-    in a cross-frame pack or a list quota the slot pixels), and fresh
-    lanes seeded by the static stage and entered at chain entry 0 — or,
-    for a resumed run, ``initial_state`` itself. A resumed state may be a
-    compacted subset of the batch it started in: ``pixel_index`` is then
-    each lane's slot-0 pixel and ``pixel_stride`` the batch's width, and
-    a list quota's slot pixels come from the state's ``lane0``.
-
-    Fresh lanes are ``_initial_lane``'s torch operations (counted in
-    ``fresh_lanes.host``), or, for the "cuda" ``body_backend`` on a CUDA
-    scene, the same words written packed by one kernel launch
-    (``mega_cuda.fresh``, counted in ``fresh_lanes.device``): a
-    ``mega_cuda.Fresh`` in place of the lane state, which only
-    ``mega_cuda.run`` takes."""
-    if not isinstance(ro0, V3):
-        ro0 = v3lib.from_rows(ro0)
+            initial_state: Optional[_Lane] = None) -> _Ctx:
+    """The loop invariants both backends share, from run_megakernel's
+    arguments (the entry origins ``ro0`` go only to the lanes): the
+    scene's tables
+    (``scene_tables``; in brute-force mode the dense sweep's table, and
+    no root expands) and the quota slots' tables, directions (3, rows,
+    R) and, in a cross-frame pack or a list quota, pixels as u32 words,
+    made once, inside ``tpurt.prepare.slots``. The lanes are the
+    backend's (``_initial_lane``, ``mega_cuda.fresh``) or, for a resumed
+    run, ``initial_state``, which may be a compacted subset of the batch
+    it started in: ``pixel_index`` is then each lane's slot-0 pixel and
+    ``pixel_stride`` the batch's width, and a list quota's slot pixels
+    come from the state's ``lane0``."""
     if not isinstance(rd0, V3):
         rd0 = v3lib.from_rows(rd0)
     dev = scene.device
-    r = ro0.x.shape[0]
+    r = pixel_index.shape[0]
     p_count = int(pixels_per_lane)
     e_count = len(scene.mega_chain)
-    with span("tpurt.prepare.chain"):
-        params = _chain_params(scene) if e_count else None
-    table = None
-    if dense and e_count:
-        from tpurt_torch.render.plucker_fused import build_dense_table
-
-        # Dense mode never walks rows: cur >= 0 only flags an entry for
-        # the sweep, so no root expands (tpurt: megakernel.py:1499-1501).
-        params = params._replace(expand=(False,) * e_count, roots_f=None,
-                                 roots_i=None)
-        with span("tpurt.prepare.dense_table"):
-            table = build_dense_table(scene)
+    tables = scene_tables(scene, dense)
     # The primary-hit cache replays sample 0's first hit for the pixel's
     # later samples: pointless at one sample, wrong under jitter.
     use_cache = not subpixel_jitter and rays_per_pixel > 1
-    tlas = bool(scene.mega_tlas)
-    if tlas and dense:
-        raise ValueError(
-            "dense (brute-force) mode walks chain entries per mesh; freeze "
-            "TLAS scenes with MEGA_TLAS_THRESHOLD above the instance count "
-            "to use it")
-    mat_slots = None
-    if tlas and scene.mesh_mat_slot:
-        mat_slots = tuple(torch.tensor(v, dtype=_I32, device=dev) for v in (
-            scene.mesh_mat_slot, scene.mat_slot_rep))
-    mat_type = host_read(scene.mat_type, "mat_type").numpy()
     stride = r if pixel_stride is None else int(pixel_stride)
     ctx = _Ctx(
         rows=scene.mega_rows, rows_i=scene.mega_rows.view(_I32),
-        srows=host_read(scene.mega_static_rows, "static_rows").numpy(),
-        s_cull=scene.mega_static_cull, s_onesided=scene.mega_static_onesided,
-        s_owner=scene.mega_static_owner,
-        mats=pack_materials(scene),
-        mesh_cull=torch.tensor([_cull_policy(int(m)) for m in mat_type],
-                               dtype=torch.bool, device=dev),
-        params=params, slot_rd=None,
+        tables=tables, slot_rd=None,
         frame_index=int(frame_index), sample_offset=int(sample_offset),
         e_count=e_count, s_depth=2 * scene.mega_stack_depth,
         max_bounces=int(max_bounces), rays_per_pixel=int(rays_per_pixel),
@@ -1252,8 +1301,8 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
         expand_passes=int(_cfg.MEGA_EXPAND_PASSES),
         n_skip=(min(e_count - 1, _cfg.MEGA_SKIP_CAP)
                 if e_count <= _cfg.SELECT_GATHER_THRESHOLD else 0),
-        leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity, dense=table,
-        tlas=tlas, bf16=scene.mega_bounds_fmt == "bf16", mat_slots=mat_slots,
+        leaf_tris=scene.mega_leaf_tris, arity=scene.mega_arity,
+        tlas=bool(scene.mega_tlas), bf16=scene.mega_bounds_fmt == "bf16",
         jitter=bool(subpixel_jitter), camera=camera,
     )
     list_mode = pixel_list is not None and p_count > 1
@@ -1288,7 +1337,7 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                     rows = [slot_dir(slot_pixel(k % ppf), cameras[k // ppf])
                             for k in range(1, p_count)]
                 ctx = ctx._replace(frames=frames, ppf=ppf,
-                                   slot_pix=(pix_tab & 0xFFFFFFFF).contiguous())
+                                   slot_pix=_u32_words(pix_tab))
             elif list_mode:
                 # List quota: slot k's pixel is pixel_list[min(lane0 +
                 # k*stride, N-1)]; row 0 (slot 0) is never read.
@@ -1299,27 +1348,13 @@ def prepare(scene: Scene, ro0, rd0, pixel_index, frame_index: int,
                     plist[torch.clamp_max(l0 + k * stride, plist.shape[0] - 1)]
                     for k in range(p_count)]) & 0xFFFFFFFF
                 rows = [slot_dir(pix_tab[k], camera) for k in range(1, p_count)]
-                ctx = ctx._replace(slot_pix=pix_tab.contiguous(), pix_list=True)
+                ctx = ctx._replace(slot_pix=_u32_words(pix_tab), pix_list=True)
             else:
                 rows = [slot_dir(slot_pixel(k), camera) for k in range(1, p_count)]
-            ctx = ctx._replace(slot_rd=v3lib.from_rows(
-                torch.stack(rows).contiguous()))
-    if initial_state is not None:
-        return initial_state, ctx
-    if body_backend == "cuda" and dev.type == "cuda":
-        from tpurt_torch.render import mega_cuda
+            ctx = ctx._replace(
+                slot_rd=torch.stack(rows).permute(2, 0, 1).contiguous())
+    return ctx
 
-        with span("tpurt.prepare.lanes"):
-            lane = mega_cuda.fresh(ctx, ro0, rd0, pixel_index)
-        count("fresh_lanes.device", r)
-        return lane, ctx
-    pix = pixel_index.to(torch.int64) & 0xFFFFFFFF
-    with span("tpurt.prepare.lanes"):
-        lane = _initial_lane(ctx, ro0, rd0, pix)
-    count("fresh_lanes.host", r)
-    if list_mode:
-        lane = lane._replace(lane0=torch.arange(r, dtype=_I32, device=dev))
-    return lane, ctx
 
 
 def finish(final: _Lane, ctx: _Ctx):
@@ -1332,10 +1367,14 @@ def finish(final: _Lane, ctx: _Ctx):
 
 
 def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
-    """Fresh lanes: the static stage seeds the primary segment's world
-    best, then the lane enters chain entry 0 (pretest + root expansion)."""
+    """Fresh lanes for entry rays ``ro0``, ``rd0`` and pixel ids ``pix``
+    (int32 or int64, their low 32 bits): the static stage seeds the
+    primary segment's world best, then the lane enters chain entry 0
+    (pretest + root expansion); in a list quota each lane carries its
+    index in the batch (``lane0``)."""
     r = pix.shape[0]
     dev = pix.device
+    pix = pix.to(torch.int64) & 0xFFFFFFFF
     zeros = torch.zeros(r, dtype=_F32, device=dev)
     zero3 = V3(zeros, zeros, zeros)
     zeros_i = torch.zeros(r, dtype=_I32, device=dev)
@@ -1349,7 +1388,7 @@ def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
         pre_ok = _pretest(ctx, zeros_i, lo0, lid0, sd)
         cur0 = torch.where(pre_ok, root0, -1)
         cur_leaf0 = leaf0 & (cur0 >= 0)
-        if ctx.params.expand and ctx.params.expand[0]:
+        if ctx.tables.params.expand[0]:
             cur0, cur_leaf0, stack = _expand_root(
                 ctx, 0, pre_ok, lo0, ld0, lid0, zeros + _INF, sd, cur0,
                 cur_leaf0, stack,
@@ -1375,5 +1414,7 @@ def _initial_lane(ctx: _Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> _Lane:
         cur=cur0, cur_leaf=cur_leaf0, cur_slot=zeros_i, stack=stack,
         lo=lo0, ld=ld0, lid=lid0, lt=zeros + _INF, lnrm=zero3, lback=falses,
         lmesh=zeros_i - 1, w_valid=sv, w_dst=sd, w_point=sp, w_normal=sn,
-        w_back=sb, w_mesh=sm, **opt,
+        w_back=sb, w_mesh=sm,
+        lane0=torch.arange(r, dtype=_I32, device=dev) if ctx.pix_list else None,
+        **opt,
     )

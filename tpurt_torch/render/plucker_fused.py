@@ -41,7 +41,7 @@ from tpurt_torch.config import EPSILON
 from tpurt_torch.core.v3 import V3
 from tpurt_torch.core.vecmath import cross3
 from tpurt_torch.render.plucker import component_rows, orientation
-from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.scene.types import Scene, culls_backfaces
 
 _F32 = torch.float32
 _INF = float("inf")
@@ -84,11 +84,9 @@ class DenseTable(NamedTuple):
 
 def build_dense_table(scene: Scene) -> DenseTable:
     """The table of ``scene``'s chain (tpurt's build_dense_table): the
-    members' triangles entry by entry, with their policy from the mesh
-    material (megakernel._chain_params' rule)."""
+    members' triangles entry by entry, with their owner's backface-cull
+    policy (``culls_backfaces``)."""
     ids, owner, entry, cull, ranges = [], [], [], [], []
-    no_cull = (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
-               int(MaterialType.ONE_SIDED))
     for e, members in enumerate(scene.mega_chain_members):
         start = len(ids)
         for i in members:
@@ -96,7 +94,7 @@ def build_dense_table(scene: Scene) -> DenseTable:
             ids.extend(range(first, first + count))
             owner.extend([i] * count)
             entry.extend([e] * count)
-            cull.extend([scene.mesh_mat_types[i] not in no_cull] * count)
+            cull.extend([culls_backfaces(scene.mesh_mat_types[i])] * count)
         ranges.append((start, len(ids)))
     t = len(ids)
     if t == 0:

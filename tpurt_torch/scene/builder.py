@@ -43,7 +43,7 @@ from tpurt_torch.accel.bvh import (
 from tpurt_torch.config import CORNELL_BREATHING_ROOM
 from tpurt_torch.scene.obj import load_obj as _load_obj_file
 from tpurt_torch.scene.obj import parse_obj
-from tpurt_torch.scene.types import MaterialType, Scene
+from tpurt_torch.scene.types import MaterialType, Scene, culls_backfaces
 from tpurt_torch.utils.profiling import span
 
 #: Bits of a packed stack entry reserved for the resume slot.
@@ -323,7 +323,7 @@ def _instance_row(m, mesh: int, root_meta: int, grid, row_width: int):
     row[0:3] = np.asarray(m.pos, np.float32)
     row[3:12] = rot.reshape(9)
     row[12] = np.float32(m.scale)
-    row[13] = _i32f(int(mt == int(MaterialType.ONE_SIDED)) | (int(_culls(mt)) << 1))
+    row[13] = _i32f(int(mt == int(MaterialType.ONE_SIDED)) | (int(culls_backfaces(mt)) << 1))
     row[14] = _i32f(mesh)
     row[15] = _i32f(root_meta)
     row[16:19] = rmin
@@ -432,13 +432,6 @@ def _is_identity(m: MeshHandle) -> bool:
         and float(m.pitch) == 0.0 and float(m.yaw) == 0.0
         and float(m.roll) == 0.0 and float(m.scale) == 1.0
     )
-
-
-def _culls(mt: int) -> bool:
-    """Backface-cull policy: cull unless Glassy/Invisible/OneSided
-    (Trace.cl:460-462)."""
-    return mt not in (int(MaterialType.GLASSY), int(MaterialType.INVISIBLE),
-                      int(MaterialType.ONE_SIDED))
 
 
 class SceneBuilder:
@@ -660,7 +653,7 @@ class SceneBuilder:
                 row[18] = _i32f(i)
                 static_rows.append(row)
                 static_owner.append(i)
-                static_cull.append(_culls(mt))
+                static_cull.append(culls_backfaces(mt))
                 static_onesided.append(mt == int(MaterialType.ONE_SIDED))
 
         static_members = [

@@ -33,6 +33,13 @@ class MaterialType(enum.IntEnum):
     ONE_SIDED = 4
 
 
+def culls_backfaces(material_type: int) -> bool:
+    """A mesh's backface-cull policy: cull unless Glassy, Invisible or
+    OneSided (Trace.cl:460-462)."""
+    return int(material_type) not in (MaterialType.GLASSY, MaterialType.INVISIBLE,
+                                      MaterialType.ONE_SIDED)
+
+
 #: Tensor fields and their dtypes, in declaration order.
 ARRAY_FIELDS = {
     "tri_pos_a": torch.float32, "tri_pos_b": torch.float32,
