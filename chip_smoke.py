@@ -225,9 +225,12 @@ it. Each path's launch counts are set to 0 just before its counted
 and times its batches on the main paths through ``mega_cuda.launch`` on
 the device (bunny-1080p: 16 trips and to completion; its jitter and
 packed forms, grid-64 TLAS, deep-stack-256, the dense teapot and the
-staged respread tail, to completion) and the headline ladder row, with
-calls every version of the port with the staged drivers has, so the script
-times an earlier tree's B1; ``--b1-turns DIR`` copies the script into
+staged respread tail, to completion; glass-cornell's final batch: 64
+trips and to completion), each with its lane trips a segment and the
+lanes a completion group where the kernel counts them, and the headline
+ladder row, with calls every version of the port with glass-cornell's
+RenderConfig fields has, so the script times an earlier tree's B1;
+``--b1-turns DIR`` copies the script into
 the unpacked older tree DIR and runs ``--b1-public`` there and here in
 turns.
 ``--b3-public`` builds B3 alone
@@ -527,6 +530,42 @@ def parity_cfg():
                         dense_engine="pallas")
 
 
+def glass_cfg(width, height):
+    """glass-cornell's final renders (benchmark/configs/glass-cornell.json,
+    benchmark/traffic/final-1080p.json): the reference's 50 spp and 50
+    bounces, one launch of 262,144 lanes x P = 8 a 1080p frame, the
+    model Glassy (ior 1.5) at scale 1.0 before a product-shot camera."""
+    from tpurt_torch.config import RenderConfig
+
+    return RenderConfig(width=width, height=height, rays_per_pixel=50,
+                        max_bounces=50, seed_mode="reference", pixels_per_lane=8,
+                        mega_tail_passes=5, compaction_threshold=0,
+                        rays_per_batch=262144, camera_position=(0.0, 20.0, 230.0),
+                        camera_pitch=-0.08, camera_yaw=3.14, fov_degrees=45.0,
+                        model_scale=1.0, model_material={
+                            "type": 3, "ior": 1.5, "color": [1.0, 1.0, 1.0]})
+
+
+def glass_scene(cfg, device="cuda"):
+    """glass-cornell: bench.py's "bunny" mesh (assets/blob69k.obj) with
+    ``cfg``'s model material and scale in the Cornell box."""
+    from tpurt_torch.scene.builder import SceneBuilder
+    from tpurt_torch.scene.obj import load_obj
+    from tpurt_torch.scene.presets import BUNNY_OBJ, scene_around
+
+    b = SceneBuilder()
+    return scene_around(b, b.add_triangles(*load_obj(BUNNY_OBJ)), cfg, device)
+
+
+def lanes_per_group(work) -> str:
+    """The segments over the completion groups of a launch's work rows
+    (the last row, where the kernel counts them: 4 rows, or 6 in the
+    TLAS regime), or "not counted"."""
+    if work.shape[0] not in (4, 6):
+        return "not counted"
+    return f"{int(work[2].long().sum()) / max(int(work[-1].long().sum()), 1):.3f}"
+
+
 def small_bunny_cfg():
     """Phases 4 and 13: the bunny's knobs at 480x270 and 1 spp (the plain
     version's frame is the script's largest cost)."""
@@ -616,7 +655,8 @@ def time_trips(scene, cam, cfg, k: int, label: str, args=None, state=None):
         f"{r} lanes, {r / (blocks * launch['threads']):.2f} lanes per thread")
     log(f"{label} batch to completion: kernel ms {full}, {int(trips.max())} "
         f"trips for the slowest lane, mean {float(trips.float().mean()):.2f}, "
-        f"{int(trips.long().sum())} lane trips | {CARD}")
+        f"{int(trips.long().sum())} lane trips, {lanes_per_group(work)} lanes a "
+        f"completion group | {CARD}")
     # The slowest lane alone, from its first state: how long its chain of
     # trips takes with the card to itself (the floor under a batch that
     # starts it late). It must end where it ended in the batch.
@@ -697,7 +737,8 @@ def megakernel_bound(scene, tt, work, adv, label: str):
             tables += int(a.clamp(max=ctx.slot_pix.shape[0]).sum()) * 4
     nbytes = (scene.mega_rows.numel() * 4 + tables
               + 2 * words * 4 * tt["lanes"])
-    boxes, leaves, segs, enters, exits = (list(work) + [0, 0])[:5]
+    boxes, leaves, segs = work[:3]
+    enters, exits = work[3:5] if ctx.tlas else (0, 0)
     box_ops = BOX_OPS_BF16 if ctx.bf16 else BOX_OPS
     ops = (boxes * box_ops + leaves * ctx.leaf_tris * MT_DET_OPS
            + segs * SHADE_OPS + enters * INST_ENTER_OPS + exits * INST_EXIT_OPS)
@@ -1136,9 +1177,10 @@ def b1_batch_inputs():
     port's main paths, each from its first lane state: bunny-1080p-plain's
     batch (its first 16 trips, and to completion), its jitter and packed
     F = 2 forms, grid-64-720p-tlas, deep-stack-256, teapot-720p-bruteforce
-    (the dense instantiation) and the staged bunny-1080p-bvh frame's
-    respread tail. Calls that every version of the port with the staged
-    drivers has."""
+    (the dense instantiation), the staged bunny-1080p-bvh frame's
+    respread tail and glass-cornell's final 1080p batch (its first 64
+    trips, and to completion). Calls that every version of the port with
+    the glass configuration's RenderConfig fields has."""
     from tpurt_torch.render import megakernel as mk
     from tpurt_torch.render import renderer as R
     from tpurt_torch.render.renderer import flat_batch_args, render_frame
@@ -1183,6 +1225,10 @@ def b1_batch_inputs():
     targs["ro0"], targs["rd0"] = R._rays_of(scam, targs["pixel_index"],
                                             scfg.width, scfg.height)
     add("staged respread tail", bunny, targs)
+    gcfg = glass_cfg(1920, 1080)
+    glass, gcam = glass_scene(gcfg)
+    add("glass final 64 trips", glass, flat_batch_args(glass, gcam, gcfg, 0), 64)
+    add("glass final", glass, flat_batch_args(glass, gcam, gcfg, 0))
     return out
 
 
@@ -1206,10 +1252,13 @@ def b1_public_main():
         buf0 = mega_cuda.pack(lane)
         mega_cuda.launch(buf0.clone(), ctx, trips)  # warm-up
         bufs = iter([buf0.clone() for _ in range(3)])
-        _out, ms = device_ms(lambda: mega_cuda.launch(next(bufs), ctx, trips), 3)
+        (tr, work), ms = device_ms(lambda: mega_cuda.launch(next(bufs), ctx, trips), 3)
         batches[name] = min(ms)
         log(f"B1 public entry, {name} ({buf0.shape[1]} lanes): device ms "
-            f"{[round(t, 3) for t in ms]} (best {min(ms):.3f}) | {CARD}")
+            f"{[round(t, 3) for t in ms]} (best {min(ms):.3f}); "
+            f"{int(tr.long().sum()) / max(int(work[2].long().sum()), 1):.3f} lane "
+            f"trips a segment, {lanes_per_group(work)} lanes a completion "
+            f"group | {CARD}")
     row = bench.run_config("bunny-1080p-plain", "bunny", ladder_cfg(
         1920, 1080, rays_per_pixel=8, max_bounces=4, mega_frames_per_batch=2),
         repeats=2)

@@ -20,10 +20,11 @@ the dense instantiation's in the state buffer instead of registers,
 "dense-cold-buffer"), its shading and static stage compiled as calls
 ("b1-rare-noinline"), its bank rows read with 32-bit loads instead of
 128-bit ones ("b1-scalar-rows"), its stack ring in a local-memory
-array instead of shared memory ("b1-stack-local"), or with
-warp-coherent stepping added ("b1-coherent": where a warp holds lanes
-at leaf rows and lanes elsewhere, it steps one class a pass, in turns;
-each lane's trips are unchanged). Each is built with the
+array instead of shared memory ("b1-stack-local"), or with another
+least count of walking lanes at which a warp keeps stepping them before
+its segment completions ("b1-walkers-<k>", kMinWalkers; 33: a lane's
+tail after each of its steps, as before the inner loop). Each is built
+with the
 package's own nvcc flags beside the shipped library and swapped in for
 it while it runs, so the wrappers (``mega_cuda.launch``,
 ``sweep_entry_local``, ``mt_sweep.sweep``) run it unchanged. Workloads,
@@ -31,6 +32,9 @@ at full size:
 
 - bunny-1080p-plain's batch (262,144 lanes) through megakernel<false>:
   its first 16 trips, and to completion;
+- glass-final-1080p's batch (glass-cornell at 1080p, 50 spp, 50
+  bounces; 262,144 lanes) through megakernel<false>: its first 64
+  trips, and to completion;
 - teapot-720p-bruteforce's batch (230,400 lanes) to completion through
   megakernel<true>;
 - B2 alone on the teapot's 230,400 primary rays x 6,144 columns
@@ -43,7 +47,9 @@ reverse, ``--rounds`` times), each timed on the card
 (``chip_smoke.device_ms``), every time logged and the best kept; every
 variant's results (lane words, trips,
 work counts, columns and t) must equal the shipped build's word for
-word. ptxas's register and spill report, each megakernel build's static
+word, but for the megakernel's completion groups (the work count's last
+row), which follow the schedule: each megakernel build's segments a
+group are logged instead. ptxas's register and spill report, each megakernel build's static
 memory instructions (``chip_smoke.sass_memory``: LDL, STL, LDG, LDS,
 STS) and each megakernel variant's launch are printed, with every time
 beside the card's name and power limit. The last line is a JSON
@@ -118,28 +124,7 @@ VARIANTS = {
         "{ return __ldg(p); }",
         "{\n  const float* f = reinterpret_cast<const float*>(p);\n"
         "  return make_float4(__ldg(f), __ldg(f + 1), __ldg(f + 2), __ldg(f + 3));\n}")]),
-    "b1-coherent": (_MK, [(
-        """      int trips = 0;
-      do {
-        const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
-        trip_tail<kTlas>(x, L, in_chain);
-        ++trips;
-      } while (!L.done && trips < c.max_trips);""",
-        """      int trips = 0;
-      bool last_leaf = false;
-      do {
-        const bool at_leaf = E > 0 && L.entry < E && L.cur >= 0 && L.cur_leaf;
-        const unsigned active = __activemask();
-        const unsigned leaves = __ballot_sync(active, at_leaf);
-        const bool step_leaves =
-            leaves != 0 && leaves != active ? !last_leaf : leaves != 0;
-        last_leaf = step_leaves;
-        if (at_leaf == step_leaves) {
-          const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
-          trip_tail<kTlas>(x, L, in_chain);
-          ++trips;
-        }
-      } while (!L.done && trips < c.max_trips);""")]),
+    **{f"b1-walkers-{k}": (_MK, [_set("kMinWalkers", k)]) for k in (1, 2, 4, 6, 8, 10, 12, 16, 33)},
     "b1-stack-local": (_MK, [
         ("uint32_t* ring = dyn + tid;",
          "uint32_t local_ring[kMaxSharedStack];\n  uint32_t* ring = local_ring;"),
@@ -273,9 +258,13 @@ def workloads(sources):
         teapot = cs.teapot_cfg(1280, 720)
         bunny_sc = cs.bunny_scene(bunny)
         teapot_sc = bench_scene("teapot", teapot, device="cuda")
+        glass = cs.glass_cfg(1920, 1080)
+        glass_sc = cs.glass_scene(glass)
         for name, (scene, cam), cfg, trips in (
                 ("bunny-1080p 16 trips", bunny_sc, bunny, 16),
                 ("bunny-1080p", bunny_sc, bunny, None),
+                ("glass-final-1080p 64 trips", glass_sc, glass, 64),
+                ("glass-final-1080p", glass_sc, glass, None),
                 ("teapot-720p-dense", teapot_sc, teapot, None)):
             lane, ctx = cs.plain_start(scene, flat_batch_args(scene, cam, cfg, 0))
             buf0 = mega_cuda.pack(lane)
@@ -355,15 +344,28 @@ def main():
         with swapped(source, None):
             ref = run()
         times = {label: [] for label in labels}
+        groups = {}
         for label in (labels + labels[::-1]) * rounds:
             with swapped(source, libs[label]):
                 res, ms = cs.device_ms(run, reps=1)
             times[label].extend(ms)
-            if not all(torch.equal(a, b) for a, b in zip(res, ref)):
+            if source == _MK:  # the completion groups follow the schedule
+                groups[label] = cs.lanes_per_group(res[2])
+                res, ref_cmp = (*res[:2], res[2][:-1]), (*ref[:2], ref[2][:-1])
+            else:
+                ref_cmp = ref
+            if not all(torch.equal(a, b) for a, b in zip(res, ref_cmp)):
                 raise AssertionError(f"{cell}: variant {label} changed the result")
+        if source == _MK:
+            trips, work = ref[1].long(), ref[2].long()
+            cs.log(f"{cell}: {int(trips.sum()) / max(int(work[2].sum()), 1):.3f} lane "
+                   f"trips a segment, {int(work[0].sum()) / max(int(work[2].sum()), 1):.3f} "
+                   "box tests a segment")
         for label in labels:
+            extra = (f", {groups[label]} lanes a completion group"
+                     if label in groups else "")
             cs.log(f"{cell} {label}: ms {[round(t, 3) for t in times[label]]} "
-                   f"(best {min(times[label]):.3f}) | {cs.CARD}")
+                   f"(best {min(times[label]):.3f}){extra} | {cs.CARD}")
             summary.setdefault(cell, {})[label] = min(times[label])
     cs.log(f"kernel_variants wall {time.time() - t0:.1f} s")
     print(json.dumps({"card": cs.CARD, "best_ms": summary}))

@@ -217,7 +217,7 @@ def test_kernel_matches_plain_in_the_tlas_and_bf16_instantiations(cuda_scene,
         assert agree >= 0.995, (trips, agree)
     lane, ctx = _plain_start(scene, args)
     _trips, work = mega_cuda.launch(mega_cuda.pack(lane), ctx, None)
-    assert work.shape[0] == (5 if scene.mega_tlas else 3)
+    assert work.shape[0] == (6 if scene.mega_tlas else 4)
     if scene.mega_tlas:
         assert int(work[3].sum()) > 0 and int(work[4].sum()) > 0
     sk, sp = {}, {}
@@ -837,7 +837,10 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
     def expected(trips, work):
         t, w = trips.long().cpu(), work.long().cpu()
         return [int(w[0].sum()), int(w[1].sum()), int(w[2].sum()),
-                int(t.sum()), int(t.max()) * t.numel()]
+                int(t.sum()), int(t.max()) * t.numel(), int(w[-1].sum())]
+
+    def groups_bound(c):  # a group holds 1 to 32 completing lanes
+        return -(-c[2] // 32) <= c[5] <= c[2]
 
     def counters():
         c = P.totals()["counts"]
@@ -847,6 +850,7 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
     P.reset()
     _, whole, _ = run_megakernel(scene, body_backend="cuda", **args)
     assert counters() == expected(*seen[0]) and counters()[2] == whole
+    assert groups_bound(counters())
     syncs_whole = P.totals()["counts"]["host_syncs"]
 
     P.reset()
@@ -859,39 +863,125 @@ def test_b1_work_counters_add_up_on_a_glass_scene(cuda_scene, monkeypatch):
     resumed = counters()
     assert resumed == expected(*seen[2])
     assert fresh[2] + resumed[2] == whole
+    assert groups_bound(fresh) and groups_bound(resumed) and fresh[5] > 0
     assert 0 < resumed[3] < resumed[4]  # some lanes finish before others
 
     monkeypatch.setattr(mega_cuda, "work_counts",
                         lambda trips, work: trips.max().long().view(1))
     P.reset()
     _, again, _ = run_megakernel(scene, body_backend="cuda", **args)
-    assert again == whole and counters() == [0] * 5
+    assert again == whole and counters() == [0] * len(mega_cuda.WORK_COUNTERS)
     assert P.totals()["counts"]["host_syncs"] == syncs_whole
 
 
-def test_kernel_matches_plain_on_a_natively_built_glass_layout(cuda_scene):
-    """glass-cornell's layout at a test size: an identity Glassy model of
-    512 triangles and the box's two-sided quads in one fused static BVH,
-    built natively, the one-sided front quad inline. B1's lanes after 1,
-    4 and 16 trips and at the end equal the plain version's in every
-    word, and so does the frame."""
-    from tpurt_torch.scene.presets import scene_around
+def _plain_walk(lane, ctx, stops):
+    """The plain version's lanes stepped one trip at a time to the end:
+    {stop: (lanes, trips each lane ran, its work rows)} after each of
+    ``stops`` trips (None: at the end). The work rows are what B1 counts
+    for those trips, from the bank rows the lanes stood at: child-box
+    tests (the slots of a node row with a child, from the lane's resume
+    priority on, in its direction's order), leaf rows, segments, and in
+    the TLAS regime instance enters and exits."""
+    ints = ctx.rows.view(torch.int32)
+    slots = torch.arange(ctx.arity, device=ints.device)
+    metas = ints[:, (10 + 4 * slots) if ctx.bf16 else (9 + 3 * slots)]
+    axes = ints[:, 6]
+    n = lane.done.shape[0]
+    trips = torch.zeros(n, dtype=torch.int32, device=ints.device)
+    work = torch.zeros((5 if ctx.tlas else 3, n), dtype=torch.int64,
+                       device=ints.device)
+    out, cur, k = {}, lane, 0
+    while True:
+        work[2] = (cur.segments - lane.segments).long()
+        if k in stops:
+            out[k] = (cur, trips.clone(), work.clone())
+        if bool(cur.done.all()):
+            out[None] = (cur, trips.clone(), work.clone())
+            return out
+        live = ~cur.done
+        at = live & (cur.entry < ctx.e_count) & (cur.cur >= 0)
+        inst = at & cur.cur_inst if ctx.tlas else torch.zeros_like(at)
+        node = at & ~cur.cur_leaf & ~inst
+        row = cur.cur.clamp(min=0).long()
+        ax = axes[row]
+        d = torch.where(ax == 0, cur.ld.x, torch.where(ax == 1, cur.ld.y, cur.ld.z))
+        prio = torch.where((d >= 0)[:, None], slots, ctx.arity - 1 - slots)
+        tested = (metas[row] != 0) & (prio >= cur.cur_slot[:, None].long())
+        work[0] += node.long() * tested.sum(1)
+        work[1] += (at & cur.cur_leaf & ~inst).long()
+        if ctx.tlas:
+            work[3] += (inst & ~cur.in_inst).long()
+            work[4] += (inst & cur.in_inst).long()
+        trips += live.to(torch.int32)
+        cur = mk.run_plain(cur, ctx, 1)
+        k += 1
 
-    b = SceneBuilder()
-    knot = b.add_triangles(*procedural.torus_knot(segments=32, sides=8,
-                                                  radius=80.0, tube=22.0))
-    scene, cam = scene_around(b, knot, GLASS, device="cuda")
-    assert scene.mega_chain == ((-1, 0, False),) and scene.mesh_identity[7]
-    assert scene.mega_static_rows.shape[0] == 2
-    args = flat_batch_args(scene, cam, GLASS, 0)
-    for trips in (1, 4, 16, None):
-        st = [run_megakernel(scene, body_backend=be, max_iterations=trips,
-                             return_state=True, **args) for be in ("plain", "cuda")]
-        a, k = (mega_cuda.pack(x) for x in st)
-        diff = (a != k).any(dim=1).nonzero().flatten().tolist()
-        assert not diff, (trips, [mega_cuda.LANE_WORDS[j] if j < len(
+
+@pytest.mark.parametrize("which", ["u8", "bf16", "tlas", "deep", "jitter"])
+def test_kernel_matches_plain_on_a_natively_built_glass_layout(cuda_scene, which):
+    """glass-cornell's layout at a test size: an identity Glassy model
+    of 512 triangles and the box's two-sided quads in one fused static
+    BVH, built natively, the one-sided front quad inline (with u8 or
+    bf16 node bounds; "deep": its lanes with a 72-word stack budget,
+    which B1's deep-stack instantiation runs; "jitter": through B1's
+    jitter library); "tlas": tpurt's K = 12 instance grid of
+    icosphere(1), every instance Glassy, seen from close by. A glass
+    segment walks many rows, so B1's launches stopped after 1, 2, 3, 4,
+    5, 8, 13 and 16 trips stop lanes mid-walk: its lanes there and at
+    the end equal the plain version's in every word, each lane's trips
+    and its work rows (box tests, leaf rows, segments; instance enters
+    and exits) equal those the plain version's trips make, and its
+    completion groups hold 1 to 32 completing lanes each. On the u8
+    layout the frame is the plain version's too."""
+    from tpurt_torch.scene.presets import GRID_MATERIALS, scene_around
+
+    cfg = GLASS.replace(subpixel_jitter=which == "jitter")
+    old = config.MEGA_BF16_BOUNDS
+    config.MEGA_BF16_BOUNDS = which == "bf16"
+    try:
+        if which == "tlas":
+            scene = grid_scene(12, subdivisions=1, materials=(GRID_MATERIALS[3],),
+                               device="cuda")
+            cam = Camera.create((40, 97, 10), yaw=3.14, fov_degrees=40,
+                                aspect_ratio=cfg.aspect_ratio, device="cuda")
+            assert scene.mega_tlas
+        else:
+            b = SceneBuilder()
+            knot = b.add_triangles(*procedural.torus_knot(
+                segments=32, sides=8, radius=80.0, tube=22.0))
+            scene, cam = scene_around(b, knot, cfg, device="cuda")
+            assert scene.mega_chain == ((-1, 0, False),) and scene.mesh_identity[7]
+            assert scene.mega_static_rows.shape[0] == 2
+    finally:
+        config.MEGA_BF16_BOUNDS = old
+    assert scene.mega_bounds_fmt == ("bf16" if which == "bf16" else "u8")
+    lane, ctx = _plain_start(scene, flat_batch_args(scene, cam, cfg, 0))
+    if which == "deep":
+        empty = torch.full_like(lane.stack[0], 0xFFFFFFFF)
+        extra = 72 - ctx.s_depth
+        lane = lane._replace(stack=lane.stack + (empty,) * extra)
+        ctx = ctx._replace(s_depth=72)
+        assert mega_cuda.deep_stack(ctx)
+    assert ctx.jitter == (which == "jitter")
+    stops = (1, 2, 3, 4, 5, 8, 13, 16)
+    walk = _plain_walk(lane, ctx, stops)
+    assert int(walk[None][1].max()) > 16  # the batch runs past the stops
+    buf0 = mega_cuda.pack(lane)
+    for k in stops + (None,):
+        plain, ptrips, pwork = walk[k]
+        buf = buf0.clone()
+        trips, work = mega_cuda.launch(buf, ctx, k)
+        want = mega_cuda.pack(plain)
+        diff = (buf != want).any(dim=1).nonzero().flatten().tolist()
+        assert not diff, (k, [mega_cuda.LANE_WORDS[j] if j < len(
             mega_cuda.LANE_WORDS) else j for j in diff])
-    frames = [render_frame(scene, cam, GLASS.replace(mega_body=m))
-              for m in ("xla", "pallas")]
-    np.testing.assert_array_equal(*frames)
-    assert frames[0].max() > 0.0
+        assert torch.equal(trips, ptrips), k
+        assert work.shape[0] == pwork.shape[0] + 1
+        assert torch.equal(work[:-1].long(), pwork), k
+        segs, groups = int(work[2].sum()), int(work[-1].sum())
+        assert -(-segs // 32) <= groups <= segs, (k, segs, groups)
+    if which == "u8":
+        frames = [render_frame(scene, cam, cfg.replace(mega_body=m))
+                  for m in ("xla", "pallas")]
+        np.testing.assert_array_equal(*frames)
+        assert frames[0].max() > 0.0

@@ -121,25 +121,29 @@ def test_the_model_fields_refuse_what_no_material_is(bad):
         RenderConfig(**bad)
 
 
-def test_work_counts_sum_the_launchs_own_rows():
-    """``work_counts``: the most trips, the sums of the first three work
-    rows and of the trips, and lanes x the most trips; the TLAS regime's
-    instance rows are not summed. Where every lane ran as many trips as
-    the longest, no slot is idle."""
+@pytest.mark.parametrize("rows", [4, 6])
+def test_work_counts_sum_the_launchs_own_rows(rows):
+    """``work_counts`` on a launch's (4, R) work, or the TLAS regime's
+    (6, R): the most trips, the sums of the first three work rows and of
+    the trips, lanes x the most trips, and the sum of the last row, the
+    completion groups; the TLAS regime's instance rows (3 and 4) are not
+    summed. Where every lane ran as many trips as the longest, no slot is
+    idle."""
     rng = np.random.default_rng(3)
     trips = torch.from_numpy(rng.integers(0, 40, 1000).astype(np.int32))
-    work = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, (5, 1000))
+    work = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, (rows, 1000))
                             .astype(np.int32))
     got = mega_cuda.work_counts(trips, work).tolist()
     w = work.numpy().astype(np.int64)
     t = trips.numpy().astype(np.int64)
     assert got == [t.max(), w[0].sum(), w[1].sum(), w[2].sum(), t.sum(),
-                   1000 * t.max()]
-    assert got[1] > 2 ** 31  # summed in 64 bits
+                   1000 * t.max(), w[rows - 1].sum()]
+    assert got[1] > 2 ** 31 and got[6] > 2 ** 31  # summed in 64 bits
     even = mega_cuda.work_counts(torch.full((64,), 9, dtype=torch.int32),
-                                 work[:3, :64]).tolist()
+                                 work[:, :64]).tolist()
     assert even[4] == even[5] == 9 * 64
     assert len(mega_cuda.WORK_COUNTERS) == len(got) - 1
+    assert mega_cuda.WORK_COUNTERS[-1] == "b1.completion_warps"
 
 
 def _reader(name):
@@ -174,4 +178,26 @@ def test_the_readers_of_b1s_counters():
     profiling.count("b1.segments", 1000)  # outside the profiler: not read
     vals = [_reader(n)(run) for n in names]
     assert vals == [120 / (2 * 4 * 2 * 5), 100.0 * (1 - 300 / 400), 600 / 120]
+    profiling.reset()
+
+
+def test_the_reader_of_lanes_per_completion():
+    """``lanes_per_completion.stream``: the segments B1 completed over
+    its completion groups, counted while a profiler recorded; nothing
+    where the groups were not counted, as in a program before the
+    counter, or where nothing was profiled."""
+    read = _reader("lanes_per_completion.stream")
+    run = types.SimpleNamespace(profiled=lambda: [0], width=4, height=2,
+                                traffic={"spp": 5})
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.count("b1.segments", 1200)
+    assert read(run) is None  # no b1.completion_warps
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.count("b1.segments", 1200)
+        profiling.count("b1.completion_warps", 96)
+    profiling.count("b1.completion_warps", 1000)  # outside the profiler: not read
+    assert read(run) == 1200 / 96
+    assert read(types.SimpleNamespace(profiled=lambda: [])) is None
     profiling.reset()

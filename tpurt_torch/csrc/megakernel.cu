@@ -54,7 +54,11 @@
 // replaced; PERF.md (§5, §6) has those times, ptxas's registers and
 // spills and the static memory instructions of each instantiation. The
 // remaining limit is divergence: a warp's lanes take different branches
-// and rows. Reordering rays into coherent wavefronts is later work.
+// and rows. Against the costliest of it, a segment completion run for the
+// few lanes of a warp whose walks just ended, the warp steps its walking
+// lanes on while enough of them walk (kMinWalkers), and its lanes then
+// complete their segments together. Reordering rays into coherent
+// wavefronts is later work.
 //
 // Numerics: built with -fmad=false and without fast math, so every
 // a*b+c stays a rounded multiply and a rounded add, divisions and
@@ -66,10 +70,12 @@
 // Lane state crosses the C boundary as one (n_fields, R) buffer of
 // 32-bit words; the field order is enum Field below, mirrored by
 // LANE_WORDS in render/mega_cuda.py (a CPU test holds the two equal).
-// Beside it the kernel writes each lane's trips and a (3, R) count of
+// Beside it the kernel writes each lane's trips and a (4, R) count of
 // its work in this launch: child-box tests in node rows, leaf rows (in
 // dense mode: entry sweeps), segment completions — from which the
-// caller computes the launch's operation count.
+// caller computes the launch's operation count — and the completion
+// groups its thread counted (the TLAS instantiation: (6, R), instance
+// enters and exits before the groups).
 //
 // The brute-force mode (RenderConfig.mega_dense) is a second
 // instantiation of the same kernel, megakernel<true, ...>: its traversal
@@ -168,6 +174,14 @@ constexpr float kTau = 6.28318530717958647692f;
 // and teapot batches (kernel_variants.py; PERF.md).
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 6;
+// The BVH kernel's warps keep stepping the lanes that are mid-walk
+// (their trip's tail passes complete no segment) while at least this
+// many of the warp's lanes are, so that the lanes whose walks ended
+// complete their segments together (the trip loop in megakernel<false>).
+// 33: never, a lane's tail follows each of its steps; 1: until every
+// walk of the warp has ended. The fastest of the variants timed on the
+// glass and bunny batches (kernel_variants.py "b1-walkers-<k>"; PERF.md).
+constexpr int kMinWalkers = 10;
 constexpr int kDenseThreads = 256;
 constexpr int kDenseMinBlocks = 4;
 constexpr int kDenseSweepUnroll = 1;
@@ -498,8 +512,10 @@ struct Lane {
   int stride, head, sp;
   // This launch's work on the lane (not lane state): child-box tests,
   // leaf rows (dense: entry sweeps), segment completions, instance
-  // enters and exits.
-  int n_box, n_leaf, n_seg, n_enter, n_exit;
+  // enters and exits, and the completion groups its thread counted
+  // (tail(): the lowest thread of each group of a warp's threads that
+  // complete a segment together counts one).
+  int n_box, n_leaf, n_seg, n_enter, n_exit, n_group;
   __device__ uint32_t& slot(int k) {
     if constexpr (kDeep) {
       return stk[(size_t)k * stride];
@@ -586,7 +602,7 @@ __device__ __forceinline__ void load_lane(Lane<kDeep, kS>& L, const X& x, int st
   for (int k = 0; k < sp; ++k) L.slot(sp - 1 - k) = s.w(stack_base + k);
   L.sp = sp;
   L.head = sp == depth ? 0 : sp;
-  L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = 0;
+  L.n_box = L.n_leaf = L.n_seg = L.n_enter = L.n_exit = L.n_group = 0;
 }
 
 template <bool kTlas, bool kDeep, int kS, class X>
@@ -1149,10 +1165,20 @@ __device__ __forceinline__ int slot_frame(const MkCfg& c, int pixno) {
   return c.frames > 1 ? c.frame_index + pixno / c.ppf : c.frame_index;
 }
 
+// The zero contribution a tail pass that ends no path adds to acc, once
+// (Lane::acc_raw).
+template <class Ln, class X>
+__device__ __forceinline__ void add_zero_once(const X& x, Ln& L) {
+  if (L.acc_raw) {
+    x.cold.put(ACC_X, x.cold.v(ACC_X) + v3(0.0f, 0.0f, 0.0f));
+    L.acc_raw = false;
+  }
+}
+
 // Segment completion: shade -> accumulate/advance -> restart -> static
 // stage -> chain enter (pretest, chain skip, root expansion). A pass on a
 // lane that completes no segment touches no cold word but, once after
-// a path's end, acc (Lane::acc_raw), unless it enters the next chain
+// a path's end, acc (add_zero_once), unless it enters the next chain
 // entry.
 template <bool kTlas, class Ln, class X>
 __device__ __forceinline__ void tail(const X& x, Ln& L, bool entering_in, bool do_expand) {
@@ -1162,10 +1188,7 @@ __device__ __forceinline__ void tail(const X& x, Ln& L, bool entering_in, bool d
   const V zero = v3(0.0f, 0.0f, 0.0f);
   V origin, direction;
   if (L.done || L.entry < E) {
-    if (L.acc_raw) {
-      C.put(ACC_X, C.v(ACC_X) + zero);
-      L.acc_raw = false;
-    }
+    add_zero_once(x, L);
     if (E == 0 || !entering_in) return;
     origin = C.v(ORIGIN_X);
     direction = C.v(DIRECTION_X);
@@ -1178,6 +1201,9 @@ __device__ __forceinline__ void tail(const X& x, Ln& L, bool entering_in, bool d
     }
     C.w(SEGMENTS) += 1u;
     ++L.n_seg;
+    // One completion group: the threads of the warp that run this
+    // completion together; its lowest thread counts it.
+    L.n_group += (threadIdx.x & 31u) == (unsigned)(__ffs(__activemask()) - 1);
     const int shaded = shade_hit(x);
     bool continuing = (shaded & kContinuing) != 0;
     if (shaded & kInvisible) {
@@ -1327,7 +1353,8 @@ __device__ __forceinline__ int take_lane(int* queue) {
 struct Out {
   uint32_t* state;
   int* trips;  // (R,) trips each lane ran in this launch
-  int* work;   // (3, R) Lane::n_box, n_leaf, n_seg; TLAS: (5, R), + n_enter, n_exit
+  int* work;   // (4, R) Lane::n_box, n_leaf, n_seg, n_group; TLAS: (6, R),
+               // n_enter and n_exit before n_group
   int* queue;  // next unstarted lane index
 };
 
@@ -1344,6 +1371,7 @@ __device__ __forceinline__ void retire(const X& x, Ln& L, int trips, const Out& 
     o.work[3 * n + i] = L.n_enter;
     o.work[4 * n + i] = L.n_exit;
   }
+  o.work[(kTlas ? 5 : 3) * n + i] = L.n_group;
 }
 
 // Takes lanes from the queue until one needs a trip (retiring any that
@@ -1412,7 +1440,24 @@ __global__ void __launch_bounds__(kDense ? kDenseThreads : kThreads,
     while (take_live<kTlas>(x, L, o, stack_base, ring)) {
       int trips = 0;
       do {
-        const bool in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
+        // A step that leaves its lane mid-walk (no fold into the next
+        // entry, the chain not finished) makes a trip whose tail passes
+        // only add acc's zero: the lane runs that and steps again, for
+        // as long as kMinWalkers of the warp's lanes do so; a lane whose
+        // walk ended waits for the warp to leave the loop, so that the
+        // lanes at trip_tail complete their segments together. A lane's
+        // trips are the same trips in the same order.
+        bool in_chain = false, step = true;
+        for (;;) {
+          if (step) in_chain = E > 0 && traverse_rows<kTlas, kBf16>(x, L);
+          step = step && !in_chain && L.entry < E && L.cur >= 0 && trips + 1 < c.max_trips;
+          if (kMinWalkers > 32 || __popc(__ballot_sync(__activemask(), step)) < kMinWalkers)
+            break;
+          if (step) {
+            add_zero_once(x, L);
+            ++trips;
+          }
+        }
         trip_tail<kTlas>(x, L, in_chain);
         ++trips;
       } while (!L.done && trips < c.max_trips);

@@ -111,15 +111,20 @@ _TLAS_FIELDS = [("in_inst", "b"), ("cur_inst", "b"), ("inst_mesh", "i"),
                 ("inst_scale", "f"), ("inst_cull", "b"), ("inst_os", "b")]
 TLAS_WORDS: List[str] = [name for name, _kind in _TLAS_FIELDS]
 #: Rows of the per-lane work count a launch returns: the first three, and
-#: in the TLAS regime all five.
+#: in the TLAS regime all five; then in either the completion groups, the
+#: segment completions a lane's thread counted as the lowest thread of
+#: the group of its warp's threads that completed them together, so that
+#: the row's sum is the launch's groups and the segments over it the
+#: lanes a group (1 to 32).
 WORK_ROWS = ("box tests", "leaf rows", "segments", "instance enters",
              "instance exits")
 #: Counters of B1's own work a launch adds (``work_counts``): the sums
 #: of its first three ``WORK_ROWS`` over the lanes, the trips the lanes
-#: ran, and the lanes times the most trips a lane ran (the lane-trip
-#: slots of the launch, finished lanes' too).
+#: ran, the lanes times the most trips a lane ran (the lane-trip slots
+#: of the launch, finished lanes' too), and the sum of the completion
+#: groups (the last row).
 WORK_COUNTERS = ("b1.box_tests", "b1.leaf_rows", "b1.segments",
-                 "b1.lane_trips", "b1.lane_trip_slots")
+                 "b1.lane_trips", "b1.lane_trip_slots", "b1.completion_warps")
 _CACHE_FIELDS = ("c_set", "c_valid", "c_point", "c_normal", "c_back",
                  "c_mesh", "c_dst")
 
@@ -401,10 +406,11 @@ def _check_buffer(buf: torch.Tensor, ctx: mk._Ctx):
 
 def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
     """Run the kernel in place on a packed CUDA lane buffer; returns the
-    (R,) int32 trips each lane ran and the (3, R) int32 work of each
+    (R,) int32 trips each lane ran and the (4, R) int32 work of each
     lane in this launch (``WORK_ROWS``): child-box tests in node rows,
-    leaf rows (dense: entry sweeps), segment completions; in the TLAS
-    regime (5, R), with instance enters and exits."""
+    leaf rows (dense: entry sweeps), segment completions, completion
+    groups; in the TLAS regime (6, R), with instance enters and exits
+    before the completion groups."""
     global LAUNCHES, DENSE_LAUNCHES, JITTER_LAUNCHES
     _check_buffer(buf, ctx)
     r = buf.shape[1]
@@ -417,7 +423,7 @@ def launch(buf: torch.Tensor, ctx: mk._Ctx, max_trips: Optional[int]):
         cfg.cam_rot[:] = [float(v) for v in rot.reshape(9)]
         cfg.cam_tan, cfg.cam_aspect = float(tan), float(aspect)
     trips = torch.empty(r, dtype=torch.int32, device=dev)
-    work = torch.empty((5 if ctx.tlas else 3, r), dtype=torch.int32, device=dev)
+    work = torch.empty((6 if ctx.tlas else 4, r), dtype=torch.int32, device=dev)
     queue = torch.zeros(1, dtype=torch.int32, device=dev)
     stack = torch.empty((ctx.s_depth, r) if cfg.deep else (1,),
                         dtype=torch.int32, device=dev)
@@ -494,13 +500,14 @@ def fresh(ctx: mk._Ctx, ro0: V3, rd0: V3, pix: torch.Tensor) -> torch.Tensor:
 
 
 def work_counts(trips: torch.Tensor, work: torch.Tensor) -> torch.Tensor:
-    """(6,) int64 on the launch's device, from its (R,) ``trips`` and
-    (3 or 5, R) ``work`` (R > 0): the most trips a lane ran, then the
+    """(7,) int64 on the launch's device, from its (R,) ``trips`` and
+    (4 or 6, R) ``work`` (R > 0): the most trips a lane ran, then the
     ``WORK_COUNTERS``' launch totals."""
     t = trips.to(torch.int64)
     top = t.max().view(1)
     sums = torch.cat([work[:3].to(torch.int64), t.view(1, -1)]).sum(1)
-    return torch.cat([top, sums, top * t.numel()])
+    groups = work[-1].to(torch.int64).sum().view(1)
+    return torch.cat([top, sums, top * t.numel(), groups])
 
 
 def run(lane, ctx: mk._Ctx, max_iterations: Optional[int]) -> mk._Lane:
